@@ -1,0 +1,58 @@
+"""Carry state across from the JAX package.
+
+There are no weights: the state of a search is the target key planes,
+the per-mask plan arrays and the interval and rank tables. These helpers
+turn the JAX package's arrays (device arrays or numpy outputs; anything
+``np.asarray`` accepts, so jax is never imported here) into the port's
+tensors on a given device, bit-exact: uint32 tables become int32 tensors
+holding the same bits (torch's uint32 lacks most operations), uint16
+index arrays widen to int32, everything else keeps its dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def as_tensor(arr, device: torch.device) -> torch.Tensor:
+    """One array -> a contiguous tensor on `device` (see module doc)."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.uint16:
+        a = a.astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def key_planes(planes, device: torch.device) -> torch.Tensor:
+    """int32 [P+1, T] rank-key planes (e.g. the JAX package's
+    pack_target_planes_keys / pack_target_planes_keys_sparse output)."""
+    t = as_tensor(planes, device)
+    if t.dtype != torch.int32 or t.dim() != 2:
+        raise ValueError(f"expected int32 [P+1, T] planes, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def union_plan(plan, device: torch.device) -> dict:
+    """A UnionKeyPlan's array fields (either package's) -> {field: tensor};
+    fields that are None on the plan are left out."""
+    return {f.name: as_tensor(getattr(plan, f.name), device)
+            for f in dataclasses.fields(plan)
+            if isinstance(getattr(plan, f.name), np.ndarray)}
+
+
+def stacked_args(args, device: torch.device) -> tuple:
+    """The tuple of stack_union_plan_args / stack_union_pos_args: every
+    array -> tensor; the trailing static u2 (an int) passes through."""
+    return tuple(a if isinstance(a, (int, np.integer)) or a is None
+                 else as_tensor(a, device) for a in args)
+
+
+def interval_tables(tabs, device: torch.device) -> tuple:
+    """interval_table_arrays' (lo, span) uint32 [2, n_keys] -> int32
+    tensors with the same bits."""
+    return tuple(as_tensor(t, device) for t in tabs)

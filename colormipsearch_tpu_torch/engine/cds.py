@@ -1,0 +1,806 @@
+"""Color depth search engine (pixel-match pass) on one PyTorch device.
+
+The port of the JAX package's engine/cds.py in its default
+configuration, replacing the reference's per-pair threaded loop
+(cmd/cdsprocess/LocalColorMIPSearchProcessor.java:51-124):
+
+  * targets are decoded once per shard and packed into pixel-major int32
+    rank-key planes resident on the device (sparse COO upload + K1),
+  * each mask is compiled into a full-union plan (one dilated union of
+    every shifted query position, each shift an interval lane) and a
+    batch of masks is scored against a whole target shard in one kernel
+    launch (K3), after its lane tables are expanded on the device from
+    the compact positional wire form (K2),
+  * with a positive pctPositivePixels only a per-mask top-k (K4) travels
+    back, with a lossless dense fallback when a dropped pair could
+    still emit,
+  * matches are assembled into CDMatch entities with the semantics of
+    AbstractColorMIPSearchProcessor.findPixelMatch:59-90 (matchingPixels,
+    matchingPixelsRatio == initial normalizedScore, mirrored, isMatch
+    filter from ColorMIPSearch.isMatch:42-45).
+
+The verdicts are exact (the interval tables are bisected against the
+float64 oracle), so scores are bit-identical to the JAX package.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import logging
+import os
+import threading
+import time
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from colormipsearch_tpu_torch import convert
+from colormipsearch_tpu_torch.io import mips as mips_io
+from colormipsearch_tpu_torch.model import (
+    CDMatch,
+    ComputeFileType,
+    Neuron,
+    ProcessingType,
+)
+from colormipsearch_tpu_torch.oracle.pixel import (
+    label_regions_mask,
+    shift_offsets,
+)
+from colormipsearch_tpu_torch.ops import common, pixel_match
+from colormipsearch_tpu_torch.utils.metrics import GLOBAL as _METRICS
+
+LOG = logging.getLogger(__name__)
+
+
+def not_ported(what: str, later: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet; it comes with the "
+        f"'{later}' slice (ROADMAP.md, port item 1)")
+
+
+@dataclasses.dataclass
+class CDSParams:
+    """Shared CDS parameters (cmd/AbstractColorDepthMatchArgs.java)."""
+    mask_threshold: int = 100
+    data_threshold: int = 100
+    pix_color_fluctuation: float = 2.0
+    xy_shift: int = 0
+    mirror_mask: bool = False
+    pct_positive_pixels: float = 0.0
+    negative_radius: int = 20
+    border_size: int = 0
+    with_name_label_region: bool = False
+    with_color_scale_region: bool = False
+    processing_partition_size: int = 100
+
+    def __post_init__(self):
+        if self.xy_shift % 2 != 0:
+            # reference validates xyShift is even (factory :59-61)
+            raise ValueError("xyShift must be an even value")
+        if not (float(self.pix_color_fluctuation) >= 0):
+            # the interval tables' exactness proofs cover z >= 0 only
+            raise ValueError("pixColorFluctuation must be >= 0")
+
+    def excluded_region(self, height: int, width: int) -> np.ndarray | None:
+        if not (self.with_name_label_region or self.with_color_scale_region):
+            return None
+        return label_regions_mask(
+            width, height,
+            with_name_label=self.with_name_label_region,
+            with_color_scale_label=self.with_color_scale_region)
+
+    def as_map(self) -> dict:
+        """CDS parameter audit map (ColorMIPSearch.getCDSParameters)."""
+        return {
+            "mirrorMask": str(self.mirror_mask),
+            "dataThreshold": str(self.data_threshold),
+            "pixColorFluctuation": str(self.pix_color_fluctuation),
+            "xyShift": str(self.xy_shift),
+            "negativeRadius": str(self.negative_radius),
+            "borderSize": str(self.border_size),
+            "pctPositivePixels": str(self.pct_positive_pixels),
+            "defaultMaskThreshold": str(self.mask_threshold),
+        }
+
+
+@dataclasses.dataclass
+class TargetShard:
+    """Rank-key planes of one image shape, device-resident.
+
+    Shards after the first hold their decoded uint8 stack on the HOST
+    (``host_stack``) until the consumer packs them, so only one packed
+    plane set is ever resident on the device (ensure_planes)."""
+    neurons: list[Neuron]
+    shape: tuple[int, int]                 # (H, W)
+    planes: torch.Tensor | None            # int32 [P+1, t_pad]
+    device: torch.device
+    file_type: ComputeFileType = ComputeFileType.InputColorDepthImage
+    packed_threshold: int = 0
+    # padded target-axis width (kernel shape)
+    t_pad: int = 0
+    host_stack: np.ndarray | None = None
+
+    def __post_init__(self):
+        if not self.t_pad and self.planes is not None:
+            self.t_pad = self.planes.shape[1]
+
+    @property
+    def count(self) -> int:
+        return len(self.neurons)
+
+    def ensure_planes(self) -> None:
+        """Pack the deferred host stack onto the device (no-op for
+        eagerly-packed shards).  Callers release the PREVIOUS shard
+        first so only one packed plane set is ever resident."""
+        if self.planes is not None or self.host_stack is None:
+            return
+        t0 = time.time()
+        self.planes = _pack_target_stack(self.host_stack, self.t_pad,
+                                         self.packed_threshold, self.device)
+        _METRICS.add("cds.packUpload.seconds", time.time() - t0)
+        self.host_stack = None
+
+    def release(self) -> None:
+        """Drop this shard's device planes so the next shard's pack has
+        the memory."""
+        self.planes = None
+        self.host_stack = None
+
+    def host_rgb(self, t_idx: int) -> np.ndarray:
+        """Re-decode one target's RGB (host-side rescoring)."""
+        from colormipsearch_tpu_torch.io import cache as mips_cache
+
+        mip = mips_cache.load_mip(self.neurons[t_idx], self.file_type)
+        return mip.image.as_rgb()
+
+
+def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
+                       pack_threshold: int,
+                       file_type: ComputeFileType =
+                       ComputeFileType.InputColorDepthImage,
+                       tile_size: int = 4096,
+                       defer_pack: bool = False) -> list[TargetShard]:
+    """Decode target CDMs and pack them into device key planes, grouped
+    by image shape and tiled to bound single-allocation size.
+
+    Same-shape RGB TIFF/PNG batches go through the native multithreaded
+    decoder (io/native_decoder.py) when it is available; everything else
+    decodes one image at a time (io/image.py).
+    """
+    from colormipsearch_tpu_torch.io import native_decoder
+
+    native_ok = native_decoder.available()
+    by_shape: dict[tuple[int, int], tuple[list[Neuron], list]] = {}
+    pending: dict[tuple[int, int], tuple[list[Neuron], list[bytes]]] = {}
+    skipped = 0
+    t_decode0 = time.time()
+    for n in targets:
+        fd = n.compute_file(file_type)
+        if fd is None:
+            skipped += 1
+            continue
+        blob = None
+        if native_ok:
+            try:
+                blob = mips_io.read_bytes(fd)
+            except (OSError, FileNotFoundError):
+                skipped += 1
+                continue
+            info = native_decoder.img_info(blob)
+            if info is not None and info[2] == 3 and info[3] == 8:
+                w, h = info[0], info[1]
+                pending.setdefault((h, w), ([], []))[0].append(n)
+                pending[(h, w)][1].append(blob)
+                continue
+        mip = mips_io.load_compute_file(n, file_type) if blob is None \
+            else mips_io.NeuronMIP(n, fd, _decode_or_none(blob))
+        if not mip.has_image:
+            skipped += 1
+            continue
+        rgb = mip.image.as_rgb()
+        by_shape.setdefault(rgb.shape[:2], ([], []))[0].append(n)
+        by_shape[rgb.shape[:2]][1].append(rgb)
+
+    # batch-decode the native-eligible groups
+    for (h, w), (neurons, blobs) in pending.items():
+        arena, ok = native_decoder.decode_img_batch(
+            blobs, width=w, height=h, channels=3)
+        dst = by_shape.setdefault((h, w), ([], []))
+        for i, n in enumerate(neurons):
+            if not ok[i]:
+                # per-image fallback: the native decoder rejects some
+                # valid encodings (e.g. interlaced PNG)
+                img = _decode_or_none(blobs[i])
+                if img is None:
+                    skipped += 1
+                    continue
+                dst[0].append(n)
+                dst[1].append(img.as_rgb())
+                continue
+            dst[0].append(n)
+            dst[1].append(arena[i])
+    if skipped:
+        LOG.warning("skipped %d targets with missing/corrupt images", skipped)
+    _METRICS.add("cds.decodeTargets.seconds", time.time() - t_decode0)
+
+    shards = []
+    for shape, (neurons, rgbs) in by_shape.items():
+        for i in range(0, len(neurons), tile_size):
+            stack = np.stack(rgbs[i:i + tile_size])
+            shard = TargetShard(
+                neurons[i:i + tile_size], shape, None, device,
+                file_type=file_type, packed_threshold=pack_threshold,
+                t_pad=_target_bucket(stack.shape[0]), host_stack=stack)
+            if not defer_pack:
+                # the first shard packs while the masks prep
+                shard.ensure_planes()
+            shards.append(shard)
+    return shards
+
+
+def _pack_target_stack(stack: np.ndarray, t_pad: int, pack_threshold: int,
+                       device: torch.device) -> torch.Tensor:
+    """Pack a decoded uint8 [T, H, W, 3] stack into device key planes
+    (sparse COO upload of the ~2% foreground + K1)."""
+    return common.pack_target_planes_keys_sparse(
+        stack, pack_threshold, common.rank_lut_tensor(device), t_pad,
+        device)
+
+
+def _target_bucket(t: int, minimum: int = 32) -> int:
+    n = minimum
+    while n < t:
+        n *= 2
+    return n
+
+
+def _trim_per_mask(matches: list[CDMatch], k: int) -> list[CDMatch]:
+    """Keep the k best matches (by matchingPixels desc) per mask."""
+    by_mask: dict[int, list[CDMatch]] = {}
+    for m in matches:
+        by_mask.setdefault(id(m.mask_image), []).append(m)
+    out: list[CDMatch] = []
+    for ms in by_mask.values():
+        ms.sort(key=lambda m: -(m.matching_pixels or 0))
+        out.extend(ms[:k])
+    return out
+
+
+def _decode_or_none(blob: bytes):
+    from colormipsearch_tpu_torch.io.image import read_image
+    try:
+        return read_image(blob)
+    except (OSError, ValueError):
+        return None
+
+
+def iter_target_shards(targets: Sequence[Neuron], *, device: torch.device,
+                       pack_threshold: int,
+                       file_type: ComputeFileType =
+                       ComputeFileType.InputColorDepthImage,
+                       tile_size: int = 4096):
+    """Stream target shards tile by tile with background prefetch.
+
+    While the device scores tile i, a worker thread decodes tile i+1.
+    Only the FIRST chunk packs eagerly; later chunks decode in the
+    prefetch thread but defer their device pack to the consumer, which
+    releases the previous shard first (one packed plane set resident).
+    """
+    chunks = [list(targets[i:i + tile_size])
+              for i in range(0, len(targets), tile_size)]
+    kw = dict(device=device, pack_threshold=pack_threshold,
+              file_type=file_type, tile_size=tile_size)
+    if len(chunks) <= 1:
+        for ci, chunk in enumerate(chunks):
+            yield from load_target_shards(chunk, defer_pack=ci > 0, **kw)
+        return
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        fut = pool.submit(load_target_shards, chunks[0], **kw)
+        for nxt in chunks[1:]:
+            shards = fut.result()
+            fut = pool.submit(load_target_shards, nxt, defer_pack=True, **kw)
+            yield from shards
+        yield from fut.result()
+    finally:
+        # on abnormal close do NOT join the in-flight next-chunk decode
+        pool.shutdown(wait=False, cancel_futures=True)
+
+
+class CDSearchEngine:
+    """All-pairs masked CDS scoring (pixel-match pass) on one device.
+
+    ``device`` is explicit: a CUDA device runs the hand-written kernels,
+    the CPU runs their plain PyTorch versions. A CUDA device without a
+    GPU is an error, never a silent CPU run.
+    """
+
+    def __init__(self, params: CDSParams, *, device: torch.device | str,
+                 use_mesh: bool | None = None,
+                 neg_query_rgb: np.ndarray | None = None,
+                 decode_concurrency: int = 8,
+                 use_key_planes: bool | None = None,
+                 use_union_keys: bool | str | None = None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {self.device} requested but CUDA is not available")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.params = params
+        _require_default_path(use_mesh, neg_query_rgb, use_key_planes,
+                              use_union_keys)
+        self.decode_concurrency = max(1, decode_concurrency)
+        self._plan_args_cache: dict = {}
+        self._plan_args_inflight: dict = {}
+        self._plan_args_lock = threading.Lock()
+        self._itabs = None  # device interval tables
+        # re-read the env at construction so in-process callers can tune
+        # the dispatch width per run
+        self.MASK_BATCH = int(os.environ.get(
+            "CDS_MASK_BATCH", str(type(self).MASK_BATCH)))
+
+    # query plans scored per kernel launch
+    MASK_BATCH = 8
+
+    def _interval_tables_device(self):
+        """The shared per-tolerance interval tables on the device
+        (uploaded once per engine)."""
+        if self._itabs is None:
+            arrs = pixel_match.interval_table_arrays(
+                float(self.params.pix_color_fluctuation) / 100.0)
+            assert arrs is not None  # positional plans exist => tables do
+            self._itabs = convert.interval_tables(arrs, self.device)
+        return self._itabs
+
+    def _stacked_union_args(self, batch, n_pixels: int):
+        """Stacked union plan tensors for one mask batch:
+        (u_pos, mu_pos, lane_lo, lane_span, u2).
+
+        Preferred: the POSITIONAL wire form (the per-lane tables are
+        expanded on the device by K2); masks with >= 65,535 query pixels
+        have no positional form and the batch then stacks the host-built
+        tables. Cached on the plans' identities, so each batch uploads
+        once for all target shards."""
+        plans = [e[2] for e in batch]
+
+        def build():
+            dev = self.device
+            pa = pixel_match.stack_union_pos_args(plans, n_pixels)
+            if pa is not None:
+                u_pos, mu_pos, q_pos, key_list, u2 = pa
+                h, w = batch[0][1]
+                offs = tuple((int(dx), int(dy)) for dx, dy
+                             in shift_offsets(self.params.xy_shift))
+                u_dev = convert.as_tensor(u_pos, dev)  # upload ONCE, reuse
+                lane_lo, lane_span = \
+                    pixel_match.expand_union_tables_from_pos(
+                        u_dev, convert.as_tensor(q_pos, dev),
+                        convert.as_tensor(key_list, dev),
+                        *self._interval_tables_device(),
+                        offsets=offs, w=w, h=h)
+                return (u_dev, convert.as_tensor(mu_pos, dev), lane_lo,
+                        lane_span, u2)
+            # plans pad to the batch's common union bucket AND interval
+            # slot count; the trailing u2 stays a host int
+            return convert.stacked_args(
+                pixel_match.stack_union_plan_args(plans, n_pixels), dev)
+
+        return self._cached_plan_args(("ukeys", n_pixels), plans, build)
+
+    # stacked plan tensors, cached so a batch re-scored against every
+    # streamed target shard uploads its plans ONCE; bounded FIFO
+    _ARGS_CACHE_MAX = 4
+
+    def _cached_plan_args(self, tag, plans, build):
+        """id()-keyed device-args cache.  Each entry pins the source
+        plan objects, so an id can only hit while its plan is alive.
+        Locked: the warm-ahead thread and the scoring thread both mutate
+        the FIFO; concurrent requesters of the SAME key share one
+        in-flight build via a per-key future."""
+        key = (tag,) + tuple(id(pl) for pl in plans)
+        with self._plan_args_lock:
+            cached = self._plan_args_cache.get(key)
+            if cached is not None and all(
+                    a is b for a, b in zip(cached[0], plans)):
+                return cached[1]
+            fut = self._plan_args_inflight.get(key)
+            if fut is None:
+                fut = concurrent.futures.Future()
+                self._plan_args_inflight[key] = fut
+                owner = True
+            else:
+                owner = False
+        if not owner:
+            return fut.result()
+        try:
+            args = build()
+        except BaseException as e:
+            fut.set_exception(e)
+            with self._plan_args_lock:
+                self._plan_args_inflight.pop(key, None)
+            raise
+        with self._plan_args_lock:
+            while len(self._plan_args_cache) >= self._ARGS_CACHE_MAX:
+                self._plan_args_cache.pop(
+                    next(iter(self._plan_args_cache)), None)
+            self._plan_args_cache[key] = (tuple(plans), args)
+            self._plan_args_inflight.pop(key, None)
+        fut.set_result(args)
+        return args
+
+    def find_all_matches(self, masks: Sequence[Neuron],
+                         targets: Sequence[Neuron], *,
+                         tags: Iterable[str] = (),
+                         session_ref_id: int | None = None,
+                         max_matches_per_mask: int = 0) -> list[CDMatch]:
+        """Score masks x targets; returns entities for found matches only
+        (LocalColorMIPSearchProcessor filters isMatchFound :110)."""
+        matches: list[CDMatch] = []
+        for chunk in self.find_all_matches_iter(
+                masks, targets, tags=tags, session_ref_id=session_ref_id,
+                max_matches_per_mask=max_matches_per_mask):
+            matches.extend(chunk)
+        if max_matches_per_mask > 0:
+            matches = _trim_per_mask(matches, max_matches_per_mask)
+        return matches
+
+    def find_all_matches_iter(self, masks: Sequence[Neuron],
+                              targets: Sequence[Neuron], *,
+                              tags: Iterable[str] = (),
+                              session_ref_id: int | None = None,
+                              max_matches_per_mask: int = 0):
+        """Streaming variant: yields lists of CDMatch per scored
+        (target tile x mask batch).  With `max_matches_per_mask`, each
+        target tile contributes at most that many matches per mask; the
+        list wrapper applies the final global per-mask trim."""
+        from colormipsearch_tpu_torch.utils.metrics import stage_timer
+
+        t0 = time.time()
+        p = self.params
+        tags = set(tags)
+
+        region_cache: dict = {}
+        region_lock = threading.Lock()
+
+        def shared_region(h, w):
+            # one region array per image shape instead of per mask
+            with region_lock:
+                key = (h, w)
+                if key not in region_cache:
+                    region_cache[key] = p.excluded_region(h, w)
+                return region_cache[key]
+
+        def prep_mask(mask):
+            mask_mip = mips_io.load_compute_file(
+                mask, ComputeFileType.InputColorDepthImage)
+            if not mask_mip.has_image:
+                LOG.warning("mask %s has no loadable image", mask.mip_id)
+                return None
+            mask_rgb = mask_mip.image.as_rgb()
+            h, w = mask_rgb.shape[:2]
+            plan = pixel_match.build_full_union_key_plan(
+                mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
+                xy_shift=p.xy_shift,
+                pix_color_fluctuation=p.pix_color_fluctuation,
+                excluded_region=shared_region(h, w), light=True)
+            if plan.query_size == 0:
+                return None
+            # batch entries: (mask, image shape, plan) — the decoded image
+            # itself is not needed once the plan exists
+            return (mask, (h, w), plan)
+
+        # start decoding + packing the FIRST target shard while the
+        # masks prep (CDS_TARGET_TILE: shard width, default 4096)
+        shard_iter = iter_target_shards(
+            list(targets), device=self.device,
+            pack_threshold=p.data_threshold,
+            tile_size=int(os.environ.get("CDS_TARGET_TILE", "4096")))
+        shard0_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        shard0_fut = shard0_pool.submit(lambda: next(shard_iter, None))
+
+        # mask prep STREAMS into shard-0 scoring: all prep futures are
+        # submitted at once; batches form as results arrive IN SUBMIT
+        # ORDER (deterministic batch composition), and each full batch
+        # scores against the first target shard while later masks are
+        # still prepping.  Remaining shards iterate the recorded batches.
+        prep_t0 = time.time()
+        prep_done_ts: list[float] = []
+
+        def prep_one(mask):
+            try:
+                return prep_mask(mask)
+            finally:
+                prep_done_ts.append(time.time())
+
+        prep_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.decode_concurrency)
+        prep_futs = [prep_pool.submit(prep_one, m) for m in masks]
+
+        def entry_key(entry):
+            _, shape, plan = entry
+            return (shape, plan.u_pos.shape[1])
+
+        def stream_batches():
+            pending: dict[tuple, list] = {}
+            for fut in prep_futs:
+                entry = fut.result()
+                if entry is None:
+                    continue
+                k = entry_key(entry)
+                pending.setdefault(k, []).append(entry)
+                if len(pending[k]) >= self.MASK_BATCH:
+                    yield k, pending.pop(k)
+            prep_pool.shutdown()
+            span = (max(prep_done_ts) - prep_t0) if prep_done_ts else 0.0
+            _METRICS.add("cds.prepMasks.seconds", span)
+            LOG.info("cds.prepMasks finished in %.2fs (overlapped with "
+                     "shard-0 scoring)", span)
+            for k, b in pending.items():
+                if b:
+                    yield k, b
+
+        n_matches = 0
+        n_targets = 0
+        n_pairs = 0
+        first_shard = None
+        all_batches: list[tuple[tuple, list]] = []
+
+        def warm(key, batch):
+            # build+upload a batch's plan tensors on a worker thread
+            # while the device scores the previous batch
+            n_px = key[0][0] * key[0][1]
+            try:
+                self._stacked_union_args(batch, n_px)
+            except Exception:  # noqa: BLE001 - warm only
+                pass  # the real call surfaces the error
+
+        def score(key, batch, shard):
+            nonlocal n_pairs, n_matches
+            out = self._score_batch(batch, shard, tags, session_ref_id,
+                                    top_k=max_matches_per_mask)
+            _METRICS.add("pairsScored", len(batch) * shard.count)
+            n_pairs += len(batch) * shard.count
+            n_matches += len(out)
+            return out
+
+        warm_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        try:
+          with stage_timer("cds.scoreAllPairs"):
+            # phase 1: shard 0 scores each mask batch as prep yields it
+            prev = None
+            for kb in stream_batches():
+                all_batches.append(kb)
+                if first_shard is None:
+                    # first usable batch: now (and only now) consume the
+                    # prefetched shard
+                    first_shard = shard0_fut.result()
+                    shard0_pool.shutdown()
+                    if first_shard is not None:
+                        first_shard.ensure_planes()
+                        n_targets += first_shard.count
+                if first_shard is None:
+                    continue  # no targets: just record batches
+                warm_pool.submit(warm, *kb)
+                if prev is not None and prev[0][0] == first_shard.shape:
+                    yield score(prev[0], prev[1], first_shard)
+                prev = kb
+            if prev is not None and first_shard is not None \
+                    and prev[0][0] == first_shard.shape:
+                yield score(prev[0], prev[1], first_shard)
+            warm_pool.shutdown()
+            if not all_batches:
+                if masks:
+                    LOG.warning(
+                        "no usable masks: every mask image failed to "
+                        "load or produced an EMPTY query (threshold %d "
+                        "over the non-excluded region — note the "
+                        "name/color-scale label regions cover "
+                        "x<330/y<100 and the right corner and are "
+                        "excluded by default)", p.mask_threshold)
+                # release shard 0's planes once its in-flight pack ends
+                shard0_fut.cancel()
+
+                def _drop(fut):
+                    if fut.cancelled() or fut.exception() is not None:
+                        return
+                    if fut.result() is not None:
+                        fut.result().release()
+
+                shard0_fut.add_done_callback(_drop)
+                return
+            # phase 2: remaining shards iterate the recorded batches;
+            # the previous shard's planes are RELEASED before the next
+            # shard packs (one packed plane set resident at a time)
+            prev_shard = first_shard
+            for shard in shard_iter:
+                if prev_shard is not None:
+                    prev_shard.release()
+                prev_shard = shard
+                n_targets += shard.count
+                matching = [kb for kb in all_batches
+                            if kb[0][0] == shard.shape]
+                if not matching:
+                    continue  # never pack a shard no batch can score
+                shard.ensure_planes()
+                with concurrent.futures.ThreadPoolExecutor(
+                        max_workers=1) as argpool:
+                    fut = None
+                    for bi, kb in enumerate(matching):
+                        if bi + 1 < len(matching):
+                            fut = argpool.submit(warm, *matching[bi + 1])
+                        yield score(kb[0], kb[1], shard)
+                        if fut is not None:
+                            fut.result()
+                            fut = None
+        finally:
+            # a scoring failure must not leave queued prep tasks grinding
+            # through mask decodes; on normal completion these are no-ops
+            prep_pool.shutdown(wait=False, cancel_futures=True)
+            warm_pool.shutdown(wait=False, cancel_futures=True)
+            shard0_pool.shutdown(wait=False, cancel_futures=True)
+        _METRICS.add("matchesFound", n_matches)
+        if n_pairs == 0 and all_batches and n_targets > 0:
+            LOG.warning(
+                "0 pairs scored: no target tile matched any mask's image "
+                "shape (the reference requires target size == query "
+                "size); mask shapes: %s",
+                sorted({k[0] for k, _ in all_batches}))
+        LOG.info("found %d matches for %d masks x %d targets in %.1fs "
+                 "(%.0f pairs/s)",
+                 n_matches, len(masks), n_targets, time.time() - t0,
+                 n_pairs / max(time.time() - t0, 1e-9))
+
+    def _emit_select_k(self, top_k: int) -> int:
+        """Device-side emit-selection width (0 = disabled).
+
+        With a positive pctPositivePixels threshold, only pairs with
+        score/querySize > pct/100 can emit (the reference's isMatch
+        filter), so a launch pulls a [B, k] per-mask top-k selection
+        instead of the dense [B, T] rows.  Lossless by construction: the
+        caller checks every mask's k-th (smallest selected) score against
+        the emit test and falls back to the dense rows if a dropped pair
+        could still emit.  CDS_EMIT_TOPK overrides the width (0
+        disables)."""
+        if top_k > 0 or self.params.pct_positive_pixels <= 0:
+            return 0
+        return max(0, int(os.environ.get("CDS_EMIT_TOPK", "256")))
+
+    def _topk_kth_emittable(self, kth: np.ndarray, batch) -> bool:
+        """True if any mask's k-th selected score passes the emit test
+        (score > 0 and score/querySize > pct/100) — a dropped pair could
+        then also pass, so the caller must pull dense."""
+        pct = self.params.pct_positive_pixels / 100.0
+        for b, e in enumerate(batch):
+            qsize = e[2].query_size
+            for s in np.ravel(kth[b]):
+                if s > 0 and s / qsize > pct:
+                    return True
+        return False
+
+    def _score_batch(self, batch, shard: TargetShard, tags: set,
+                     session_ref_id, top_k: int = 0) -> list[CDMatch]:
+        n_pixels = shard.shape[0] * shard.shape[1]
+        t_args0 = time.time()
+        u_pos, mu_pos, lane_lo, lane_span, u2 = \
+            self._stacked_union_args(batch, n_pixels)
+        _METRICS.add("cds.planArgs.seconds", time.time() - t_args0)
+        t_disp0 = time.time()
+        sel_k = self._emit_select_k(top_k)
+        if sel_k and sel_k < shard.t_pad:
+            # threshold-emit selection: pull only the [B, k] top-k; the
+            # dense rows stay on the device as the no-recompute fallback
+            sk, ik, mk, best, mirrored = \
+                pixel_match.score_query_batch_union_keys_topk(
+                    shard.planes, u_pos, mu_pos, lane_lo, lane_span,
+                    u2=u2, k=sel_k)
+            sk = sk.cpu().numpy()
+            if not self._topk_kth_emittable(sk[:, -1], batch):
+                del best, mirrored  # free the device buffers
+                ik, mk = ik.cpu().numpy(), mk.cpu().numpy()
+                _METRICS.add("cds.emitSelect.count", 1)
+                _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
+                return self._emit_from_topk(batch, shard, sk, ik, mk, tags,
+                                            session_ref_id)
+            _METRICS.add("cds.emitSelectFallback.count", 1)
+        else:
+            best, mirrored = pixel_match.score_query_batch_union_keys(
+                shard.planes, u_pos, mu_pos, lane_lo, lane_span, u2=u2)
+        # drop the zero-padded target columns (see _target_bucket)
+        best = best[:, :shard.count].cpu().numpy()
+        mirrored = mirrored[:, :shard.count].cpu().numpy()
+        _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
+        t_emit0 = time.time()
+
+        out: list[CDMatch] = []
+        for b, (mask, _shape, plan) in enumerate(batch):
+            cand = np.flatnonzero(best[b] > 0)
+            if top_k > 0 and cand.size > top_k:
+                # preselection: keep every candidate reaching the k-th
+                # largest score (the caller's final per-mask trim ranks
+                # the rest)
+                score_c = best[b][cand]
+                kth = -np.partition(-score_c, top_k - 1)[top_k - 1]
+                cand = cand[score_c >= kth]
+            out.extend(self._emit_matches(
+                mask, plan, shard, cand, best[b], mirrored[b], tags,
+                session_ref_id))
+        _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
+        return out
+
+    def _emit_from_topk(self, batch, shard, scores_k, idx_k, mirr_k, tags,
+                        session_ref_id) -> list[CDMatch]:
+        """Emit from the per-mask top-k candidates [B, k]."""
+        out: list[CDMatch] = []
+        t_emit0 = time.time()
+        for b, (mask, _shape, plan) in enumerate(batch):
+            best = np.zeros(shard.count, scores_k.dtype)
+            mirrored = np.zeros(shard.count, bool)
+            keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0)
+            ti = idx_k[b][keep]
+            best[ti] = scores_k[b][keep]
+            mirrored[ti] = mirr_k[b][keep].astype(bool)
+            out.extend(self._emit_matches(
+                mask, plan, shard, np.unique(ti), best, mirrored, tags,
+                session_ref_id))
+        _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
+        return out
+
+    def _emit_matches(self, mask, plan, shard, candidates, best, mirrored,
+                      tags, session_ref_id) -> list[CDMatch]:
+        p = self.params
+        out: list[CDMatch] = []
+        for t_idx in candidates:
+            score = int(best[t_idx])
+            ratio = score / plan.query_size
+            if not (score > 0 and ratio > p.pct_positive_pixels / 100):
+                continue
+            target = shard.neurons[t_idx]
+            mask.add_processed_tags(ProcessingType.ColorDepthSearch, tags)
+            target.add_processed_tags(ProcessingType.ColorDepthSearch, tags)
+            out.append(CDMatch(
+                mask_image=mask,
+                matched_image=target,
+                mask_image_ref_id=mask.entity_id,
+                matched_image_ref_id=target.entity_id,
+                session_ref_id=session_ref_id,
+                mirrored=bool(mirrored[t_idx]),
+                matching_pixels=score,
+                matching_pixels_ratio=ratio,
+                normalized_score=ratio,
+                match_found=True,
+                tags=set(tags),
+            ))
+        return out
+
+
+def _require_default_path(use_mesh, neg_query_rgb, use_key_planes,
+                          use_union_keys) -> None:
+    """Raise NotImplementedError for every configuration outside the
+    port's slice: the full-union rank-key kernel with the sparse upload
+    on one device, and no negative query. Same kernel resolution as the
+    JAX engine (an explicit use_key_planes pins that kernel; otherwise
+    CDS_UNION_KEYS, default "full", picks the union form)."""
+    if use_mesh:
+        raise not_ported("scoring over several devices", "multi-GPU")
+    if neg_query_rgb is not None:
+        raise not_ported("the negative query", "non-default CDS paths")
+    if os.environ.get("CDS_SPLIT_PLANES", "0") == "1":
+        raise not_ported("CDS_SPLIT_PLANES=1", "non-default CDS paths")
+    if os.environ.get("CDS_DENSE_UPLOAD", "0") == "1":
+        raise not_ported("CDS_DENSE_UPLOAD=1", "non-default CDS paths")
+    if use_union_keys is None:
+        env = os.environ.get("CDS_UNION_KEYS", "full")
+        union = (False if env == "0" else env) if use_key_planes is None \
+            else False
+    else:
+        union = use_union_keys
+    if union in (True, 1, "1"):
+        union = "full"
+    if union != "full" or use_key_planes is False:
+        raise not_ported(
+            f"the kernel selection use_key_planes={use_key_planes!r}, "
+            f"use_union_keys={union!r} (only the full-union key kernel is "
+            "ported)", "non-default CDS paths")

@@ -1,0 +1,165 @@
+// K3: full-union rank-key scoring with the variant reduction fused in.
+//
+// Replaces colormipsearch_tpu/ops/pixel_match.py
+// `score_query_union_keys_raw` + `score_query_batch_union_keys` +
+// `reduce_variants_device`. For mask b and target column t, every union
+// element u gathers key = planes[pos[u], t]; lane j counts the u whose
+// key lies in one of its interval windows, (key - lo) mod 2^32 <= span.
+// Segmented tables (two slots, 0 <= u2 < U) ADD the slot-2 hits on the
+// prefix u < u2; otherwise the slots are ORed at full width. The
+// mirrored orientation reuses the same lane tables over mu_pos. The
+// result is best = max(straight max, mirror max) and
+// mirrored = mirror max > straight max.
+//
+// Bound on the H100: the key gathers. Each element reads one int32 per
+// target column from row pos[u] — T*4 contiguous bytes, coalesced across
+// the block's threads — so a mask costs 4*U*T bytes per orientation,
+// mostly from HBM (the planes are GBs; the rows a mask touches are
+// scattered). The range tests are ~2-3 integer ops per (lane, slot) on
+// data already in registers. Design: one thread per target column, one
+// grid row per mask; the union is walked in tiles whose positions and
+// lane tables are staged in shared memory (every thread of the block
+// reads the same table word: a broadcast), and up to LANE_GROUP lane
+// counters live in registers; lane counts above LANE_GROUP (xyShift > 2)
+// take further passes over the union. Plane offsets are 64-bit.
+#include "common.cuh"
+
+namespace {
+
+constexpr int LANE_GROUP = 9;   // xyShift 2 = 9 lanes in one pass
+constexpr int TILE_U = 128;     // union elements staged per tile
+constexpr int MAX_SLOTS = 3;
+constexpr int THREADS = 256;
+
+template <bool SEG>
+__global__ void union_score_kernel(const int32_t* __restrict__ planes,
+                                   int64_t n_cols,
+                                   const int32_t* __restrict__ u_pos,
+                                   const int32_t* __restrict__ mu_pos,
+                                   int n_sets, int n_msets,
+                                   const uint32_t* __restrict__ lane_lo,
+                                   const uint32_t* __restrict__ lane_span,
+                                   int n_lanes, int n_slots, int n_u,
+                                   int u2, int32_t* __restrict__ best,
+                                   uint8_t* __restrict__ mirrored) {
+    __shared__ int32_t s_pos[TILE_U];
+    __shared__ uint32_t s_lo[LANE_GROUP * MAX_SLOTS * TILE_U];
+    __shared__ uint32_t s_span[LANE_GROUP * MAX_SLOTS * TILE_U];
+
+    const int b = blockIdx.y;
+    const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x)
+        + threadIdx.x;
+    const bool active = t < n_cols;
+    const int64_t tc = active ? t : 0;
+    const uint32_t* lo_b = lane_lo
+        + static_cast<int64_t>(b) * n_lanes * n_slots * n_u;
+    const uint32_t* sp_b = lane_span
+        + static_cast<int64_t>(b) * n_lanes * n_slots * n_u;
+
+    int orient_max[2] = {0, 0};
+    for (int o = 0; o < 2; ++o) {
+        const int sets = o == 0 ? n_sets : n_msets;
+        const int32_t* pos_b = (o == 0 ? u_pos : mu_pos)
+            + static_cast<int64_t>(b) * sets * n_u;
+        for (int si = 0; si < sets; ++si) {
+            const int32_t* pos = pos_b + static_cast<int64_t>(si) * n_u;
+            for (int g0 = 0; g0 < n_lanes; g0 += LANE_GROUP) {
+                const int lg = min(LANE_GROUP, n_lanes - g0);
+                int cnt[LANE_GROUP];
+#pragma unroll
+                for (int j = 0; j < LANE_GROUP; ++j) cnt[j] = 0;
+                for (int u0 = 0; u0 < n_u; u0 += TILE_U) {
+                    const int n = min(TILE_U, n_u - u0);
+                    __syncthreads();
+                    for (int k = threadIdx.x; k < n; k += blockDim.x)
+                        s_pos[k] = pos[u0 + k];
+                    const int n_tab = lg * n_slots * n;
+                    for (int e = threadIdx.x; e < n_tab; e += blockDim.x) {
+                        const int k = e % n;
+                        const int js = e / n;  // (lane in group, slot)
+                        const int j = js / n_slots;
+                        const int s = js - j * n_slots;
+                        const int64_t src =
+                            (static_cast<int64_t>(g0 + j) * n_slots + s)
+                            * n_u + u0 + k;
+                        s_lo[(j * MAX_SLOTS + s) * TILE_U + k] = lo_b[src];
+                        s_span[(j * MAX_SLOTS + s) * TILE_U + k] = sp_b[src];
+                    }
+                    __syncthreads();
+                    if (!active) continue;
+                    for (int k = 0; k < n; ++k) {
+                        const uint32_t key = static_cast<uint32_t>(
+                            planes[static_cast<int64_t>(s_pos[k]) * n_cols
+                                   + tc]);
+                        const bool second = SEG && (u0 + k < u2);
+#pragma unroll
+                        for (int j = 0; j < LANE_GROUP; ++j) {
+                            if (j >= lg) continue;
+                            const int base = j * MAX_SLOTS * TILE_U + k;
+                            if (SEG) {
+                                int c = (key - s_lo[base]) <= s_span[base];
+                                if (second)
+                                    c += (key - s_lo[base + TILE_U])
+                                        <= s_span[base + TILE_U];
+                                cnt[j] += c;
+                            } else {
+                                bool m = (key - s_lo[base]) <= s_span[base];
+                                for (int s = 1; s < n_slots; ++s)
+                                    m |= (key - s_lo[base + s * TILE_U])
+                                        <= s_span[base + s * TILE_U];
+                                cnt[j] += m;
+                            }
+                        }
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < LANE_GROUP; ++j)
+                    if (j < lg) orient_max[o] = max(orient_max[o], cnt[j]);
+            }
+        }
+    }
+    if (!active) return;
+    const int64_t out = static_cast<int64_t>(b) * n_cols + t;
+    if (n_msets > 0) {
+        best[out] = max(orient_max[0], orient_max[1]);
+        mirrored[out] = orient_max[1] > orient_max[0];
+    } else {
+        best[out] = orient_max[0];
+        mirrored[out] = 0;
+    }
+}
+
+}  // namespace
+
+extern "C" int cmst_union_score(const void* planes, int64_t n_cols,
+                                const void* u_pos, const void* mu_pos,
+                                int n_sets, int n_msets,
+                                const void* lane_lo, const void* lane_span,
+                                int batch, int n_lanes, int n_slots,
+                                int n_u, int u2, int segmented,
+                                void* best, void* mirrored, void* stream) {
+    if (n_slots < 1 || n_slots > MAX_SLOTS) return cudaErrorInvalidValue;
+    if (batch == 0 || n_cols == 0) return cudaGetLastError();
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(cmst::blocks_for(n_cols, THREADS), batch);
+    if (segmented) {
+        union_score_kernel<true><<<grid, THREADS, 0, st>>>(
+            static_cast<const int32_t*>(planes), n_cols,
+            static_cast<const int32_t*>(u_pos),
+            static_cast<const int32_t*>(mu_pos), n_sets, n_msets,
+            static_cast<const uint32_t*>(lane_lo),
+            static_cast<const uint32_t*>(lane_span), n_lanes, n_slots, n_u,
+            u2, static_cast<int32_t*>(best),
+            static_cast<uint8_t*>(mirrored));
+    } else {
+        union_score_kernel<false><<<grid, THREADS, 0, st>>>(
+            static_cast<const int32_t*>(planes), n_cols,
+            static_cast<const int32_t*>(u_pos),
+            static_cast<const int32_t*>(mu_pos), n_sets, n_msets,
+            static_cast<const uint32_t*>(lane_lo),
+            static_cast<const uint32_t*>(lane_span), n_lanes, n_slots, n_u,
+            u2, static_cast<int32_t*>(best),
+            static_cast<uint8_t*>(mirrored));
+    }
+    return cudaGetLastError();
+}

@@ -1,0 +1,236 @@
+"""Rank-key target planes: pixel classification and the K1 pack.
+
+Targets are packed into pixel-major int32 [P+1, T] planes: each
+foreground pixel (any channel above the data threshold) holds the key
+(cls << KEY_RANK_BITS) | rank, where ``rank`` is the index of its hue
+ratio s/p in the sorted list of ALL achievable ratios; every other
+element, and the sentinel row P, is 0. A query-position row read then
+yields the lane-contiguous keys of all T targets (the JAX package's
+ops/common.py, rank-key section).
+
+The default upload is sparse: only foreground pixels travel to the
+device as COO (position, RGB) elements, and the K1 kernel
+(kernels/csrc/scatter_keys.cu) classifies and scatters them into the
+planes. ``pack_target_planes_keys`` is the dense plain form K1 is
+checked against.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from colormipsearch_tpu_torch.constants import (
+    CLASS_BG,
+    CLASS_BR,
+    CLASS_GB,
+    CLASS_GR,
+    CLASS_RB,
+    CLASS_RG,
+)
+from colormipsearch_tpu_torch.kernels import build as kbuild
+
+KEY_RANK_BITS = 15
+
+
+def classify(rgb: torch.Tensor):
+    """uint8 [..., 3] -> (cls, s, p, maxch) int32 tensors.
+
+    Same strict-dominance classification as the pixel-match oracle: ties
+    (including black) produce class 0 with s = p = 0.
+    """
+    r = rgb[..., 0].to(torch.int32)
+    g = rgb[..., 1].to(torch.int32)
+    b = rgb[..., 2].to(torch.int32)
+    zero = torch.zeros_like(r)
+
+    b_dom = (b > r) & (b > g)
+    g_dom = (g > b) & (g > r)
+    r_dom = (r > b) & (r > g)
+    rg_gt = r > g
+    bg_gt = b > r
+    gb_gt = g > b
+
+    cls = torch.where(
+        b_dom, torch.where(rg_gt, CLASS_BR, CLASS_BG),
+        torch.where(
+            g_dom, torch.where(bg_gt, CLASS_GB, CLASS_GR),
+            torch.where(r_dom, torch.where(gb_gt, CLASS_RG, CLASS_RB),
+                        zero))).to(torch.int32)
+    p = torch.where(b_dom, b, torch.where(g_dom, g,
+                                          torch.where(r_dom, r, zero)))
+    s = torch.where(
+        b_dom, torch.where(rg_gt, r, g),
+        torch.where(
+            g_dom, torch.where(bg_gt, b, r),
+            torch.where(r_dom, torch.where(gb_gt, g, b), zero)))
+    maxch = torch.maximum(torch.maximum(r, g), b)
+    return cls, s, p, maxch
+
+
+@functools.lru_cache(maxsize=1)
+def ratio_rank_table():
+    """(vals float64 [R], rank int32 [256, 256]) for ratios s/p, s < p.
+
+    `vals` is sorted ascending (vals[0] == 0.0); rank[s, p] is the index
+    of float64(s/p) in vals.  Distinct rationals stay distinct in f64
+    (the minimum spacing of fractions with denominators <= 255 is
+    ~1.5e-5, ~1e11 ulps), so f64 order == rational order.  Entries with
+    s >= p or p == 0 are unreachable (strict dominance) and map to 0.
+    """
+    sv, pv = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    valid = (pv >= 1) & (sv < pv)
+    r = sv / np.maximum(pv, 1)
+    vals = np.unique(r[valid])
+    assert vals.size < (1 << KEY_RANK_BITS), vals.size
+    rank = np.zeros((256, 256), np.int32)
+    rank[valid] = np.searchsorted(vals, r[valid]).astype(np.int32)
+    return vals, rank
+
+
+@functools.lru_cache(maxsize=1)
+def _rank_lut_flat():
+    _, rank = ratio_rank_table()
+    return np.ascontiguousarray(rank.reshape(-1))
+
+
+def rank_lut_tensor(device: torch.device) -> torch.Tensor:
+    """The (s << 8) | p -> rank LUT as an int32 [65536] tensor."""
+    return torch.from_numpy(_rank_lut_flat()).to(device)
+
+
+def pack_target_planes_keys(rgb_stack: torch.Tensor, data_threshold: int,
+                            rank_lut: torch.Tensor) -> torch.Tensor:
+    """uint8 [T, H, W, 3] -> int32 [P+1, T] rank-key planes (dense, plain
+    PyTorch; the reference K1 is checked against).
+
+    The data threshold is ALWAYS folded (key 0 neither matches nor
+    flags); row P is an all-zero sentinel so query plans can encode
+    padded / out-of-bounds positions as P.
+    """
+    t = rgb_stack.shape[0]
+    cls, s, p, maxch = classify(rgb_stack)
+    rank = rank_lut[((s << 8) | p).long()]
+    key = (cls << KEY_RANK_BITS) | rank
+    key = torch.where((maxch > data_threshold) & (cls > 0), key,
+                      torch.zeros_like(key))
+    planes = key.to(torch.int32).reshape(t, -1).T
+    return torch.nn.functional.pad(planes, (0, 0, 0, 1)).contiguous()
+
+
+def scatter_key_planes_plain(pos: torch.Tensor, rgb: torch.Tensor,
+                             cum: torch.Tensor, rank_lut: torch.Tensor, *,
+                             n_px: int, t_pad: int) -> torch.Tensor:
+    """Plain PyTorch version of K1 (see :func:`scatter_key_planes`)."""
+    cls, s, p, _ = classify(rgb)
+    rank = rank_lut[((s << 8) | p).long()]
+    key = torch.where(cls > 0, (cls << KEY_RANK_BITS) | rank,
+                      torch.zeros_like(cls)).to(torch.int32)
+    gidx = torch.arange(pos.shape[0], dtype=torch.int64, device=pos.device)
+    tidx = torch.searchsorted(cum, gidx, right=True).clamp_(max=t_pad - 1)
+    planes = torch.zeros((n_px + 1, t_pad), dtype=torch.int32,
+                         device=pos.device)
+    planes[pos.long(), tidx] = key
+    return planes
+
+
+def scatter_key_planes(pos: torch.Tensor, rgb: torch.Tensor,
+                       cum: torch.Tensor, rank_lut: torch.Tensor, *,
+                       n_px: int, t_pad: int) -> torch.Tensor:
+    """K1: COO foreground elements -> int32 [n_px + 1, t_pad] key planes.
+
+    pos int32 [N] (pixel rows, < n_px), rgb uint8 [N, 3], cum int64
+    [t_pad] (cumulative per-target element counts; elements arrive
+    target-major), rank_lut int32 [65536]. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (kernels/csrc/scatter_keys.cu)
+    or raise.
+    """
+    n = pos.shape[0]
+    kbuild.check_tensor(pos, "pos", torch.int32, (n,))
+    kbuild.check_tensor(rgb, "rgb", torch.uint8, (n, 3))
+    kbuild.check_tensor(cum, "cum", torch.int64, (t_pad,))
+    kbuild.check_tensor(rank_lut, "rank_lut", torch.int32, (1 << 16,))
+    kbuild.same_device(pos, rgb, cum, rank_lut)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} COO elements (>= 2^31): split the shard")
+    if pos.device.type == "cpu":
+        return scatter_key_planes_plain(pos, rgb, cum, rank_lut,
+                                        n_px=n_px, t_pad=t_pad)
+    kbuild.require_cuda(pos)
+    planes = torch.empty((n_px + 1, t_pad), dtype=torch.int32,
+                         device=pos.device)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_scatter_keys(
+        planes.data_ptr(), pos.data_ptr(), rgb.data_ptr(), cum.data_ptr(),
+        rank_lut.data_ptr(), n, n_px + 1, t_pad, kbuild.stream_of(pos)),
+        "scatter_key_planes")
+    if n > 0:
+        kbuild.count_launch("scatter_key_planes")
+    return planes
+
+
+def pack_target_planes_keys_sparse(stack: np.ndarray, data_threshold: int,
+                                   rank_lut: torch.Tensor, t_pad: int,
+                                   device: torch.device) -> torch.Tensor:
+    """Host uint8 [T, H, W, 3] -> int32 [P+1, t_pad] key planes on
+    `device` via a sparse COO upload (host foreground select + K1).
+
+    CDMs are ~98% black and the data threshold is folded into the pack,
+    so only foreground pixels (any channel > threshold) influence the
+    planes; uploading (position, rgb) pairs for those pixels moves ~25x
+    fewer bytes than the dense uint8 stack. Bit-identical to
+    pack_target_planes_keys (tests/test_torch_kernels.py).
+    """
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL as _M
+
+    t0 = time.time()
+    pos, rgb, cum = coo_foreground(stack, data_threshold, t_pad)
+    _M.add("cds.packSelect.seconds", time.time() - t0)
+    t0 = time.time()
+    planes = scatter_key_planes(
+        torch.from_numpy(pos).to(device), torch.from_numpy(rgb).to(device),
+        torch.from_numpy(cum).to(device), rank_lut.to(device),
+        n_px=stack.shape[1] * stack.shape[2], t_pad=t_pad)
+    synchronize(device)  # honest stage timing
+    _M.add("cds.packScatter.seconds", time.time() - t0)
+    return planes
+
+
+def coo_foreground(stack: np.ndarray, data_threshold: int, t_pad: int):
+    """K1's host inputs for a uint8 [T, H, W, 3] stack: every pixel with
+    a channel above `data_threshold` as (pos int32 [N], rgb uint8 [N, 3]),
+    target-major, plus the cumulative per-target counts cum int64
+    [t_pad]."""
+    from colormipsearch_tpu_torch.io import native_decoder
+
+    t, h, w, _ = stack.shape
+    sel = None
+    if stack.flags.c_contiguous:
+        # threaded native select (~100x the numpy nonzero path)
+        sel = native_decoder.coo_select(stack, data_threshold)
+    if sel is not None:
+        pos, tidx, rgb = sel
+    else:
+        flat = stack.reshape(t, h * w, 3)
+        tidx, pos = np.nonzero(flat.max(axis=2) > data_threshold)
+        rgb = flat[tidx, pos]
+    cum = np.cumsum(np.bincount(tidx, minlength=t_pad)).astype(np.int64)
+    return (np.ascontiguousarray(pos, np.int32),
+            np.ascontiguousarray(rgb, np.uint8), cum)
+
+
+def ztol_fraction(pix_color_fluctuation) -> tuple[int, int]:
+    """Exact rational z-tolerance a/b from the CLI fluctuation value
+    (the reference computes zTolerance = pixColorFluctuation / 100)."""
+    f = Fraction(str(pix_color_fluctuation)) / 100
+    return f.numerator, f.denominator
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for `device`'s queued work (no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,968 @@
+"""Full-union rank-key pixel-match scoring: host plan construction and the
+device kernels K2-K4.
+
+The host side (interval tables bisected against the float64 oracle,
+union plans, the batch stackers) is carried over from the JAX package's
+ops/pixel_match.py unchanged, so both packages build identical plans.
+The device side replaces the package's jitted functions with
+hand-written CUDA kernels (kernels/csrc), each beside its plain PyTorch
+version:
+
+  * K2 ``expand_union_tables_from_pos``: positional wire form -> per-lane
+    interval tables (expand_tables.cu),
+  * K3 ``score_query_batch_union_keys``: union key gathers, per-lane
+    interval counts and the straight/mirror reduction (union_score.cu),
+  * K4 ``union_keys_topk``: per-mask top-k emit selection (topk.cu).
+
+Tables that hold uint32 bits (interval lo/span) travel as int32 tensors
+with the same bits, because torch's uint32 lacks most operations.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from colormipsearch_tpu_torch.constants import (
+    BG_GB,
+    BR_BG,
+    CLASS_BG,
+    CLASS_BR,
+    CLASS_GB,
+    CLASS_GR,
+    CLASS_RB,
+    CLASS_RG,
+    GB_GR,
+    GR_RG,
+    RG_RB,
+)
+from colormipsearch_tpu_torch.kernels import build as kbuild
+from colormipsearch_tpu_torch.oracle import pixel as oracle_pixel
+
+# Adjacent-class compatibility table.  Each row:
+#   (query class, target class,
+#    (qs_mul, qp_mul, q_is_less), (ts_mul, tp_mul, t_is_less),
+#    gap_is_sum_minus_2c, boundary constant)
+# The ratio preconditions (e.g. r < 0.44) are exact as integer
+# cross-multiplications: 25*s < 11*p  <=>  s/p < 0.44 in float64 (ties at
+# equality agree because fl(s/p) == fl(0.44) is not < fl(0.44)).
+_ADJ_TABLE = (
+    (CLASS_BR, CLASS_BG, (25, 11, True), (50, 27, True), True, BR_BG),
+    (CLASS_BG, CLASS_BR, (50, 27, True), (25, 11, True), True, BR_BG),
+    (CLASS_BG, CLASS_GB, (5, 4, False), (5, 4, False), False, BG_GB),
+    (CLASS_GB, CLASS_BG, (5, 4, False), (5, 4, False), False, BG_GB),
+    (CLASS_GB, CLASS_GR, (10, 7, True), (10, 7, True), True, GB_GR),
+    (CLASS_GR, CLASS_GB, (10, 7, True), (10, 7, True), True, GB_GR),
+    (CLASS_GR, CLASS_RG, (5, 4, False), (5, 4, False), False, GR_RG),
+    (CLASS_RG, CLASS_GR, (5, 4, False), (5, 4, False), False, GR_RG),
+    (CLASS_RG, CLASS_RB, (10, 7, True), (10, 7, True), True, RG_RB),
+    (CLASS_RB, CLASS_RG, (10, 7, True), (10, 7, True), True, RG_RB),
+)
+
+
+def _bucket(q: int, minimum: int = 512) -> int:
+    """Pad query sizes to the {1, 1.25, 1.5, 1.75} x 2^k bucket ladder
+    (512, 640, 768, 896, 1024, 1280, ...): average padding waste ~11%
+    and worst case 25%, vs up to 2x for plain powers of two, while the
+    number of distinct kernel shapes (whose XLA compilations the
+    persistent cache amortizes) stays small."""
+    if q <= minimum:
+        return minimum
+    base = minimum
+    while base * 2 < q:
+        base *= 2
+    for m in (4, 5, 6, 7, 8):
+        n = base * m // 4
+        if n >= q:
+            return n
+    return base * 2
+
+
+# --- rank-key interval predicate ------------------------------------------
+#
+# Targets pack to key = (cls << 15) | rank-of-ratio
+# (ops/common.pack_target_planes_keys) and each query pixel carries up to
+# three precomputed key intervals (same class + <= 2 adjacent classes).
+# The per-element test is a few unsigned range checks on the gathered
+# key and, because the interval endpoints are found by bisecting the
+# float64 oracle itself (oracle/pixel.pixel_gap), the device verdict is
+# bit-identical to the reference with no ambiguity band and no oracle
+# fallback.
+#
+# Faithfulness rests on the match set being an interval of the ratio
+# order for every (query pixel, target class): same-class matches form
+# the window |r2 - r1| <= z (r2 > 0); each adjacent-class rule bounds r2
+# from one side only (its precondition and its gap bound point the same
+# way), and IEEE-754 rounding preserves weak monotonicity, so bisection
+# probes of the oracle land exactly on the f64 verdict boundary.  The
+# JAX package's `-m slow` suite proves membership equality for every
+# achievable ratio pair of every class pair.
+
+# encodes an empty interval: (key - EMPTY_LO) mod 2^32 > any span for
+# every achievable key (< 2^18)
+_EMPTY_LO = np.uint32(1 << 31)
+
+
+@functools.lru_cache(maxsize=1)
+def _adj_direction_tables():
+    """Per-query-class adjacency slots for the interval build.
+
+    Returns (tc, prefix): int32/bool [2, 7] arrays — slot k's target
+    class (0 = none) and whether its match set is a PREFIX of the ratio
+    order ("plus" rules: gap grows with t_r) or a suffix ("minus").
+    """
+    tc = np.zeros((2, 7), np.int32)
+    prefix = np.zeros((2, 7), bool)
+    slot = [0] * 7
+    for qc, t, _q, _t, plus, _c in _ADJ_TABLE:
+        k = slot[qc]
+        slot[qc] += 1
+        tc[k, qc] = t
+        prefix[k, qc] = plus
+    return tc, prefix
+
+
+def _bisect_key_intervals(q_cls: np.ndarray, q_rank: np.ndarray,
+                          z_tol: float):
+    """Key intervals by f64-oracle bisection for (class, ratio-rank)
+    query summaries (the core of build_key_intervals; see there).
+
+    The oracle predicate depends on the query pixel only through
+    (class, float64 ratio), and equal rationals give identical float64
+    quotients, so (cls, rank) fully determines the intervals.
+    """
+    from colormipsearch_tpu_torch.ops.common import (
+        KEY_RANK_BITS,
+        ratio_rank_table,
+    )
+
+    vals, _ = ratio_rank_table()
+    n_ratios = vals.size
+    q_cls = np.asarray(q_cls, np.int64)
+    q_rank = np.asarray(q_rank, np.int64)
+    q_r = vals[q_rank]
+    n_q = q_cls.shape[0]
+
+    lo = np.full((3, n_q), _EMPTY_LO, np.uint32)
+    span = np.zeros((3, n_q), np.uint32)
+
+    def probe(tc, j):
+        return oracle_pixel.pixel_gap(q_cls, q_r, tc, vals[j]) <= z_tol
+
+    def fill(slot, act, tc, lo_rank, hi_rank):
+        key_lo = (tc.astype(np.int64) << KEY_RANK_BITS) + lo_rank
+        key_hi = (tc.astype(np.int64) << KEY_RANK_BITS) + hi_rank
+        lo[slot] = np.where(act, key_lo, int(_EMPTY_LO)).astype(np.uint32)
+        span[slot] = np.where(act, key_hi - key_lo, 0).astype(np.uint32)
+
+    # slot 0: same class.  Non-empty iff the ratio is positive (r2 > 0
+    # is also required, hence ranks start at 1); the window contains
+    # q's own rank (gap 0), so bisect each edge from there.
+    act = (q_cls > 0) & (q_rank >= 1)
+    anchor = np.maximum(q_rank, 1)
+    # the bisection assumes the anchor matches (gap 0 <= z); with a
+    # negative or NaN tolerance nothing matches and the degenerate
+    # edges would otherwise underflow span to "match everything"
+    act &= probe(q_cls, anchor)
+    lo_i, hi_i = np.ones(n_q, np.int64), anchor.astype(np.int64)
+    for _ in range(16):  # first j in [1, q_rank] with match (monotone)
+        mid = (lo_i + hi_i) // 2
+        m = probe(q_cls, mid)
+        hi_i = np.where(m, mid, hi_i)
+        lo_i = np.where(m, lo_i, mid + 1)
+    left = lo_i
+    lo_i, hi_i = anchor.astype(np.int64), np.full(n_q, n_ratios - 1)
+    for _ in range(16):  # last j in [q_rank, R-1] with match
+        mid = (lo_i + hi_i + 1) // 2
+        m = probe(q_cls, mid)
+        lo_i = np.where(m, mid, lo_i)
+        hi_i = np.where(m, hi_i, mid - 1)
+    fill(0, act, q_cls, left, lo_i)
+
+    # slots 1..2: adjacent classes.  "plus" rules match a prefix of the
+    # ratio order (both the precondition and the gap bound cap r2 from
+    # above), "minus" rules a suffix; the closed end decides emptiness.
+    tc_tab, prefix_tab = _adj_direction_tables()
+    for k in (0, 1):
+        tc = tc_tab[k][q_cls]
+        pref = prefix_tab[k][q_cls]
+        end = np.where(pref, 0, n_ratios - 1)
+        act = (tc > 0) & probe(tc, end)
+        lo_i = np.zeros(n_q, np.int64)
+        hi_i = np.full(n_q, n_ratios - 1, np.int64)
+        for _ in range(16):
+            mid = np.where(pref, (lo_i + hi_i + 1) // 2,
+                           (lo_i + hi_i) // 2)
+            m = probe(tc, mid)
+            lo_i = np.where(pref,
+                            np.where(m, mid, lo_i),
+                            np.where(m, lo_i, mid + 1))
+            hi_i = np.where(pref,
+                            np.where(m, hi_i, mid - 1),
+                            np.where(m, mid, hi_i))
+        fill(k + 1, act, tc,
+             np.where(pref, 0, lo_i), np.where(pref, lo_i, n_ratios - 1))
+    return lo, span
+
+
+@functools.lru_cache(maxsize=4)
+def _key_interval_table(z_tol: float):
+    """(lo, span) uint32 [3, 7 << KEY_RANK_BITS] interval tables for one
+    z-tolerance, indexed by the query pixel's OWN key
+    (cls << KEY_RANK_BITS) | rank.  Built once by bisecting every
+    achievable (class, rank) pair (~119k) and cached per tolerance —
+    plan builds then cost a table gather instead of re-running the
+    bisections per pixel per lane (the full-union build probes each
+    query pixel up to 18x otherwise)."""
+    from colormipsearch_tpu_torch.ops.common import (
+        KEY_RANK_BITS,
+        ratio_rank_table,
+    )
+
+    vals, _ = ratio_rank_table()
+    n_ratios = vals.size
+    cls = np.repeat(np.arange(1, 7, dtype=np.int64), n_ratios)
+    rank = np.tile(np.arange(n_ratios, dtype=np.int64), 6)
+    lo, span = _bisect_key_intervals(cls, rank, z_tol)
+    n = 7 << KEY_RANK_BITS
+    tab_lo = np.full((3, n), _EMPTY_LO, np.uint32)
+    tab_span = np.zeros((3, n), np.uint32)
+    idx = (cls << KEY_RANK_BITS) | rank
+    tab_lo[:, idx] = lo
+    tab_span[:, idx] = span
+    return tab_lo, tab_span
+
+
+@functools.lru_cache(maxsize=4)
+def _key_interval_table2(z_tol: float):
+    """Slot-compacted twin of _key_interval_table: (lo, span) uint32
+    [2, 7 << KEY_RANK_BITS] plus per-key metadata for the segmented
+    kernel: ``any2`` bool [n_keys] (second window live) and
+    ``disjoint_ok`` (True iff for EVERY key the live windows sit in
+    distinct class segments — the proof that the segmented kernel's
+    window-indicator sums need no OR).
+
+    Compacting once at table build removes the per-plan
+    compact_interval_slots pass (the heaviest part of the ~39 ms
+    full-union plan build) and shrinks the per-lane gathers by 1/3.
+    """
+    from colormipsearch_tpu_torch.ops.common import KEY_RANK_BITS
+
+    tab_lo3, tab_span3 = _key_interval_table(z_tol)
+    ne = ~((tab_lo3 == _EMPTY_LO) & (tab_span3 == 0))  # [3, n]
+    order = np.argsort(~ne, axis=0, kind="stable")
+    lo = np.take_along_axis(tab_lo3, order, axis=0)
+    span = np.take_along_axis(tab_span3, order, axis=0)
+    ne = np.take_along_axis(ne, order, axis=0)
+    if ne[2].any():
+        # 3 live windows at this tolerance: callers fall back to the
+        # uncompacted 3-slot path (never observed at production
+        # tolerances; proven per tolerance here, not assumed)
+        return None
+    seg_lo = lo >> KEY_RANK_BITS
+    seg_hi = (lo + span) >> KEY_RANK_BITS
+    both = ne[0] & ne[1]
+    disjoint_ok = bool((~both | ((seg_lo[0] != seg_lo[1])
+                                 & (seg_lo[0] == seg_hi[0])
+                                 & (seg_lo[1] == seg_hi[1]))).all())
+    return (np.ascontiguousarray(lo[:2]),
+            np.ascontiguousarray(span[:2]),
+            np.ascontiguousarray(ne[1]), disjoint_ok)
+
+
+def build_key_intervals(q_cls: np.ndarray, q_s: np.ndarray,
+                        q_p: np.ndarray, z_tol: float):
+    """Per-query-pixel key intervals (lo uint32 [3, Q], span uint32 [3, Q]).
+
+    A target key k matches query pixel i iff
+    (k - lo[slot, i]) mod 2^32 <= span[slot, i] for some slot.  Endpoints
+    are found by vectorized bisection of the float64 oracle predicate
+    (pixel_gap(q, t) <= z_tol), so membership equals the reference's f64
+    verdict exactly — including the query-side rule preconditions, which
+    the oracle evaluates internally (a failed precondition makes every
+    probe miss and the interval comes out empty).  The bisections run
+    once per (class, rank, tolerance) via a cached table
+    (_key_interval_table); this is a gather.
+    """
+    from colormipsearch_tpu_torch.ops.common import (
+        KEY_RANK_BITS,
+        ratio_rank_table,
+    )
+
+    _, rank_tab = ratio_rank_table()
+    q_cls = np.asarray(q_cls, np.int64)
+    q_s = np.asarray(q_s, np.int64)
+    q_p = np.asarray(q_p, np.int64)
+    rank = rank_tab[np.minimum(q_s, 255), np.minimum(q_p, 255)]
+    # class 0 (padded / inactive) maps to key 0, whose table entries are
+    # the initialization value: the empty interval
+    key = np.where(q_cls > 0, (q_cls << KEY_RANK_BITS) | rank, 0)
+    tab_lo, tab_span = _key_interval_table(float(z_tol))
+    return tab_lo[:, key], tab_span[:, key]
+
+
+# --- full-union lane form of the rank-key kernel ----------------------------
+#
+# The xy-shift variants of a query gather heavily overlapping row sets,
+# so the plan gathers ONE fully dilated union of every shifted query
+# position per orientation and evaluates each shift offset as a predicate
+# LANE with its own interval constants. A union element u serves lane
+# (dx, dy) iff q = u - dx - dy*w is a query position with the shift
+# in-bounds — exactly the per-variant membership rule; inactive (element,
+# lane) pairs carry empty intervals (lo = _EMPTY_LO, span = 0) that no
+# key satisfies, and padded elements gather the all-zero sentinel row.
+
+
+@dataclasses.dataclass
+class UnionKeyPlan:
+    """Host-side precomputation for the x-union lane key kernel."""
+    u_pos: np.ndarray      # int32 [S, U] straight dy-set positions,
+    #                        sentinel-encoded (= n_pixels)
+    mu_pos: np.ndarray     # int32 [S or 0, U] mirrored dy-set positions
+    lane_lo: np.ndarray    # uint32 [L, 3, U] per-lane key intervals
+    lane_span: np.ndarray  # uint32 [L, 3, U]
+    query_size: int        # true (unpadded) number of query positions
+    mirror: bool
+    # slot-2 segmentation (full-union plans): elements are PERMUTED so
+    # the ones with a live second interval window in ANY lane form the
+    # prefix [0, u2); the kernel then runs slot-2 tests only there
+    # (~21% of elements at production tolerances — docs/DESIGN.md §6).
+    # -1 = unsegmented (x-union plans, or a single-slot table).
+    u2: int = -1
+    # per-(lane, element) QUERY KEYS int32 [L, U] (0 = inactive) — the
+    # compressed wire form of the lane tables: the device gathers
+    # lo/span from the shared per-tolerance interval table instead of
+    # receiving the ~740 KB/mask expanded tables (~3.5x less plan-arg
+    # upload; decisive when thousands of masks stream over a slow
+    # host->device link).  None on the 3-slot fallback path.
+    qkeys: np.ndarray | None = None
+    z_tol: float | None = None
+    # factored qkey wire form (2x smaller again): qidx uint16 [L, U]
+    # indexes key_list int32 [Q_pad + 1] (last entry = 0, the inactive
+    # slot); qkeys[j, u] == key_list[qidx[j, u]].  Present iff qkeys is.
+    qidx: np.ndarray | None = None
+    key_list: np.ndarray | None = None
+    # positional wire form (the smallest): the flat query positions
+    # themselves — the device derives qidx from (u_pos, q_pos,
+    # offsets) via a pos_index scatter + gathers
+    # (expand_union_tables_from_pos), so the per-(lane, element) index
+    # matrix never crosses the wire at all (~14 KB vs 92 KB per mask).
+    q_pos: np.ndarray | None = None
+
+    @property
+    def n_sets(self) -> int:
+        return self.u_pos.shape[0]
+
+    @property
+    def n_lanes(self) -> int:
+        if self.lane_lo is not None:
+            return self.lane_lo.shape[0]
+        return (self.qkeys if self.qkeys is not None
+                else self.qidx).shape[0]
+
+    @property
+    def n_straight(self) -> int:
+        return self.n_sets * self.n_lanes
+
+
+def compact_interval_slots(lane_lo: np.ndarray, lane_span: np.ndarray):
+    """Drop always-empty interval slots from [..., 3, U] lane tables.
+
+    A key's windows live in distinct class segments (same-class plus up
+    to two adjacent-class rules), but at production tolerances at most
+    TWO are ever non-empty for any (class, rank) — verified here per
+    plan, not assumed — so the third per-element range test in
+    score_query_union_keys_raw is dead weight.  Slots are compacted
+    per (lane, row) (which slot holds a window is irrelevant: the
+    kernel ORs them) and trailing all-empty slots are sliced off."""
+    ne = ~((lane_lo == _EMPTY_LO) & (lane_span == 0))
+    order = np.argsort(~ne, axis=-2, kind="stable")
+    lo = np.take_along_axis(lane_lo, order, axis=-2)
+    sp = np.take_along_axis(lane_span, order, axis=-2)
+    ne = np.take_along_axis(ne, order, axis=-2)
+    used = ne.any(axis=tuple(i for i in range(ne.ndim) if i != ne.ndim - 2))
+    # the per-row front-packing makes `used` a prefix (slot s used only
+    # if every earlier slot is), so its sum is the slot count
+    n_slots = max(int(used.sum()), 1)
+    return (np.ascontiguousarray(lo[..., :n_slots, :]),
+            np.ascontiguousarray(sp[..., :n_slots, :]))
+
+
+def _select_query_foreground(query_rgb: np.ndarray,
+                             query_threshold: int,
+                             excluded_region: np.ndarray | None):
+    """(flat positions int64 [Q], rgb uint8 [Q, 3]) of the query
+    foreground.  Uses the native threaded COO pass when available (the
+    full-plane numpy any-reduce was the plan build's largest single
+    cost at production mask counts); numpy otherwise — identical
+    output either way."""
+    sel = None
+    try:
+        from colormipsearch_tpu_torch.io import native_decoder
+        if (query_rgb.flags.c_contiguous
+                and query_rgb.dtype == np.uint8
+                and query_rgb.ndim == 3 and query_rgb.shape[-1] == 3):
+            sel = native_decoder.coo_select(
+                query_rgb[None], query_threshold)
+    except ImportError:
+        pass
+    if sel is not None:
+        pos0, _t, vals = sel
+        if excluded_region is not None:
+            keep = ~excluded_region.reshape(-1)[pos0]
+            pos0 = pos0[keep]
+            vals = vals[keep]
+        return pos0.astype(np.int64), vals
+    fg = (query_rgb > query_threshold).any(axis=-1)
+    if excluded_region is not None:
+        fg &= ~excluded_region
+    positions = np.flatnonzero(fg.reshape(-1)).astype(np.int64)
+    return positions, query_rgb.reshape(-1, 3)[positions]
+
+
+def build_full_union_key_plan(query_rgb: np.ndarray, query_threshold: int,
+                              *, mirror: bool, xy_shift: int,
+                              pix_color_fluctuation,
+                              excluded_region: np.ndarray | None = None,
+                              pad_to: int | None = None,
+                              light: bool = False) -> UnionKeyPlan:
+    """Full (x+y) union form: ONE gathered row set per orientation, every
+    shift offset an interval lane (S=1, L=n_offsets in UnionKeyPlan
+    terms).  ~0.5x the gathered rows of the x-union form for ~1.5x the
+    range tests; unlike the x-union it needs no {dx} x {dy} grid, so it
+    covers any xyShift.  Same kernel (score_query_*_union_keys)."""
+    offsets = oracle_pixel.shift_offsets(xy_shift)
+
+    h, w = query_rgb.shape[:2]
+    n_pixels = h * w
+    positions, vals = _select_query_foreground(
+        query_rgb, query_threshold, excluded_region)
+
+    # classify only the foreground; pos_index maps a flat pixel back to
+    # its row in the classified arrays (-1 = not a query position)
+    cls, s, p = oracle_pixel.classify_rgb(vals)
+    pos_index = np.full(n_pixels, -1, np.int64)
+    pos_index[positions] = np.arange(positions.size)
+
+    # union of every valid shifted position (shifts that leave the image
+    # are skipped per offset, like the reference's -1 sentinel)
+    x = positions % w
+    y = positions // w
+    parts = [(positions + dx + dy * w)
+             [(x + dx >= 0) & (x + dx < w) & (y + dy >= 0) & (y + dy < h)]
+             for dx, dy in offsets]
+    union = np.unique(np.concatenate(parts)) if positions.size \
+        else np.empty(0, np.int64)
+    u_count = union.size
+    ux = union % w
+    uy = union // w
+
+    # lane (dx, dy) at union element u reads query pixel q = u - dx -
+    # dy*w (same-row x and in-image y required); inactive elements get
+    # class 0 -> the empty interval
+    from colormipsearch_tpu_torch.ops.common import (
+        KEY_RANK_BITS,
+        ratio_rank_table,
+    )
+
+    ztol = float(pix_color_fluctuation) / 100.0
+    tab2 = _key_interval_table2(ztol)
+    if tab2 is not None:
+        # fast path: slot-compacted per-key table — one key lookup per
+        # query pixel, then per-lane table gathers (no per-plan
+        # compaction pass)
+        tab_lo, tab_span, tab_any2, disjoint_ok = tab2
+        _, rank_tab = ratio_rank_table()
+        key_q = np.where(
+            cls > 0,
+            (cls.astype(np.int64) << KEY_RANK_BITS)
+            | rank_tab[np.minimum(s, 255), np.minimum(p, 255)],
+            0)
+        n_slots0 = 2
+    else:
+        disjoint_ok = False
+        n_slots0 = 3
+    n_q = positions.size
+    factored = tab2 is not None and n_q < 65535
+    qkeys = qidx = key_list = q_pos = None
+    if tab2 is not None:
+        # all lanes at once: [L, U] geometry, one pos_index gather, one
+        # key gather (the per-lane python loop was the plan build's
+        # second-largest cost)
+        offs = np.asarray(offsets, np.int64)
+        dxs = offs[:, 0][:, None]
+        dys = offs[:, 1][:, None]
+        qx = ux[None, :] - dxs
+        qy = uy[None, :] - dys
+        src = union[None, :] - dxs - dys * w
+        jj = pos_index[np.clip(src, 0, n_pixels - 1)]
+        active = ((qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+                  & (jj >= 0))
+        k_lane = np.where(active, key_q[np.where(active, jj, 0)], 0)
+        lane_any2 = tab_any2[k_lane]
+        if factored:
+            qidx = np.where(active, jj, n_q).astype(np.uint16)
+            q_pos = positions.astype(np.int32)
+            # key_list[q] = the query pixel's key; the trailing slot is
+            # the inactive 0-key every out-of-lane element points at
+            key_list = np.zeros(n_q + 1, np.int32)
+            key_list[:n_q] = key_q.astype(np.int32)
+        if light and factored and disjoint_ok:
+            # the engine's wire form never touches the expanded tables
+            # or the full qkeys matrix: skip materializing them (the
+            # dominant remaining plan-build cost at production counts)
+            lane_lo = lane_span = None
+        else:
+            qkeys = k_lane.astype(np.int32)
+            lane_lo = np.ascontiguousarray(
+                np.swapaxes(tab_lo[:, k_lane], 0, 1))
+            lane_span = np.ascontiguousarray(
+                np.swapaxes(tab_span[:, k_lane], 0, 1))
+    else:
+        lane_lo = np.empty((len(offsets), n_slots0, u_count), np.uint32)
+        lane_span = np.empty_like(lane_lo)
+        lane_any2 = np.zeros((len(offsets), u_count), bool)
+        for j, (dx, dy) in enumerate(offsets):
+            qx = ux - dx
+            qy = uy - dy
+            src = union - dx - dy * w
+            jj = pos_index[np.clip(src, 0, n_pixels - 1)]
+            active = ((qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+                      & (jj >= 0))
+            idx = np.where(active, jj, 0)
+            lane_lo[j], lane_span[j] = build_key_intervals(
+                np.where(active, cls[idx], 0),
+                np.where(active, s[idx], 0),
+                np.where(active, p[idx], 0), ztol)
+
+    # one straight row set; the mirrored set reuses the lane table —
+    # mirror(q + dx + dy*w) = mirror_x(q) - dx + dy*w, so it covers the
+    # (-dx, dy) shifts of the mirrored query, a complete set because
+    # {dx} is symmetric
+    u_pos = union.astype(np.int32).reshape(1, u_count)
+    mu_pos = (union + (w - 1) - 2 * ux).astype(np.int32) \
+        .reshape(1, u_count) if mirror else np.zeros((0, u_count),
+                                                     np.int32)
+    if tab2 is None:
+        lane_lo, lane_span = compact_interval_slots(lane_lo, lane_span)
+    if not disjoint_ok:
+        # the qkey kernel ADDS the two slots' indicator sums, valid
+        # only under the per-table disjointness proof
+        qkeys = None
+        qidx = key_list = q_pos = None
+    u2 = -1
+    two_slots = (tab2 is not None if lane_lo is None
+                 else lane_lo.shape[1] == 2)
+    if two_slots and u_count and disjoint_ok:
+        # slot-2 segmentation: permute elements so those with a live
+        # second window (in any lane) form the prefix — the kernel then
+        # confines slot-2 range tests to [0, u2).  The mirror position
+        # set shares the element order, so one permutation serves both.
+        # The segmented kernel ADDS the two slots' indicator sums
+        # (no OR), which is exact because _key_interval_table2 proved
+        # every key's live windows sit in distinct class segments
+        # (disjoint_ok) — no key can match both.
+        any2 = lane_any2.any(axis=0)
+        perm = np.concatenate([np.flatnonzero(any2),
+                               np.flatnonzero(~any2)])
+        u_pos = u_pos[:, perm]
+        mu_pos = mu_pos[:, perm]
+        if lane_lo is not None:
+            lane_lo = np.ascontiguousarray(lane_lo[:, :, perm])
+            lane_span = np.ascontiguousarray(lane_span[:, :, perm])
+        if qkeys is not None:
+            qkeys = np.ascontiguousarray(qkeys[:, perm])
+        if qidx is not None:
+            qidx = np.ascontiguousarray(qidx[:, perm])
+        u2 = int(any2.sum())
+    plan = UnionKeyPlan(u_pos, mu_pos, lane_lo, lane_span,
+                        int(positions.size), mirror, u2=u2,
+                        qkeys=qkeys, z_tol=ztol, qidx=qidx,
+                        key_list=key_list, q_pos=q_pos)
+    return pad_union_key_plan(
+        plan, pad_to if pad_to is not None else _bucket(u_count), n_pixels)
+
+
+def pad_union_key_plan(plan: UnionKeyPlan, u_pad: int,
+                       n_pixels: int,
+                       n_slots: int | None = None) -> UnionKeyPlan:
+    """Re-pad a union plan to a wider bucket (sentinel positions, empty
+    intervals) — lets a batch of plans with different natural buckets
+    stack into one dispatch without rebuilding the bisections.
+    ``n_slots`` additionally pads the (compacted) interval-slot axis so
+    plans with different slot counts stack too."""
+    u = plan.u_pos.shape[1]
+    light = plan.lane_lo is None
+    s = 2 if light else plan.lane_lo.shape[1]
+    s_pad = s if n_slots is None else n_slots
+    if u_pad == u and s_pad == s:
+        return plan
+    if u_pad < u:
+        raise ValueError(f"pad_to {u_pad} < union size {u}")
+    if s_pad < s:
+        raise ValueError(f"n_slots {s_pad} < slot count {s}")
+    padw = ((0, 0), (0, u_pad - u))
+    lane_pad = ((0, 0), (0, s_pad - s), (0, u_pad - u))
+    # padding appends sentinel elements with empty slot-2 windows, so
+    # the segmentation prefix [0, u2) is unchanged (qkey 0 = inactive)
+    return UnionKeyPlan(
+        np.pad(plan.u_pos, padw, constant_values=n_pixels),
+        np.pad(plan.mu_pos, padw, constant_values=n_pixels),
+        None if light else np.pad(plan.lane_lo, lane_pad,
+                                  constant_values=int(_EMPTY_LO)),
+        None if light else np.pad(plan.lane_span, lane_pad),
+        plan.query_size, plan.mirror, u2=plan.u2,
+        qkeys=(None if plan.qkeys is None
+               else np.pad(plan.qkeys, padw)),
+        z_tol=plan.z_tol,
+        # pad elements point at the plan's own inactive 0-key slot
+        qidx=(None if plan.qidx is None
+              else np.pad(plan.qidx, padw,
+                          constant_values=plan.query_size)),
+        key_list=plan.key_list, q_pos=plan.q_pos)
+
+
+def stack_union_plan_args(plans: list, n_pixels: int):
+    """Host [B, ...] stacks of (u_pos, mu_pos, lane_lo, lane_span) for
+    a batch of union plans, padded to the batch's common union bucket
+    and interval-slot count (slot counts vary per mask after
+    compact_interval_slots).
+
+    Also returns the batch's slot-2 prefix width ``u2_pad`` (static
+    kernel parameter): the max of the members' segmentation prefixes,
+    bucketed so dispatch shapes are reused; ``u_pad`` for any
+    unsegmented member (the kernel then tests slot 2 full-width, which
+    is always correct).  LIGHT plans (tables dropped for the
+    compressed wire forms) get their tables re-expanded on host here,
+    so this stacker works for any plan."""
+
+    def host_expand(p):
+        if p.lane_lo is not None:
+            return p
+        tabs = interval_table_arrays(p.z_tol)
+        assert tabs is not None and p.qidx is not None
+        qk = p.key_list[p.qidx.astype(np.int64)]
+        return dataclasses.replace(
+            p,
+            lane_lo=np.ascontiguousarray(
+                np.swapaxes(tabs[0][:, qk], 0, 1)),
+            lane_span=np.ascontiguousarray(
+                np.swapaxes(tabs[1][:, qk], 0, 1)))
+
+    plans = [host_expand(p) for p in plans]
+    n_slots = max(p.lane_lo.shape[1] for p in plans)
+    # single-slot tables carry no live slot-2 windows: clamp their u2
+    # so the common bucketing (one source of truth) sees 0
+    plans = [dataclasses.replace(p, u2=0) if p.lane_lo.shape[1] < 2
+             and p.u2 < 0 else p for p in plans]
+    plans, u_pad, u2_pad, _kl = _stack_union_common(
+        plans, n_pixels, with_key_list=False)
+    plans = [pad_union_key_plan(p, u_pad, n_pixels, n_slots)
+             for p in plans]
+    return (np.stack([p.u_pos for p in plans]),
+            np.stack([p.mu_pos for p in plans]),
+            np.stack([p.lane_lo for p in plans]),
+            np.stack([p.lane_span for p in plans]),
+            u2_pad)
+
+
+def stack_union_pos_args(plans: list, n_pixels: int):
+    """[B, ...] stacks of (u_pos, mu_pos, q_pos, key_list) + static u2
+    for the POSITIONAL wire form, or None when any plan lacks it.  The
+    per-(lane, element) index matrix never crosses the wire: the device
+    re-derives it from the query positions
+    (expand_union_tables_from_pos), cutting plan args to ~65 KB/mask."""
+    if any(p.q_pos is None or p.key_list is None for p in plans):
+        return None
+    plans, _u_pad, u2_pad, kl = _stack_union_common(
+        plans, n_pixels, with_key_list=True)
+    qp = np.full((len(plans), kl.shape[1] - 1), n_pixels, np.int32)
+    for i, p in enumerate(plans):
+        qp[i, :p.q_pos.size] = p.q_pos
+    return (np.stack([p.u_pos for p in plans]),
+            np.stack([p.mu_pos for p in plans]),
+            qp, kl, u2_pad)
+
+
+def interval_table_arrays(z_tol: float):
+    """The shared (lo, span) uint32 [2, 7 << KEY_RANK_BITS] per-key
+    interval tables the qkey kernel gathers from, or None when the
+    tolerance needs 3 slots (callers use the expanded lane tables)."""
+    tab2 = _key_interval_table2(float(z_tol))
+    if tab2 is None:
+        return None
+    tab_lo, tab_span, _any2, ok = tab2
+    return (tab_lo, tab_span) if ok else None
+
+
+def _stack_union_common(plans: list, n_pixels: int,
+                        with_key_list: bool):
+    """Shared stacking core of the three union wire forms: the common
+    union bucket, the batch's bucketed slot-2 prefix, padded plans, and
+    (optionally) the padded key-list matrix — ONE source of truth for
+    the dispatch-shape rules."""
+    u_pad = max(p.u_pos.shape[1] for p in plans)
+    u2_pad = max(p.u2 if p.u2 >= 0 else u_pad for p in plans)
+    if 0 < u2_pad < u_pad:
+        u2_pad = min(u_pad, _bucket(u2_pad, minimum=128))
+    plans = [pad_union_key_plan(p, u_pad, n_pixels) for p in plans]
+    kl = None
+    if with_key_list:
+        kl_pad = _bucket(max(p.key_list.size for p in plans),
+                         minimum=512)
+        kl = np.zeros((len(plans), kl_pad), np.int32)
+        for i, p in enumerate(plans):
+            # trailing zeros keep every inactive index (q >= query
+            # size) pointing at a 0 key
+            kl[i, :p.key_list.size] = p.key_list
+    return plans, u_pad, u2_pad, kl
+
+
+# --- device kernels ------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def expand_union_tables_from_pos_plain(u_pos, q_pos, key_list, tab_lo,
+                                       tab_span, *, offsets, w: int,
+                                       h: int):
+    """Plain PyTorch version of K2 (see expand_union_tables_from_pos)."""
+    n_px = w * h
+    batch, n_u = u_pos.shape[0], u_pos.shape[2]
+    n_kl = key_list.shape[1]
+    dev = u_pos.device
+    pos_index = torch.full((batch, n_px + 1), n_kl - 1, dtype=torch.int32,
+                           device=dev)
+    qi = torch.arange(q_pos.shape[1], dtype=torch.int32, device=dev)
+    rows = torch.arange(batch, device=dev)[:, None].expand_as(q_pos)
+    pos_index[rows, q_pos.long()] = qi.expand_as(q_pos)
+    u = u_pos[:, 0].long()                                  # [B, U]
+    ux, uy = u % w, u // w
+    js = []
+    for dx, dy in offsets:
+        qx, qy = ux - dx, uy - dy
+        src = (u - dx - dy * w).clamp(0, n_px - 1)
+        ok = (u < n_px) & (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+        js.append(torch.where(ok, torch.gather(pos_index, 1, src),
+                              torch.full_like(src, n_kl - 1,
+                                              dtype=torch.int32)))
+    jj = torch.stack(js, 1).long()                          # [B, L, U]
+    qk = torch.gather(key_list.long(), 1,
+                      jj.reshape(batch, -1)).reshape(jj.shape)
+    lane_lo = torch.stack([tab_lo[0][qk], tab_lo[1][qk]], 2)
+    lane_span = torch.stack([tab_span[0][qk], tab_span[1][qk]], 2)
+    return lane_lo.contiguous(), lane_span.contiguous()
+
+
+def expand_union_tables_from_pos(u_pos, q_pos, key_list, tab_lo, tab_span,
+                                 *, offsets, w: int, h: int):
+    """K2: positional wire form -> expanded device lane tables.
+
+    u_pos int32 [B, S, U] (set 0 is read; sentinel = w*h), q_pos int32
+    [B, KL-1] (pad = w*h), key_list int32 [B, KL], tab_lo/tab_span int32
+    [2, n_keys] (uint32 bits) -> (lane_lo, lane_span) int32 [B, L, 2, U]
+    with L = len(offsets). The same derivation as the host plan build:
+    out-of-image shifts, non-query pixels and sentinel pads are inactive
+    (key 0 -> the empty interval). CPU tensors run the plain version;
+    CUDA tensors launch kernels/csrc/expand_tables.cu or raise.
+    """
+    batch, n_sets, n_u = u_pos.shape
+    n_kl = key_list.shape[1]
+    kbuild.check_tensor(u_pos, "u_pos", torch.int32)
+    kbuild.check_tensor(q_pos, "q_pos", torch.int32, (batch, n_kl - 1))
+    kbuild.check_tensor(key_list, "key_list", torch.int32, (batch, n_kl))
+    kbuild.check_tensor(tab_lo, "tab_lo", torch.int32)
+    kbuild.check_tensor(tab_span, "tab_span", torch.int32, tuple(tab_lo.shape))
+    kbuild.same_device(u_pos, q_pos, key_list, tab_lo, tab_span)
+    if tab_lo.dim() != 2 or tab_lo.shape[0] != 2 or n_sets < 1:
+        raise ValueError("expected tab_lo [2, n_keys] and u_pos [B, S>=1, U]")
+    if u_pos.device.type == "cpu":
+        return expand_union_tables_from_pos_plain(
+            u_pos, q_pos, key_list, tab_lo, tab_span, offsets=offsets,
+            w=w, h=h)
+    kbuild.require_cuda(u_pos)
+    dev = u_pos.device
+    n_lanes = len(offsets)
+    offs = torch.tensor([c for o in offsets for c in o], dtype=torch.int32,
+                        device=dev)
+    pos_index = torch.empty((batch, w * h + 1), dtype=torch.int32,
+                            device=dev)
+    lane_lo = torch.empty((batch, n_lanes, 2, n_u), dtype=torch.int32,
+                          device=dev)
+    lane_span = torch.empty_like(lane_lo)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_expand_tables(
+        u_pos.data_ptr(), n_sets * n_u, q_pos.data_ptr(), n_kl - 1,
+        key_list.data_ptr(), n_kl, tab_lo.data_ptr(), tab_span.data_ptr(),
+        tab_lo.shape[1], offs.data_ptr(), batch, n_lanes, n_u, w, h,
+        pos_index.data_ptr(), lane_lo.data_ptr(), lane_span.data_ptr(),
+        kbuild.stream_of(u_pos)), "expand_union_tables_from_pos")
+    kbuild.count_launch("expand_union_tables_from_pos")
+    return lane_lo, lane_span
+
+
+def _is_segmented(u2, n_slots: int, n_u: int) -> bool:
+    # segmented (slot-2 hits ADDED on the prefix u < u2) only for
+    # two-slot tables with an in-range prefix; otherwise slots are ORed
+    return u2 is not None and n_slots == 2 and 0 <= u2 < n_u
+
+
+def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
+                                       lane_span, u2=None, *,
+                                       chunk: int = 4096):
+    """Plain PyTorch version of K3 (see score_query_batch_union_keys).
+    Walks the union in `chunk`-element slices so its int64 [chunk, T]
+    intermediates stay bounded at production shapes."""
+    batch, _, n_u = u_pos.shape
+    n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
+    seg = _is_segmented(u2, n_slots, n_u)
+    n_cols = planes.shape[1]
+    best = torch.empty((batch, n_cols), dtype=torch.int32,
+                       device=planes.device)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool,
+                           device=planes.device)
+    for b in range(batch):
+        lo_b = lane_lo[b].long()
+        sp_b = lane_span[b].long() & _U32
+        maxes = []
+        for pos_sets in (u_pos[b], mu_pos[b]):
+            omax = None
+            for pos in pos_sets:
+                cnt = torch.zeros((n_lanes, n_cols), dtype=torch.int64,
+                                  device=planes.device)
+                for c0 in range(0, n_u, chunk):
+                    c1 = min(n_u, c0 + chunk)
+                    key = planes.index_select(0, pos[c0:c1].long()).long()
+                    n2 = min(max((u2 or 0) - c0, 0), c1 - c0)
+                    for j in range(n_lanes):
+                        lo, sp = lo_b[j, :, c0:c1], sp_b[j, :, c0:c1]
+                        hit = ((key - lo[0, :, None]) & _U32) \
+                            <= sp[0, :, None]
+                        if seg:
+                            cnt[j] += hit.sum(0)
+                            if n2 > 0:
+                                cnt[j] += (((key[:n2] - lo[1, :n2, None])
+                                            & _U32)
+                                           <= sp[1, :n2, None]).sum(0)
+                            continue
+                        for s in range(1, n_slots):
+                            hit |= ((key - lo[s, :, None]) & _U32) \
+                                <= sp[s, :, None]
+                        cnt[j] += hit.sum(0)
+                cmax = cnt.max(0).values
+                omax = cmax if omax is None else torch.maximum(omax, cmax)
+            maxes.append(omax)
+        straight, mirror = maxes
+        if mirror is None:
+            best[b] = straight
+            mirrored[b] = False
+        else:
+            best[b] = torch.maximum(straight, mirror)
+            mirrored[b] = mirror > straight
+    return best, mirrored
+
+
+def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
+                                 u2: int | None = None):
+    """K3: batched union-lane key scoring with the variant reduction.
+
+    planes int32 [P+1, T]; u_pos int32 [B, S, U]; mu_pos int32 [B, S or
+    0, U] (mirror sets, empty without mirror); lane_lo/lane_span int32
+    [B, L, n_slots <= 3, U] (uint32 bits); u2 the batch's slot-2
+    segmentation prefix (stack_union_plan_args) or None. Returns
+    (best int32 [B, T], mirrored bool [B, T]). CPU tensors run the plain
+    version; CUDA tensors launch kernels/csrc/union_score.cu or raise.
+    """
+    batch, n_sets, n_u = u_pos.shape
+    kbuild.check_tensor(planes, "planes", torch.int32)
+    kbuild.check_tensor(u_pos, "u_pos", torch.int32)
+    kbuild.check_tensor(mu_pos, "mu_pos", torch.int32)
+    kbuild.check_tensor(lane_lo, "lane_lo", torch.int32)
+    kbuild.check_tensor(lane_span, "lane_span", torch.int32, tuple(lane_lo.shape))
+    kbuild.same_device(planes, u_pos, mu_pos, lane_lo, lane_span)
+    n_msets = mu_pos.shape[1]
+    if mu_pos.shape[0] != batch or mu_pos.shape[2] != n_u \
+            or n_msets not in (0, n_sets):
+        raise ValueError(f"mu_pos {tuple(mu_pos.shape)} does not fit "
+                         f"u_pos {tuple(u_pos.shape)}")
+    if lane_lo.dim() != 4 or lane_lo.shape[0] != batch \
+            or lane_lo.shape[3] != n_u or not 1 <= lane_lo.shape[2] <= 3:
+        raise ValueError(f"lane tables {tuple(lane_lo.shape)} do not fit "
+                         f"u_pos {tuple(u_pos.shape)}")
+    if batch > 65535:
+        raise ValueError(f"{batch} masks in one launch (at most 65,535)")
+    if planes.device.type == "cpu":
+        return score_query_batch_union_keys_plain(
+            planes, u_pos, mu_pos, lane_lo, lane_span, u2)
+    kbuild.require_cuda(planes)
+    n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
+    n_cols = planes.shape[1]
+    best = torch.empty((batch, n_cols), dtype=torch.int32,
+                       device=planes.device)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool,
+                           device=planes.device)
+    seg = _is_segmented(u2, n_slots, n_u)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_union_score(
+        planes.data_ptr(), n_cols, u_pos.data_ptr(), mu_pos.data_ptr(),
+        n_sets, n_msets, lane_lo.data_ptr(), lane_span.data_ptr(), batch,
+        n_lanes, n_slots, n_u, u2 if seg else -1, int(seg),
+        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(planes)),
+        "score_query_batch_union_keys")
+    kbuild.count_launch("score_query_batch_union_keys")
+    return best, mirrored
+
+
+def union_keys_topk_plain(best, mirrored, k: int):
+    """Plain PyTorch version of K4: a stable descending sort gives
+    jax.lax.top_k's order (score descending, lower column first)."""
+    scores, idx = torch.sort(best, dim=1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return (scores[:, :k].contiguous(), idx.to(torch.int32),
+            torch.gather(mirrored, 1, idx))
+
+
+def union_keys_topk(best, mirrored, k: int):
+    """K4: per-mask top-k of best int32 [B, T] -> (scores_k int32 [B, k],
+    idx_k int32 [B, k], mirr_k bool [B, k]) in jax.lax.top_k's order.
+    CPU tensors run the plain version; CUDA tensors launch
+    kernels/csrc/topk.cu (T <= 16,384) or raise."""
+    batch, n_cols = best.shape
+    kbuild.check_tensor(best, "best", torch.int32)
+    kbuild.check_tensor(mirrored, "mirrored", torch.bool, (batch, n_cols))
+    kbuild.same_device(best, mirrored)
+    if not 1 <= k <= n_cols:
+        raise ValueError(f"k={k} outside [1, {n_cols}]")
+    if best.device.type == "cpu":
+        return union_keys_topk_plain(best, mirrored, k)
+    kbuild.require_cuda(best)
+    lib = kbuild.load_library()
+    if n_cols > lib.cmst_topk_max_cols():
+        raise ValueError(f"union_keys_topk: {n_cols} columns exceed the "
+                         f"kernel's {lib.cmst_topk_max_cols()}")
+    dev = best.device
+    scores_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    idx_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    mirr_k = torch.empty((batch, k), dtype=torch.bool, device=dev)
+    kbuild.check(lib.cmst_topk(
+        best.data_ptr(), mirrored.data_ptr(), batch, n_cols, k,
+        scores_k.data_ptr(), idx_k.data_ptr(), mirr_k.data_ptr(),
+        kbuild.stream_of(best)), "union_keys_topk")
+    kbuild.count_launch("union_keys_topk")
+    return scores_k, idx_k, mirr_k
+
+
+def score_query_batch_union_keys_topk(planes, u_pos, mu_pos, lane_lo,
+                                      lane_span, u2: int | None = None, *,
+                                      k: int):
+    """K3 + K4: batched union scoring and the per-mask top-k emit
+    selection. Returns (scores_k, idx_k, mirr_k, best, mirrored); the
+    dense [B, T] arrays stay on the device as the lossless fallback when
+    a mask's k-th selected score could still emit (engine/cds.py)."""
+    best, mirrored = score_query_batch_union_keys(
+        planes, u_pos, mu_pos, lane_lo, lane_span, u2)
+    scores_k, idx_k, mirr_k = union_keys_topk(best, mirrored, k)
+    return scores_k, idx_k, mirr_k, best, mirrored

@@ -1,0 +1,170 @@
+"""Synthetic color depth MIPs and a PNG writer, shared by the tests and
+``chip_smoke.py``.
+
+A CDM codes depth as hue: every foreground pixel takes the color of the
+rainbow LUT (constants.RAINBOW_LUT) at its z-slice, scaled by an
+intensity. The generator draws neuron-like strokes — smooth random walks
+a few pixels wide whose depth drifts slowly along their length — until
+the requested foreground fraction is covered (about 6% for a target,
+like the production libraries). Masks are either independent, sparser
+images or cut from a target (a box of it, shifted by a few pixels and
+optionally mirrored), so that strong matches exist.
+
+Everything is made from an explicitly seeded ``np.random.Generator``.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import os
+import struct
+import zlib
+
+import numpy as np
+
+from colormipsearch_tpu_torch.constants import RAINBOW_LUT
+from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron, Neuron
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> 8-bit RGB, non-interlaced PNG bytes with every
+    row stored under filter type 0 (what io/image.decode_png_rgb8
+    reads)."""
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{rgb.shape}")
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (_PNG_MAGIC
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            # level 1: mostly-black images compress well even so, and
+            # writing a 2,048-image library stays a few seconds
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb))
+
+
+_STROKE_WIDTH = 3
+_STROKE_LENGTH = 300
+
+
+def synthetic_cdm(rng: np.random.Generator, height: int, width: int, *,
+                  fg_fraction: float = 0.06) -> np.ndarray:
+    """One synthetic CDM, uint8 [height, width, 3], with about
+    `fg_fraction` of its pixels covered by hue-coded strokes."""
+    img = np.zeros((height, width, 3), np.uint8)
+    steps = max(1, int(fg_fraction * height * width / _STROKE_WIDTH))
+    length = max(8, min(_STROKE_LENGTH, (height + width) // 2))
+    n_strokes = max(1, -(-steps // length))
+    # smooth random walks: the heading turns a little at each unit step
+    heading = rng.uniform(0, 2 * np.pi, (n_strokes, 1)) + np.cumsum(
+        rng.normal(0, 0.12, (n_strokes, length)), axis=1)
+    y = rng.uniform(0, height, (n_strokes, 1)) + np.cumsum(
+        np.sin(heading), axis=1)
+    x = rng.uniform(0, width, (n_strokes, 1)) + np.cumsum(
+        np.cos(heading), axis=1)
+    # depth drifts slowly along a stroke; intensity is set per stroke
+    z = np.clip(rng.uniform(0, 255, (n_strokes, 1)) + np.cumsum(
+        rng.normal(0, 0.4, (n_strokes, length)), axis=1), 0, 255)
+    gain = rng.uniform(0.55, 1.0, (n_strokes, 1)) * np.ones((1, length))
+    color = (RAINBOW_LUT[z.astype(np.int64).ravel()]
+             * gain.ravel()[:, None]).astype(np.uint8)
+    yy = np.rint(y).astype(np.int64).ravel()
+    xx = np.rint(x).astype(np.int64).ravel()
+    half = _STROKE_WIDTH // 2
+    for oy in range(-half, _STROKE_WIDTH - half):
+        for ox in range(-half, _STROKE_WIDTH - half):
+            py, px = yy + oy, xx + ox
+            ok = (py >= 0) & (py < height) & (px >= 0) & (px < width)
+            img[py[ok], px[ok]] = color[ok]
+    return img
+
+
+def scattered_pixels(rng: np.random.Generator, height: int, width: int,
+                     n: int) -> np.ndarray:
+    """uint8 [height, width, 3] with `n` pixels set to random colors at
+    random places (every class, ties and near-threshold values occur)."""
+    img = np.zeros((height, width, 3), np.uint8)
+    ys = rng.integers(0, height, n)
+    xs = rng.integers(0, width, n)
+    img[ys, xs] = rng.integers(0, 256, (n, 3))
+    return img
+
+
+def cut_mask(rng: np.random.Generator, target: np.ndarray, *,
+             shift: tuple[int, int], mirror: bool = False) -> np.ndarray:
+    """A mask cut from `target`: the pixels inside a random box covering
+    about 40% of the image, moved by `shift` = (dx, dy) and optionally
+    mirrored left-right."""
+    h, w = target.shape[:2]
+    side = np.sqrt(0.4)
+    bh, bw = max(1, int(h * side)), max(1, int(w * side))
+    y0 = int(rng.integers(0, h - bh + 1))
+    x0 = int(rng.integers(0, w - bw + 1))
+    cut = np.zeros_like(target)
+    cut[y0:y0 + bh, x0:x0 + bw] = target[y0:y0 + bh, x0:x0 + bw]
+    dx, dy = shift
+    out = np.zeros_like(target)
+    out[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
+        cut[max(-dy, 0):h + min(-dy, 0), max(-dx, 0):w + min(-dx, 0)]
+    return np.ascontiguousarray(out[:, ::-1]) if mirror else out
+
+
+@dataclasses.dataclass
+class SyntheticLibrary:
+    targets: list[np.ndarray]
+    masks: list[np.ndarray]
+
+
+def synthetic_library(rng: np.random.Generator, n_targets: int,
+                      n_masks: int, height: int, width: int, *,
+                      target_fg: float = 0.06,
+                      mask_fg: float = 0.015) -> SyntheticLibrary:
+    """Targets at `target_fg` foreground; masks: every other one (at
+    least a third of them) cut from a target with a small even or odd
+    shift, one of those mirrored, the rest independent sparser images."""
+    targets = [synthetic_cdm(rng, height, width, fg_fraction=target_fg)
+               for _ in range(n_targets)]
+    masks = []
+    shifts = [(0, 0), (2, 0), (0, -2), (-2, 2), (1, 0), (0, 3)]
+    for i in range(n_masks):
+        if i % 2 == 0 and n_targets:
+            src = int(rng.integers(0, n_targets))
+            masks.append(cut_mask(rng, targets[src],
+                                  shift=shifts[(i // 2) % len(shifts)],
+                                  mirror=i == 2))
+        else:
+            masks.append(synthetic_cdm(rng, height, width,
+                                       fg_fraction=mask_fg))
+    return SyntheticLibrary(targets, masks)
+
+
+def write_neuron_images(directory, images: list[np.ndarray], prefix: str, *,
+                        threads: int = 8) -> list[Neuron]:
+    """Write `images` as PNGs under `directory` and return one neuron
+    per image whose InputColorDepthImage is that file."""
+    os.makedirs(directory, exist_ok=True)
+    paths = [os.path.join(str(directory), f"{prefix}{i:05d}.png")
+             for i in range(len(images))]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(write_png, paths, images))
+    neurons = []
+    for i, path in enumerate(paths):
+        n = LMNeuron(mip_id=f"{prefix}-{i:05d}", library_name="synthetic",
+                     published_name=f"{prefix}{i:05d}")
+        n.set_compute_file(ComputeFileType.InputColorDepthImage, path)
+        neurons.append(n)
+    return neurons

@@ -1,0 +1,161 @@
+"""The port's colorDepthSearch command as a whole.
+
+* slice: the port (``--device cpu``) and the JAX package's CLI write
+  byte-identical result trees from the same neuron JSONs;
+* isolation: the port imports and runs with jax and PIL unimportable,
+  as on the GPU hosts;
+* policy: ``--device cuda`` without a GPU is an error, and every
+  configuration outside the slice raises NotImplementedError.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from colormipsearch_tpu.cli import main as jax_main
+from colormipsearch_tpu_torch import testing
+from colormipsearch_tpu_torch.cli import main as torch_main
+from colormipsearch_tpu_torch.dataio.json_io import write_neurons_json
+from colormipsearch_tpu_torch.engine.cds import CDSearchEngine, CDSParams
+from colormipsearch_tpu_torch.io.image import decode_png_rgb8, read_image
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parent.parent
+FLAGS = ["--maskThreshold", "20", "--dataThreshold", "20",
+         "--pixColorFluctuation", "1.0", "--xyShift", "2", "--mirrorMask",
+         "--no-name-labels", "--no-colormap-labels", "--perMaskSubdir",
+         "masks", "--perTargetSubdir", "targets", "--processing-tag", "t1",
+         "--cdsConcurrency", "2"]
+
+
+def _inputs(tmp_path, seed=41, n_targets=24, n_masks=5):
+    rng = np.random.default_rng(seed)
+    lib = testing.synthetic_library(rng, n_targets, n_masks, 48, 72,
+                                    target_fg=0.08, mask_fg=0.03)
+    write_neurons_json(testing.write_neuron_images(
+        tmp_path / "lib", lib.targets, "t", threads=2),
+        tmp_path / "targets.json")
+    write_neurons_json(testing.write_neuron_images(
+        tmp_path / "lib", lib.masks, "m", threads=2),
+        tmp_path / "masks.json")
+    return ["-m", str(tmp_path / "masks.json"),
+            "-i", str(tmp_path / "targets.json")]
+
+
+def _tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+@pytest.mark.parametrize("pct", ["1.0", "0.0"])
+def test_slice_result_files_identical_to_jax(tmp_path, pct):
+    """Every per-mask and per-target result file and cdsParameters.json
+    are byte-identical. No field is per-run generated on this path
+    (no entity or session ids without a DB), so nothing is dropped."""
+    args = _inputs(tmp_path)
+    flags = FLAGS + ["--pctPositivePixels", pct]
+    assert torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
+                            "-od", str(tmp_path / "port"), *flags]) == 0
+    assert jax_main.main(["colorDepthSearch", *args,
+                          "-od", str(tmp_path / "jax"), *flags]) == 0
+    port, ref = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
+    assert "cdsParameters.json" in port
+    assert any(k.startswith("masks/") for k in port)
+    assert any(k.startswith("targets/") for k in port)
+    assert port.keys() == ref.keys()
+    for name in port:
+        assert port[name] == ref[name], name
+
+
+def test_port_runs_without_jax_and_pil(tmp_path):
+    """Import every port module and run a tiny CPU colorDepthSearch in a
+    process where jax and PIL cannot be imported."""
+    args = _inputs(tmp_path, seed=43, n_targets=6, n_masks=2)
+    script = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["PIL"] = None
+        sys.path.insert(0, {str(REPO)!r})
+        import colormipsearch_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        assert not any(m == "jax" or m.startswith(("jax.", "PIL"))
+                       for m in sys.modules if sys.modules[m] is not None)
+        from colormipsearch_tpu_torch.cli.main import main
+        rc = main(["colorDepthSearch", *{args!r}, "--device", "cpu",
+                   "-od", {str(tmp_path / "out")!r}, *{FLAGS!r},
+                   "--pctPositivePixels", "1.0"])
+        print("MODULES", len(names))
+        sys.exit(rc)
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split("MODULES")[1]) >= 15
+    assert (tmp_path / "out" / "cdsParameters.json").exists()
+    assert list((tmp_path / "out" / "masks").glob("*.json"))
+
+
+def test_png_reader_round_trip_and_rejections(tmp_path):
+    """The numpy PNG reader (the fallback when neither the native decoder
+    nor PIL is available) reads the port's PNGs bit-exactly and refuses
+    what it cannot read."""
+    rng = np.random.default_rng(2)
+    img = testing.synthetic_cdm(rng, 33, 47, fg_fraction=0.2)
+    data = testing.encode_png(img)
+    np.testing.assert_array_equal(decode_png_rgb8(data), img)
+    np.testing.assert_array_equal(read_image(data).pixels, img)
+    from PIL import Image
+
+    Image.fromarray(img).save(tmp_path / "pil.png")  # adaptive filters
+    with pytest.raises(ValueError):
+        decode_png_rgb8((tmp_path / "pil.png").read_bytes())
+    Image.fromarray(img[..., 0]).save(tmp_path / "gray.png")
+    with pytest.raises(ValueError):
+        decode_png_rgb8((tmp_path / "gray.png").read_bytes())
+    with pytest.raises(ValueError):
+        decode_png_rgb8(b"GIF89a")
+
+
+def test_device_cuda_without_gpu_is_an_error(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda is valid here")
+    args = _inputs(tmp_path, seed=44, n_targets=2, n_masks=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_main.main(["colorDepthSearch", *args, "--device", "cuda",
+                         "-od", str(tmp_path / "out"), *FLAGS])
+    with pytest.raises(RuntimeError):
+        CDSearchEngine(CDSParams(), device="cuda")
+
+
+@pytest.mark.parametrize("setting", [
+    dict(use_union_keys="x"), dict(use_union_keys="off"),
+    dict(use_key_planes=False), dict(use_key_planes=True),
+    dict(use_mesh=True), dict(neg_query_rgb=np.zeros((4, 4, 3), np.uint8)),
+    dict(env=("CDS_SPLIT_PLANES", "1")), dict(env=("CDS_DENSE_UPLOAD", "1")),
+    dict(env=("CDS_UNION_KEYS", "0")),
+])
+def test_outside_the_slice_raises(setting, monkeypatch):
+    setting = dict(setting)
+    env = setting.pop("env", None)
+    if env:
+        monkeypatch.setenv(*env)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        CDSearchEngine(CDSParams(), device="cpu", **setting)
+
+
+def test_db_storage_raises(tmp_path):
+    args = _inputs(tmp_path, seed=45, n_targets=2, n_masks=1)
+    for flag in ("--mips-storage", "--results-storage"):
+        with pytest.raises(NotImplementedError):
+            torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
+                             "-od", str(tmp_path / "o"), flag, "DB"])

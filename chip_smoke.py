@@ -1,31 +1,51 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (colormipsearch_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--targets 2048] [--masks 32] [--seed 0]
+    python3 chip_smoke.py [--targets 2048] [--masks 32] [--gs-masks 16]
+                          [--seed 0]
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
   0. the card (nvidia-smi name and power limit), torch / CUDA versions
      and the repo commit; exits 1 when CUDA is not available;
-  1. builds the four CUDA kernels from kernels/csrc (nvcc, sm_90a);
+  1. builds the seven CUDA kernels from kernels/csrc (one nvcc per
+     source, all at once, sm_90a);
   2. checks each kernel against its plain PyTorch version on the card at
-     the main path's shapes (production image 566 x 1210, a 2,048-column
-     target shard, a batch of 8 masks, top-k 256): exact equality, and
-     the median time of each;
+     the main paths' shapes (production image 566 x 1210; for the
+     pixel-match kernels a 2,048-column target shard, a batch of 8 masks,
+     top-k 256; for the shape kernels the support of the first cut mask,
+     both orientations, 2,048 targets and a device store of those 2,048
+     targets): exact equality, and the median time of each kernel and of
+     its plain version;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
-     masks, production flags), requires every kernel's launch counter to
-     grow during that run, and checks the results against the float64
-     PixelMatchOracle.
+     masks, production flags), requires every pixel-match kernel's
+     launch counter to grow during that run, and checks the results
+     against the float64 PixelMatchOracle;
+  4. drives gradientScores end to end through the CLI entry point: a
+     colorDepthSearch of the first --gs-masks masks with
+     --pctPositivePixels 0 lists every target that scores above 0; a
+     gradientScores run with a packed-variant store and the
+     device-resident store (CDS_SHAPE_STORE_DEVICE=1: the first mask
+     group decodes and writes the store, every later group builds its
+     planes on the card from the uploaded store) must launch K7, K6 and
+     K5; a second gradientScores run on 2 masks without the store (the
+     default path: host planes, then K5) must launch K5;
+  5. checks sampled pairs of both phase-4 runs against the float64
+     ShapeMatchOracle (gradientAreaGap and highExpressionArea exactly,
+     normalizedScore within the JSON's float32 rounding).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
-the checkout's build/ directory and removed afterwards.
+the checkout's build/ directory and removed afterwards; the slice table
+(2^24 entries, ~14 s of host time the first time) is cached under
+build/cache unless COLORMIPSEARCH_TPU_CACHE names another directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -38,24 +58,36 @@ H, W = 566, 1210
 T_PAD = 2048
 BATCH = 8
 TOP_K = 256
+DEVICE = "cuda"
 FLAGS = ["--maskThreshold", "20", "--dataThreshold", "20",
          "--pixColorFluctuation", "1.0", "--xyShift", "2", "--mirrorMask",
          "--pctPositivePixels", "1.0"]
 # where each kernel lives and the jitted JAX function it replaces
-KERNELS = {
+_CSRC = "colormipsearch_tpu_torch/kernels/csrc"
+CDS_KERNELS = {
     "scatter_key_planes": (
-        "colormipsearch_tpu_torch/kernels/csrc/scatter_keys.cu",
-        "colormipsearch_tpu/ops/common.py:211"),
+        f"{_CSRC}/scatter_keys.cu", "colormipsearch_tpu/ops/common.py:211"),
     "expand_union_tables_from_pos": (
-        "colormipsearch_tpu_torch/kernels/csrc/expand_tables.cu",
+        f"{_CSRC}/expand_tables.cu",
         "colormipsearch_tpu/ops/pixel_match.py:1684"),
     "score_query_batch_union_keys": (
-        "colormipsearch_tpu_torch/kernels/csrc/union_score.cu",
+        f"{_CSRC}/union_score.cu",
         "colormipsearch_tpu/ops/pixel_match.py:1366"),
     "union_keys_topk": (
-        "colormipsearch_tpu_torch/kernels/csrc/topk.cu",
-        "colormipsearch_tpu/ops/pixel_match.py:1517"),
+        f"{_CSRC}/topk.cu", "colormipsearch_tpu/ops/pixel_match.py:1517"),
 }
+GS_KERNELS = {
+    "shape_score_pairs_split": (
+        f"{_CSRC}/shape_split.cu",
+        "colormipsearch_tpu/ops/shape_score.py:816"),
+    "shape_tile_device": (
+        f"{_CSRC}/shape_tile.cu",
+        "colormipsearch_tpu/ops/shape_score.py:633"),
+    "upload_pixel_major": (
+        f"{_CSRC}/pixel_major.cu",
+        "colormipsearch_tpu/ops/shape_score.py:601"),
+}
+KERNELS = {**CDS_KERNELS, **GS_KERNELS}
 
 
 def card_line() -> str:
@@ -76,6 +108,30 @@ def commit() -> str:
         return out.stdout.strip() or "unknown (not a git checkout)"
     except (OSError, subprocess.SubprocessError):
         return "unknown (git unavailable)"
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def reset_peak() -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def free_cached() -> None:
+    import torch
+
+    torch.cuda.empty_cache()
 
 
 def timed(fn, repeats: int) -> float:
@@ -109,11 +165,19 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def report(out: dict) -> None:
+    for name, (err, ms, plain_ms) in out.items():
+        print(f"{name}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+
 def check_kernels(lib, device) -> dict:
-    """Phase 2: every kernel against its plain version at the main
-    path's shapes. Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    """Phase 2, pixel match: every kernel against its plain version at
+    the main path's shapes. Returns {kernel: (max_abs_err, ms,
+    plain_ms)}."""
     import numpy as np
-    import torch
 
     from colormipsearch_tpu_torch import convert
     from colormipsearch_tpu_torch.kernels import build as kbuild
@@ -127,10 +191,8 @@ def check_kernels(lib, device) -> dict:
     stack = np.stack(lib.targets[:T_PAD])
     pos, rgb, cum = common.coo_foreground(stack, 20, T_PAD)
     del stack
-    args1 = (torch.from_numpy(pos).to(device),
-             torch.from_numpy(rgb).to(device),
-             torch.from_numpy(cum).to(device),
-             common.rank_lut_tensor(device))
+    args1 = (torch_from(pos, device), torch_from(rgb, device),
+             torch_from(cum, device), common.rank_lut_tensor(device))
     kw1 = dict(n_px=H * W, t_pad=T_PAD)
     planes = common.scatter_key_planes(*args1, **kw1)
     plain = common.scatter_key_planes_plain(*args1, **kw1)
@@ -179,74 +241,241 @@ def check_kernels(lib, device) -> dict:
                     pm.union_keys_topk_plain(best, mirrored, TOP_K)),
         timed(lambda: pm.union_keys_topk(best, mirrored, TOP_K), 20),
         timed(lambda: pm.union_keys_topk_plain(best, mirrored, TOP_K), 20)]
-    for name, (err, ms, plain_ms) in out.items():
-        print(f"{name}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version")
+    report(out)
     del planes
-    torch.cuda.synchronize()
+    sync()
     kbuild.reset_launches()
     return out
 
 
-def run_search(lib, work: str, n_masks: int) -> tuple[dict, float]:
-    """Phase 3: colorDepthSearch end to end through the CLI entry point.
-    Returns the launch counts of the run and its seconds."""
+def torch_from(arr, device):
     import torch
 
-    from colormipsearch_tpu_torch import testing
-    from colormipsearch_tpu_torch.cli import main as cli_main
-    from colormipsearch_tpu_torch.dataio.json_io import write_neurons_json
+    return torch.from_numpy(arr).to(device)
+
+
+class HostFields:
+    """In-memory store fields [R, n_px] with the ShapePackStore read
+    surface the host tile gather uses (field_maps, gather)."""
+
+    def __init__(self, zsl, grad, tfg):
+        self.zsl, self.grad, self.tfg = zsl, grad, tfg
+
+    def field_maps(self):
+        return self.zsl, self.grad, self.tfg
+
+    def gather(self, field, rows, cols):
+        import numpy as np
+
+        return getattr(self, field)[np.ix_(np.asarray(rows), cols)]
+
+
+def build_fields(lib, variants, n: int) -> HostFields:
+    """The store rows of the first n targets (build_row_fields, threaded),
+    stacked into [n, n_px] fields."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch.io.shape_pack import build_row_fields
+
+    n_px = H * W
+    zsl = np.empty((n, n_px), np.uint16)
+    grad = np.empty((n, n_px), np.uint16)
+    tfg = np.empty((n, -(-n_px // 8)), np.uint8)
+
+    def one(i):
+        g, z = variants[i]
+        zsl[i], grad[i], tfg[i] = build_row_fields(
+            lib.targets[i], g, z, mask_threshold=20)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        list(pool.map(one, range(n)))
+    return HostFields(zsl, grad, tfg)
+
+
+def check_shape_kernels(lib, variants, device) -> dict:
+    """Phase 2, shape pass: K7, K6 and K5 against their plain versions at
+    production shapes, and the device-built planes against the host
+    tile gather. Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.engine.cds import CDSParams
     from colormipsearch_tpu_torch.kernels import build as kbuild
-    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    out = {}
+    t0 = time.time()
+    region = CDSParams(mask_threshold=20, with_name_label_region=True,
+                       with_color_scale_region=True) \
+        .shape_excluded_region(H, W)
+    q_pack = ss.pack_query(lib.masks[0], excluded_region=region)
+    pos_gap, pos_he = ss.support_split(q_pack)
+    n_gap_pad = ss.support_bucket(pos_gap.size, minimum=1024)
+    n_he_w = ss.he_words(pos_he.size)
+    q = [ss.sparse_query_split(q_pack, pos_gap, n_gap_pad, pos_he, n_he_w)
+         for _ in range(2)]
+    q_gap = convert.as_tensor(np.stack([g for g, _ in q]), device)
+    q_he = convert.as_tensor(np.stack([h for _, h in q]), device)
+    print(f"query pack of the first cut mask (slice table included) in "
+          f"{time.time() - t0:.1f}s: Sg {pos_gap.size}, Sg_pad "
+          f"{n_gap_pad}, ring rows {pos_he.size}, ring words {n_he_w}, "
+          f"planes {2 * (n_gap_pad + n_he_w) * 4 * T_PAD / 1e6:.1f} MB",
+          flush=True)
+
+    t0 = time.time()
+    host = build_fields(lib, variants, T_PAD)
+    print(f"store rows of {T_PAD} targets built on the host in "
+          f"{time.time() - t0:.1f}s", flush=True)
+
+    # K7: one production chunk (<= 256 MB of int16) of the zsl field
+    n_r, n_px = host.zsl.shape
+    rows_per = min(n_px, (256 << 20) // (n_r * 2))
+    p0 = min(rows_per, n_px - rows_per)
+    chunk = torch_from(np.array(host.zsl[:, p0:p0 + rows_per]
+                                .view(np.int16)), device)
+    buf = torch.zeros((n_px, n_r), dtype=torch.int16, device=device)
+    ref = torch.zeros_like(buf)
+    ss.upload_pixel_major_chunk(buf, chunk, p0)
+    ss.upload_pixel_major_chunk_plain(ref, chunk, p0)
+    out["upload_pixel_major"] = [
+        max_abs_err([buf], [ref]),
+        timed(lambda: ss.upload_pixel_major_chunk(buf, chunk, p0), 10),
+        timed(lambda: ss.upload_pixel_major_chunk_plain(ref, chunk, p0), 3)]
+    del buf, ref, chunk
+    sync()
+    t0 = time.time()
+    fields = tuple(ss.upload_pixel_major(f, device)
+                   for f in host.field_maps())
+    sync()
+    seconds = time.time() - t0
+    n_bytes = sum(f.numel() * f.element_size() for f in fields)
+    print(f"K7 upload_pixel_major: [{n_r}, {rows_per}] int16 chunks; the "
+          f"device store of {n_r} targets ({n_bytes / 2**30:.2f} GiB) "
+          f"uploaded in {seconds:.2f}s ({n_bytes / seconds / 1e9:.2f} "
+          "GB/s)", flush=True)
+
+    g_pos, h_pos, keep_he = ss.split_gather_plan(
+        pos_gap, pos_he, W, mirror=True, excluded=region)
+    kw = dict(n_gap_pad=n_gap_pad, n_he_words=n_he_w)
+    tp = ss.tile_positions(pos_gap, g_pos, h_pos, keep_he, mirror=True,
+                           device=device, **kw)
+    rows = torch.arange(T_PAD, dtype=torch.int32, device=device)
+    t_gap, t_he = ss.shape_tile_device(fields, rows, tp, **kw)
+    out["shape_tile_device"] = [
+        max_abs_err((t_gap, t_he),
+                    ss.shape_tile_device_plain(fields, rows, tp, **kw)),
+        timed(lambda: ss.shape_tile_device(fields, rows, tp, **kw), 10),
+        timed(lambda: ss.shape_tile_device_plain(fields, rows, tp, **kw),
+              3)]
+    t0 = time.time()
+    want = ss.select_target_tile_from_store(
+        host, np.arange(T_PAD), pos_gap, n_gap_pad, n_he_w,
+        (g_pos, h_pos, keep_he), mirror=True)
+    host_s = time.time() - t0
+    del host
+    err = max_abs_err((t_gap, t_he), tuple(
+        convert.as_tensor(a, device) for a in want))
+    print(f"K6 shape_tile_device: planes {tuple(t_gap.shape)} + "
+          f"{tuple(t_he.shape)}; max_abs_err {err} against the host tile "
+          f"gather ({host_s:.2f}s on the host)", flush=True)
+    if err:
+        raise AssertionError("device-built planes differ from the host's")
+
+    args = (t_gap, q_gap, t_he, q_he)
+    hi, lo, he = ss.shape_score_pairs_split(*args)
+    out["shape_score_pairs_split"] = [
+        max_abs_err((hi, lo, he), ss.shape_score_pairs_split_plain(*args)),
+        timed(lambda: ss.shape_score_pairs_split(*args), 20),
+        timed(lambda: ss.shape_score_pairs_split_plain(*args), 3)]
+    print(f"K5 shape_score_pairs_split: 2 orientations x {T_PAD} targets,"
+          f" max gap {int((hi.long() * 1024 + lo.long()).max())}, max "
+          f"high-expression {int(he.max())}", flush=True)
+    report(out)
+    del fields, t_gap, t_he, args
+    sync()
+    free_cached()
+    kbuild.reset_launches()
+    return out
+
+
+def make_variants(lib, seed: int) -> list:
+    """(GradientImage, ZGapImage) of every target, from per-target child
+    seeds, threaded."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import testing
+
+    seeds = np.random.SeedSequence(seed).spawn(len(lib.targets))
+
+    def one(i):
+        rng = np.random.default_rng(seeds[i])
+        t = lib.targets[i]
+        return testing.synthetic_gradient(rng, t), testing.synthetic_zgap(t)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        return list(pool.map(one, range(len(lib.targets))))
+
+
+def write_library(lib, variants, work: str):
+    """The library as PNGs: targets with their gradient and z-gap
+    variants, masks; neuron JSONs beside them."""
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.dataio.json_io import write_neurons_json
 
     t0 = time.time()
     targets = testing.write_neuron_images(
-        os.path.join(work, "targets"), lib.targets, "t")
+        os.path.join(work, "targets"), lib.targets, "t",
+        gradients=[g for g, _ in variants], zgaps=[z for _, z in variants])
     masks = testing.write_neuron_images(
-        os.path.join(work, "masks"), lib.masks[:n_masks], "m")
+        os.path.join(work, "masks"), lib.masks, "m")
     write_neurons_json(targets, os.path.join(work, "targets.json"))
     write_neurons_json(masks, os.path.join(work, "masks.json"))
-    print(f"wrote the library as PNGs in {time.time() - t0:.1f}s",
-          flush=True)
+    print(f"wrote the library (targets with variants) as PNGs in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return masks, targets
+
+
+def run_search(work: str, n_masks: int, n_targets: int) -> dict:
+    """Phase 3: colorDepthSearch end to end through the CLI entry point.
+    Returns the launch counts of the run."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
 
     GLOBAL.reset()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     kbuild.reset_launches()
     t0 = time.time()
     rc = cli_main.main([
         "colorDepthSearch", "-m", os.path.join(work, "masks.json"),
-        "-i", os.path.join(work, "targets.json"), "--device", "cuda",
+        "-i", os.path.join(work, "targets.json"), "--device", DEVICE,
         "-od", os.path.join(work, "out"), "--perMaskSubdir", "masks",
         "--perTargetSubdir", "targets", *FLAGS])
     seconds = time.time() - t0
     launches = dict(kbuild.launches)
     if rc != 0:
         raise AssertionError(f"colorDepthSearch exited {rc}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in CDS_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
-    pairs = len(masks) * len(targets)
-    from colormipsearch_tpu_torch.cli.commands import stage_seconds
-
-    print(f"colorDepthSearch: {len(masks)} masks x {len(targets)} targets "
+    pairs = n_masks * n_targets
+    print(f"colorDepthSearch: {n_masks} masks x {n_targets} targets "
           f"in {seconds:.2f}s = {pairs / seconds:.0f} pairs/s end to end, "
           f"{pairs / GLOBAL.get('cds.scoreAllPairs.seconds'):.0f} pairs/s "
           "over scoreAllPairs", flush=True)
     print(f"cds stage seconds: {json.dumps(stage_seconds())}", flush=True)
-    print(f"peak torch.cuda.max_memory_allocated: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"peak torch.cuda.max_memory_allocated: {peak_gib():.2f} GiB",
+          flush=True)
     print(f"launches in the run: {launches}", flush=True)
-    return launches, seconds
+    return launches
 
 
 def check_against_oracle(lib, work: str, n_masks: int, rng) -> None:
     """Every emitted match of 4 masks equals the float64 oracle's
     matchingPixels / mirrored; 32 sampled non-emitted pairs fail the emit
     test under the oracle."""
-    import numpy as np
-
     from colormipsearch_tpu_torch.oracle.pixel import (
         PixelMatchOracle,
         label_regions_mask,
@@ -302,17 +531,171 @@ def check_against_oracle(lib, work: str, n_masks: int, rng) -> None:
           flush=True)
 
 
+def _read_results(root: str) -> dict:
+    """{mask mipId: [result rows]} of a per-mask result directory."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        with open(os.path.join(root, name)) as f:
+            doc = json.load(f)
+        out[doc["inputImage"]["mipId"]] = doc["results"]
+    return out
+
+
+def _gradient_scores(work: str, out: str, *flags) -> tuple[dict, float]:
+    """One gradientScores run through the CLI entry point with fresh
+    launch counts; returns (launches, seconds)."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    shutil.copytree(os.path.join(work, "cds"), out)
+    GLOBAL.reset()
+    reset_peak()
+    kbuild.reset_launches()
+    t0 = time.time()
+    rc = cli_main.main([
+        "gradientScores", "--matches", os.path.join(out, "masks"),
+        "--maskThreshold", "20", "--mirrorMask", "--device", DEVICE,
+        "-od", out, "--perMaskSubdir", "masks", *flags])
+    seconds = time.time() - t0
+    launches = dict(kbuild.launches)
+    if rc != 0:
+        raise AssertionError(f"gradientScores exited {rc}")
+    # the match files this run rescored carry shape scores
+    pairs = sum("gradientAreaGap" in r for rows in
+                _read_results(os.path.join(out, "masks")).values()
+                for r in rows)
+    print(f"gradientScores {' '.join(flags) or '(default path)'}: {pairs} "
+          f"pairs in {seconds:.2f}s = {pairs / seconds:.0f} pairs/s end "
+          f"to end; gs stage seconds {json.dumps(stage_seconds('gs'))}; "
+          f"store upload {GLOBAL.get('gs.storeUploadBytes') / 2**30:.2f} "
+          f"GiB; peak torch.cuda.max_memory_allocated {peak_gib():.2f} "
+          f"GiB; launches {launches}", flush=True)
+    return launches, seconds
+
+
+def run_gradient_scores(work: str, n_masks: int) -> dict:
+    """Phase 4: colorDepthSearch of the first n_masks masks with
+    --pctPositivePixels 0, then gradientScores through the
+    device-resident store and through the default path. Returns the
+    store run's launch counts."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+
+    t0 = time.time()
+    rc = cli_main.main([
+        "colorDepthSearch", "-m", f"{os.path.join(work, 'masks.json')}:0:"
+        f"{n_masks}", "-i", os.path.join(work, "targets.json"),
+        "--device", DEVICE, "-od", os.path.join(work, "cds"),
+        "--perMaskSubdir", "masks", *FLAGS[:-2],
+        "--pctPositivePixels", "0"])
+    if rc != 0:
+        raise AssertionError(f"colorDepthSearch exited {rc}")
+    pairs = sum(len(r) for r in
+                _read_results(os.path.join(work, "cds", "masks")).values())
+    print(f"colorDepthSearch of {n_masks} masks with --pctPositivePixels "
+          f"0 in {time.time() - t0:.1f}s: {pairs} candidate pairs",
+          flush=True)
+
+    os.environ["CDS_SHAPE_STORE_DEVICE"] = "1"
+    try:
+        launches, _ = _gradient_scores(
+            work, os.path.join(work, "gs_store"),
+            "--packed-variants-store", os.path.join(work, "store"))
+    finally:
+        del os.environ["CDS_SHAPE_STORE_DEVICE"]
+    missing = [k for k in GS_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the device-store path never launched "
+                             f"{missing}")
+    default, _ = _gradient_scores(work, os.path.join(work, "gs_default"),
+                                  "--matches-length", "2")
+    if default["shape_score_pairs_split"] == 0:
+        raise AssertionError("the default path never launched "
+                             "shape_score_pairs_split")
+    return launches
+
+
+def check_shape_oracle(lib, variants, work: str, rng) -> None:
+    """Phase 5: 8 sampled pairs of each of 4 masks, from both phase-4
+    runs, against the float64 ShapeMatchOracle."""
+    from colormipsearch_tpu_torch.engine.cds import CDSParams
+    from colormipsearch_tpu_torch.oracle.shape import (
+        ShapeMatchOracle,
+        negative_score,
+        normalized_score,
+    )
+
+    region = CDSParams(mask_threshold=20, with_name_label_region=True,
+                       with_color_scale_region=True) \
+        .shape_excluded_region(H, W)
+    runs = {name: _read_results(os.path.join(work, name, "masks"))
+            for name in ("gs_store", "gs_default")}
+    # the default run rescored the first 2 match files only
+    runs["gs_default"] = dict(sorted(runs["gs_default"].items())[:2])
+    masks = [m for m, rows in runs["gs_store"].items() if rows][:4]
+    if len(masks) < 4:
+        raise AssertionError(f"only masks {masks} have shape scores")
+    jobs = []
+    for mip in masks:
+        rows = runs["gs_store"][mip]
+        for k in rng.choice(len(rows), min(8, len(rows)), replace=False):
+            jobs.append((mip, rows[int(k)]["image"]["mipId"]))
+    oracles = {mip: ShapeMatchOracle(lib.masks[int(mip.split("-")[1])], 20,
+                                     mirror=True, excluded_region=region)
+               for mip in masks}
+
+    def score(job):
+        mip, tid = job
+        ti = int(tid.split("-")[1])
+        g, z = variants[ti]
+        return oracles[mip].score(lib.targets[ti], g, z)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        results = dict(zip(jobs, pool.map(score, jobs)))
+    n_checked = {name: 0 for name in runs}
+    for (mip, tid), res in results.items():
+        for name, run in runs.items():
+            rows = run.get(mip)
+            if not rows:
+                continue
+            row = next(r for r in rows if r["image"]["mipId"] == tid)
+            got = (row["gradientAreaGap"], row["highExpressionArea"])
+            want = (res.gradient_area_gap, res.high_expression_area)
+            if got != want:
+                raise AssertionError(f"{name} {mip} x {tid}: shape scores "
+                                     f"{got}, oracle {want}")
+            max_px = max(r["matchingPixels"] for r in rows)
+            max_neg = max(negative_score(r["gradientAreaGap"],
+                                         r["highExpressionArea"])
+                          for r in rows)
+            norm = normalized_score(row["matchingPixels"], *want, max_px,
+                                    max_neg)
+            if abs(row["normalizedScore"] - norm) > 1e-6 * abs(norm):
+                raise AssertionError(f"{name} {mip} x {tid}: normalized "
+                                     f"{row['normalizedScore']}, oracle "
+                                     f"{norm}")
+            n_checked[name] += 1
+    if not n_checked["gs_default"]:
+        raise AssertionError("no sampled pair of the default run")
+    print(f"shape oracle: sampled pairs of masks {masks} agree "
+          f"({n_checked})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
     ap.add_argument("--masks", type=int, default=32)
+    ap.add_argument("--gs-masks", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if args.targets < T_PAD or args.masks < BATCH:
+    if args.targets < T_PAD or args.masks < BATCH \
+            or not 4 <= args.gs_masks <= args.masks:
         ap.error(f"phase 2 needs at least {T_PAD} targets and {BATCH} "
-                 "masks")
+                 "masks, phase 4 between 4 and --masks masks")
 
     # phase 0
+    t_run = time.time()
     card = card_line()
     print(f"card: {card}", flush=True)
     import torch
@@ -324,37 +707,67 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}, commit {commit()}", flush=True)
     sys.path.insert(0, REPO)
+    os.environ.setdefault("COLORMIPSEARCH_TPU_CACHE",
+                          os.path.join(REPO, "build", "cache"))
     import numpy as np
 
     from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.io import native_decoder
     from colormipsearch_tpu_torch.kernels import build as kbuild
 
-    device = torch.device("cuda")
+    device = torch.device(DEVICE)
+    phases = {}
     # phase 1
     t0 = time.time()
     so = kbuild.build()
     kbuild.load_library()
-    print(f"kernels built in {time.time() - t0:.1f}s "
-          f"(nvcc {kbuild.build_seconds:.1f}s): {so}", flush=True)
+    phases["1 build"] = time.time() - t0
+    print(f"kernels built in {phases['1 build']:.1f}s "
+          f"(nvcc {kbuild.build_seconds:.1f}s): {so}; native decoder "
+          f"{'available' if native_decoder.available() else 'missing'}",
+          flush=True)
     with open(so + ".log") as f:
         print(f.read(), file=sys.stderr)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     lib = testing.synthetic_library(rng, args.targets, args.masks, H, W)
-    print(f"synthetic library: {args.targets} targets, {args.masks} masks "
-          f"at {H}x{W} in {time.time() - t0:.1f}s", flush=True)
+    variants = make_variants(lib, args.seed)
+    phases["library"] = time.time() - t0
+    print(f"synthetic library: {args.targets} targets with gradient and "
+          f"z-gap variants, {args.masks} masks at {H}x{W} in "
+          f"{phases['library']:.1f}s", flush=True)
     # phase 2
+    t0 = time.time()
     checks = check_kernels(lib, device)
-    # phase 3
+    checks.update(check_shape_kernels(lib, variants, device))
+    phases["2 kernel checks"] = time.time() - t0
     work = os.path.join(REPO, "build", "chip_smoke_data")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches, _ = run_search(lib, work, args.masks)
+        t0 = time.time()
+        write_library(lib, variants, work)
+        phases["library PNGs"] = time.time() - t0
+        # phase 3
+        t0 = time.time()
+        launches = run_search(work, args.masks, args.targets)
         check_against_oracle(lib, work, args.masks, rng)
+        phases["3 colorDepthSearch"] = time.time() - t0
+        # phase 4
+        t0 = time.time()
+        gs_launches = run_gradient_scores(work, args.gs_masks)
+        launches.update({k: gs_launches[k] for k in GS_KERNELS})
+        phases["4 gradientScores"] = time.time() - t0
+        # phase 5
+        t0 = time.time()
+        check_shape_oracle(lib, variants, work, rng)
+        phases["5 shape oracle"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    rounded = {k: round(v, 1) for k, v in phases.items()}
+    print(f"phase seconds: {json.dumps(rounded)}, total "
+          f"{time.time() - t_run:.1f}s", flush=True)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": checks[name][0], "ms": checks[name][1],

@@ -1,6 +1,8 @@
-"""colorDepthSearch (cmd/ColorDepthSearchCmd.java:52-440) on the port.
+"""CLI subcommands of the port: colorDepthSearch
+(cmd/ColorDepthSearchCmd.java:52-440) and gradientScores
+(cmd/CalculateGradientScoresCmd.java:67-461).
 
-The same flags and file formats as the JAX package's command, plus
+The same flags and file formats as the JAX package's commands, plus
 ``--device {cuda,cpu}``; the FS (JSON) storage backend only.
 """
 
@@ -14,7 +16,9 @@ from pathlib import Path
 
 import torch
 
+from colormipsearch_tpu_torch.cli import common
 from colormipsearch_tpu_torch.dataio.json_io import (
+    JSONMatchesReader,
     JSONMatchesWriter,
     read_neurons_json,
     write_cds_session,
@@ -24,8 +28,15 @@ from colormipsearch_tpu_torch.engine.cds import (
     CDSearchEngine,
     not_ported,
 )
+from colormipsearch_tpu_torch.io import mips as mips_io
 from colormipsearch_tpu_torch.io.mips import ListArg
-from colormipsearch_tpu_torch.model import ComputeFileType, Neuron
+from colormipsearch_tpu_torch.model import (
+    ComputeFileType,
+    FileData,
+    Neuron,
+    ProcessingType,
+)
+from colormipsearch_tpu_torch.results.grouping import select_best_matches
 
 LOG = logging.getLogger(__name__)
 
@@ -189,12 +200,16 @@ def configure_color_depth_search(sp):
                          "writes already run on a thread pool")
     sp.add_argument("--use-spark", dest="useSpark", action="store_true",
                     help="accepted for reference parity")
+    _add_device_arg(sp)
+    _add_cds_params(sp)
+    _add_output_args(sp)
+
+
+def _add_device_arg(sp):
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda: the hand-written CUDA kernels (an error "
                          "without a GPU); cpu: their plain PyTorch "
                          "versions")
-    _add_cds_params(sp)
-    _add_output_args(sp)
 
 
 def _load_excluded_mips(specs) -> set:
@@ -340,11 +355,123 @@ def cmd_color_depth_search(args) -> int:
     return 0
 
 
-def stage_seconds() -> dict:
-    """The engine's per-stage seconds so far (utils/metrics GLOBAL)."""
+_STAGES = {
+    "cds": ("prepMasks", "decodeTargets", "packUpload", "scoreAllPairs",
+            "planArgs", "dispatch", "emit", "packSelect", "packScatter"),
+    "gs": ("queryPack", "storeLookup", "storeUpload", "deviceTileBuild",
+           "storeGather", "dispatch"),
+}
+
+
+def stage_seconds(engine: str = "cds") -> dict:
+    """The per-stage seconds so far of the pixel-match ("cds") or the
+    shape ("gs") engine (utils/metrics GLOBAL)."""
     from colormipsearch_tpu_torch.utils.metrics import GLOBAL
 
-    return {s: round(GLOBAL.get(f"cds.{s}.seconds"), 2)
-            for s in ("prepMasks", "decodeTargets", "packUpload",
-                      "scoreAllPairs", "planArgs", "dispatch", "emit",
-                      "packSelect", "packScatter")}
+    return {s: round(GLOBAL.get(f"{engine}.{s}.seconds"), 2)
+            for s in _STAGES[engine]}
+
+
+# -------------------------------------------------------------------------
+# v3: gradientScores
+# -------------------------------------------------------------------------
+
+
+def configure_gradient_scores(sp):
+    sp.add_argument("--matches", "--masks-libraries", "-md", nargs="+",
+                    required=True, dest="matches",
+                    help="mask match sources, lib[:offset[:length]] "
+                         "(AbstractGradientScoresArgs --masks-libraries): "
+                         "directories/files of per-mask grouped match "
+                         "JSON")
+    sp.add_argument("--matches-index", type=int, default=0)
+    sp.add_argument("--matches-length", type=int, default=-1)
+    common.add_gradient_selector_args(sp)
+    sp.add_argument("--nBestLines", type=int, default=-1)
+    sp.add_argument("--nBestSamplesPerLine", type=int, default=-1)
+    sp.add_argument("--nBestMatchesPerSample", type=int, default=-1)
+    sp.add_argument("--processing-tag", dest="processingTag", default="")
+    sp.add_argument("--process-partitions-concurrently",
+                    dest="partitionsConcurrently", action="store_true",
+                    help="accepted for reference parity; mask groups "
+                         "already stream through batched device tiles")
+    sp.add_argument("--use-device", action="store_true", default=True,
+                    help="score with the shape kernels (default)")
+    sp.add_argument("--no-use-device", dest="use_device",
+                    action="store_false",
+                    help="score every pair with the float64 oracle")
+    sp.add_argument("--packed-variants-store", dest="packStore",
+                    default=None, metavar="DIR",
+                    help="decode-once packed-variant store directory "
+                         "(io/shape_pack.py): per-target shape fields "
+                         "persist across runs, so rescoring a library "
+                         "skips image decode/dilation entirely; built "
+                         "on first use (also CDS_SHAPE_PACK_DIR)")
+    _add_device_arg(sp)
+    _add_cds_params(sp)
+    _add_output_args(sp)
+
+
+def cmd_gradient_scores(args) -> int:
+    from colormipsearch_tpu_torch.engine.gradscore import GradScoreEngine
+
+    if args.resultsStorage == "DB":
+        raise not_ported("the DB storage backend (--results-storage DB)",
+                         "host-only CLI commands")
+    params = _cds_params(args)
+    pack_store = args.packStore or os.environ.get("CDS_SHAPE_PACK_DIR") \
+        or None
+    engine = GradScoreEngine(
+        params, device=torch.device(args.device),
+        use_device=args.use_device,
+        decode_workers=getattr(args, "cdsConcurrency", 0) or None,
+        pack_store=pack_store)
+    locations = JSONMatchesReader.list_matches_locations(
+        args.matches, args.matches_index, args.matches_length)
+    per_mask, _ = _out_dirs(args)
+    writer = JSONMatchesWriter(
+        per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
+        ordering=lambda m: -(m.normalized_score or 0.0))
+    LOG.info("gradientScores over %d match files on %s", len(locations),
+             engine.device)
+
+    # Device-resident shape store auto-default: at 32 or more mask files
+    # the one-time field upload amortizes over enough masks (the JAX
+    # package's measured break-even was ~27 masks); 0 disables the
+    # auto-default, and an explicit CDS_SHAPE_STORE_DEVICE env always
+    # wins. A per-invocation engine parameter, never a process-env
+    # mutation.
+    auto_thr = int(os.environ.get("CDS_SHAPE_STORE_DEVICE_AUTO_MASKS",
+                                  "32"))
+    if (pack_store and "CDS_SHAPE_STORE_DEVICE" not in os.environ
+            and auto_thr > 0 and len(locations) >= auto_thr):
+        engine.device_store = True
+        LOG.info("device-resident shape store auto-enabled: %d mask "
+                 "files >= %d (set CDS_SHAPE_STORE_DEVICE=0 to force "
+                 "the host tile pack)", len(locations), auto_thr)
+
+    roi_rgb = None
+    if args.queryROIMask:
+        roi_rgb = mips_io.load_image(FileData(args.queryROIMask)).as_rgb()
+
+    for loc in locations:
+        matches = JSONMatchesReader.read_matches(loc)
+        if args.pctPositivePixels > 0:
+            thr = args.pctPositivePixels / 100
+            matches = [m for m in matches
+                       if (m.matching_pixels_ratio or 0) >= thr]
+        selected = select_best_matches(
+            matches, args.nBestLines, args.nBestSamplesPerLine,
+            args.nBestMatchesPerSample)
+        scored = engine.score_matches(selected, roi_rgb=roi_rgb)
+        if scored:
+            if args.processingTag:
+                for m in scored:
+                    for n in (m.mask_image, m.matched_image):
+                        if n is not None:
+                            n.add_processed_tags(
+                                ProcessingType.GradientScore,
+                                [args.processingTag])
+            writer.write_updates(scored)
+    LOG.info("gs stage seconds: %s", json.dumps(stage_seconds("gs")))
+    return 0

@@ -53,3 +53,40 @@ def ensure_common_args(sp: argparse.ArgumentParser) -> None:
             if existing is None:
                 action.option_strings.append(name)
                 sp._option_string_actions[name] = action
+
+
+def add_gradient_selector_args(sp: argparse.ArgumentParser) -> None:
+    """The gradientScores DataSource selector family
+    (cmd/AbstractGradientScoresArgs.java:18-96): scopes which masks are
+    rescored, which of their matches qualify (by target neuron), and
+    which match records are read. They select only on the DB storage
+    backend, which the port does not have yet; with FS storage the
+    match files name what is scored."""
+    sp.add_argument("--alignment-space", "-as", dest="alignmentSpace",
+                    default=None,
+                    help="alignment space of the masks/targets")
+    sp.add_argument("--masks-published-names", nargs="*", default=[],
+                    help="mask published names to select for scoring")
+    sp.add_argument("--masks-mips", nargs="*", default=[],
+                    help="selected mask MIP ids")
+    sp.add_argument("--masks-datasets", nargs="*", default=[])
+    sp.add_argument("--masks-tags", nargs="*", default=[])
+    sp.add_argument("--masks-terms", nargs="*", default=[],
+                    help="terms (annotations) required on the mask")
+    sp.add_argument("--excluded-masks-terms", nargs="*", default=[])
+    sp.add_argument("--masks-processing-tags", nargs="*", default=[],
+                    metavar="NAME:V1;V2",
+                    help="mask processing-tag selectors "
+                         "(NameValueArg 'type:tag1;tag2' form)")
+    sp.add_argument("--targets-libraries", nargs="*", default=[])
+    sp.add_argument("--targets-published-names", nargs="*", default=[])
+    sp.add_argument("--targets-mips", nargs="*", default=[])
+    sp.add_argument("--targets-datasets", nargs="*", default=[])
+    sp.add_argument("--targets-tags", nargs="*", default=[])
+    sp.add_argument("--targets-terms", nargs="*", default=[])
+    sp.add_argument("--excluded-targets-terms", nargs="*", default=[])
+    sp.add_argument("--targets-processing-tags", nargs="*", default=[],
+                    metavar="NAME:V1;V2")
+    sp.add_argument("--match-tags", nargs="*", default=[],
+                    help="only score match records carrying one of "
+                         "these tags")

@@ -2,9 +2,11 @@
 
     python -m colormipsearch_tpu_torch.cli.main colorDepthSearch \\
         -m masks.json -i targets.json --device cuda ...
+    python -m colormipsearch_tpu_torch.cli.main gradientScores \\
+        --matches results/masks --device cuda ...
 
-Only ``colorDepthSearch`` is ported; the flags and the FS (JSON) result
-files are those of the JAX package's command.
+``colorDepthSearch`` and ``gradientScores`` are ported; the flags and
+the FS (JSON) result files are those of the JAX package's commands.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
     commands.configure_color_depth_search(sp)
     common.ensure_common_args(sp)
     sp.set_defaults(func=commands.cmd_color_depth_search)
+    sp = sub.add_parser(
+        "gradientScores",
+        help="shape (gradient-area-gap) rescoring of CDS matches")
+    commands.configure_gradient_scores(sp)
+    common.ensure_common_args(sp)
+    sp.set_defaults(func=commands.cmd_gradient_scores)
     return p
 
 

@@ -91,6 +91,21 @@ class CDSParams:
             with_name_label=self.with_name_label_region,
             with_color_scale_label=self.with_color_scale_region)
 
+    def shape_excluded_region(self, height: int,
+                              width: int) -> np.ndarray | None:
+        """Label regions + the borderSize frame — the shape provider
+        creates the query LImage with borders
+        (ColorDepthSearchAlgorithmProviderFactory:113); the pixel-match
+        pass does not use the border."""
+        region = self.excluded_region(height, width)
+        if self.border_size <= 0:
+            return region
+        b = self.border_size
+        border = np.ones((height, width), dtype=bool)
+        if height > 2 * b and width > 2 * b:
+            border[b:height - b, b:width - b] = False
+        return border if region is None else (region | border)
+
     def as_map(self) -> dict:
         """CDS parameter audit map (ColorMIPSearch.getCDSParameters)."""
         return {

@@ -9,10 +9,11 @@ Replaces the reference's ImageJ/ImageIO decode layer
 
 Decoders, in order: the native C++ decoder (io/native_decoder.py; TIFF
 and PNG), PIL when it is importable, and last a small numpy + zlib
-reader that accepts only 8-bit RGB non-interlaced PNGs whose rows all
-use filter type 0 (what ``colormipsearch_tpu_torch.testing`` writes).
-The last one exists because the GPU hosts may have neither zlib's
-headers nor PIL.
+reader that accepts only non-interlaced 8-bit RGB and 16-bit gray PNGs
+whose rows all use filter type 0 (what ``colormipsearch_tpu_torch.
+testing`` writes: CDMs, z-gap variants and gradient variants). The last
+one exists because the GPU hosts may have neither zlib's headers nor
+PIL.
 """
 
 from __future__ import annotations
@@ -117,10 +118,11 @@ def _try_native(data: bytes) -> ImageData | None:
     return None
 
 
-def decode_png_rgb8(data: bytes) -> np.ndarray:
-    """numpy + zlib PNG reader for 8-bit RGB, non-interlaced images whose
-    rows all use filter type 0 -> uint8 [H, W, 3].  Raises ValueError on
-    any other PNG."""
+def _png_filter0_rows(data: bytes, depth: int, color: int,
+                      what: str) -> tuple[int, int, np.ndarray]:
+    """(width, height, uint8 [H, row bytes]) of a non-interlaced PNG of
+    the given bit depth and color type whose rows all use filter type
+    0; raises ValueError on any other PNG."""
     if not data.startswith(_PNG_MAGIC):
         raise ValueError("not a PNG")
     off = len(_PNG_MAGIC)
@@ -139,18 +141,47 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
             break
     if header is None:
         raise ValueError("PNG without IHDR")
-    w, h, depth, color, comp, filt, interlace = header
-    if (depth, color, comp, filt, interlace) != (8, 2, 0, 0, 0):
+    w, h, got_depth, got_color, comp, filt, interlace = header
+    if (got_depth, got_color, comp, filt, interlace) != \
+            (depth, color, 0, 0, 0):
         raise ValueError(
-            f"unsupported PNG (bit depth {depth}, color type {color}, "
-            f"interlace {interlace}): only 8-bit RGB, non-interlaced")
+            f"unsupported PNG (bit depth {got_depth}, color type "
+            f"{got_color}, interlace {interlace}): expected {what}, "
+            "non-interlaced")
+    channels = 3 if color == 2 else 1
+    row_bytes = w * channels * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + 3 * w):
+    if raw.size != h * (1 + row_bytes):
         raise ValueError("PNG image data has the wrong size")
-    rows = raw.reshape(h, 1 + 3 * w)
+    rows = raw.reshape(h, 1 + row_bytes)
     if rows[:, 0].any():
         raise ValueError("PNG rows use a filter other than type 0")
-    return np.ascontiguousarray(rows[:, 1:].reshape(h, w, 3))
+    return w, h, rows[:, 1:]
+
+
+def decode_png_rgb8(data: bytes) -> np.ndarray:
+    """numpy + zlib PNG reader for 8-bit RGB, non-interlaced images whose
+    rows all use filter type 0 -> uint8 [H, W, 3].  Raises ValueError on
+    any other PNG."""
+    w, h, rows = _png_filter0_rows(data, 8, 2, "8-bit RGB")
+    return np.ascontiguousarray(rows.reshape(h, w, 3))
+
+
+def decode_png_gray16(data: bytes) -> np.ndarray:
+    """numpy + zlib PNG reader for 16-bit gray, non-interlaced images
+    whose rows all use filter type 0 (big-endian samples) -> uint16
+    [H, W].  Raises ValueError on any other PNG."""
+    w, h, rows = _png_filter0_rows(data, 16, 0, "16-bit gray")
+    return np.ascontiguousarray(rows).view(">u2").astype(np.uint16) \
+        .reshape(h, w)
+
+
+def _decode_png_numpy(data: bytes) -> ImageData:
+    """The numpy PNG readers, chosen by the IHDR's bit depth and color
+    type (16-bit gray, else 8-bit RGB)."""
+    if data[12:16] == b"IHDR" and data[24:26] == b"\x10\x00":
+        return ImageData(ImageType.GRAY16, decode_png_gray16(data))
+    return ImageData(ImageType.RGB, decode_png_rgb8(data))
 
 
 def read_image(path_or_bytes) -> ImageData:
@@ -158,7 +189,8 @@ def read_image(path_or_bytes) -> ImageData:
 
     TIFFs and PNGs go through the native C++ decoder when it is
     available; everything else (and any native failure) goes to PIL when
-    it is importable, else to the numpy PNG reader (decode_png_rgb8).
+    it is importable, else to the numpy PNG readers (decode_png_rgb8,
+    decode_png_gray16).
     """
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
@@ -174,7 +206,7 @@ def read_image(path_or_bytes) -> ImageData:
         # optional dependency, looked up only here (the GPU hosts lack it)
         pil_image = importlib.import_module("PIL.Image")
     except ImportError:
-        return ImageData(ImageType.RGB, decode_png_rgb8(data))
+        return _decode_png_numpy(data)
     with pil_image.open(_io.BytesIO(data)) as img:
         img.load()
         return _from_pil(img)

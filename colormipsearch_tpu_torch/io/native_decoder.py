@@ -104,6 +104,20 @@ def _bind_symbols(lib) -> None:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.cdm_build_shape_row.restype = None
+    lib.cdm_build_shape_row.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.cdm_shape_tile_from_store.restype = None
+    lib.cdm_shape_tile_from_store.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
 
 def available() -> bool:
@@ -169,6 +183,88 @@ def decode_img_batch(blobs: list[bytes], *, width: int, height: int,
         width, height, channels, n_threads, results)
     ok = np.array([results[i] == 0 for i in range(n)], bool)
     return arena, ok
+
+
+def build_shape_row(t_rgb: np.ndarray, grad: np.ndarray,
+                    zgap_rgb: np.ndarray, slice_lut: np.ndarray, *,
+                    mask_threshold: int, gap_threshold: int):
+    """One-pass store-row fields (native twin of
+    io/shape_pack.build_row_fields): (zsl uint16 [n_px], grad_thr uint16
+    [n_px], tfg_bits uint8 [ceil(n_px/8)]).  Returns None when the
+    native library is unavailable.  Runs single-threaded and drops the
+    GIL — callers parallelize via their decode pool."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    t_rgb = np.ascontiguousarray(t_rgb, np.uint8)
+    grad = np.ascontiguousarray(grad, np.uint16)
+    zgap_rgb = np.ascontiguousarray(zgap_rgb, np.uint8)
+    assert slice_lut.dtype == np.uint16 and slice_lut.flags.c_contiguous
+    n_px = grad.size
+    assert t_rgb.size == n_px * 3 and zgap_rgb.size == n_px * 3
+    zsl = np.empty(n_px, np.uint16)
+    grad_thr = np.empty(n_px, np.uint16)
+    tfg_bits = np.empty(-(-n_px // 8), np.uint8)
+    ptr = ctypes.c_void_p
+    lib.cdm_build_shape_row(
+        ptr(t_rgb.ctypes.data), ptr(grad.ctypes.data),
+        ptr(zgap_rgb.ctypes.data), n_px, ptr(slice_lut.ctypes.data),
+        int(mask_threshold), int(gap_threshold), ptr(zsl.ctypes.data),
+        ptr(grad_thr.ctypes.data), ptr(tfg_bits.ctypes.data))
+    return zsl, grad_thr, tfg_bits
+
+
+def shape_tile_from_store(zsl_mm: np.ndarray, grad_mm: np.ndarray,
+                          tfg_mm: np.ndarray, rows: np.ndarray,
+                          pos_gap: np.ndarray, g_pos: np.ndarray,
+                          h_pos: np.ndarray, keep_he: np.ndarray | None,
+                          n_or: int, n_gap_pad: int, n_he_words: int,
+                          sl_shift: int, n_threads: int = 0):
+    """Threaded store-row tile pack (native twin of
+    ops/shape_score.select_target_tile_from_store): gathers the support
+    columns of T store rows straight from the mmaps and assembles the
+    final (t_gap uint32 [n_or, n_gap_pad, T], t_he uint32
+    [n_or, n_he_words, T]) planes.  Returns None when the native
+    library is unavailable (the caller takes the numpy path)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    assert zsl_mm.dtype == np.uint16 and grad_mm.dtype == np.uint16 \
+        and tfg_mm.dtype == np.uint8
+    rows = np.ascontiguousarray(rows, np.int64)
+    pos_gap = np.ascontiguousarray(pos_gap, np.int32)
+    g_pos = np.ascontiguousarray(g_pos, np.int32)
+    h_pos = np.ascontiguousarray(h_pos, np.int32)
+    # the C++ side does no bounds checks: refuse what would make it read
+    # past the mmaps or write past the output planes
+    n_he = h_pos.size // n_or
+    if n_gap_pad < pos_gap.size or n_he_words < -(-n_he // 32):
+        raise ValueError(f"planes too small: n_gap_pad {n_gap_pad} for "
+                         f"{pos_gap.size} gap rows, n_he_words "
+                         f"{n_he_words} for {n_he} ring rows")
+    if rows.size:
+        max_rows = min(zsl_mm.shape[0], grad_mm.shape[0], tfg_mm.shape[0])
+        if int(rows.max()) >= max_rows or int(rows.min()) < 0:
+            raise ValueError(f"store rows [{rows.min()}, {rows.max()}] "
+                             f"outside the mapped range [0, {max_rows})")
+    keep = (np.ascontiguousarray(keep_he, np.uint8)
+            if keep_he is not None else None)
+    t = len(rows)
+    t_gap = np.empty((n_or, n_gap_pad, t), np.uint32)
+    t_he = np.empty((n_or, n_he_words, t), np.uint32)
+    if n_threads <= 0:
+        n_threads = min(32, os.cpu_count() or 1)
+    ptr = ctypes.c_void_p
+    lib.cdm_shape_tile_from_store(
+        ptr(zsl_mm.ctypes.data), ptr(grad_mm.ctypes.data),
+        ptr(tfg_mm.ctypes.data), zsl_mm.shape[1], grad_mm.shape[1],
+        tfg_mm.shape[1], ptr(rows.ctypes.data), t,
+        ptr(pos_gap.ctypes.data), pos_gap.size, ptr(g_pos.ctypes.data),
+        ptr(h_pos.ctypes.data), n_he,
+        ptr(keep.ctypes.data) if keep is not None else None,
+        n_or, n_gap_pad, n_he_words, sl_shift,
+        ptr(t_gap.ctypes.data), ptr(t_he.ctypes.data), n_threads)
+    return t_gap, t_he
 
 
 def coo_select(arena: np.ndarray, threshold: int, n_threads: int = 0):

@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by ONE nvcc call for ``sm_90a``
-into a shared library with a plain C interface, at first use, into the
-checkout's ``build/colormipsearch_tpu_torch/`` directory (named by a
-hash of the sources, so an edited source rebuilds), and loaded with
-ctypes. Every C entry point takes raw pointers and the CUDA stream as
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own nvcc
+process, all started together, and the objects are linked into one
+shared library with a plain C interface, at first use, in the checkout's
+``build/colormipsearch_tpu_torch/`` directory (named by a hash of the
+sources, so an edited source rebuilds), and loaded with ctypes. Every C entry point takes raw pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` turns a
 non-zero code into an exception.
 
@@ -29,7 +29,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "colormipsearch_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -46,6 +46,10 @@ _SIGNATURES = {
     "cmst_union_score": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _I32,
                          _I32, _I32, _I32, _I32, _P, _P, _P],
     "cmst_topk": [_P, _P, _I32, _I64, _I32, _P, _P, _P, _P],
+    "cmst_shape_split": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _P, _P],
+    "cmst_shape_tile": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
+                        _I32, _I32, _I32, _I32, _P, _P, _P],
+    "cmst_pixel_major": [_P, _I64, _I64, _P, _I64, _I64, _I32, _P],
 }
 
 
@@ -86,19 +90,44 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    # one nvcc per source, all at once: the build's time is the slowest
+    # file's, not the sum
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     build_seconds = time.time() - t0
     # keep the ptxas report (registers, shared memory, spills) beside it
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("\n".join(log))
     return so
 
 
@@ -170,7 +199,9 @@ def stream_of(x) -> ctypes.c_void_p:
 # that the main path went through every kernel.
 
 KERNELS = ("scatter_key_planes", "expand_union_tables_from_pos",
-           "score_query_batch_union_keys", "union_keys_topk")
+           "score_query_batch_union_keys", "union_keys_topk",
+           "shape_score_pairs_split", "shape_tile_device",
+           "upload_pixel_major")
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 

@@ -324,6 +324,10 @@ class CDMatch:
 
     JSON_CLASS = "org.janelia.colormipsearch.model.CDMatchEntity"
 
+    def negative_score(self) -> int:
+        from colormipsearch_tpu_torch.oracle.shape import negative_score
+        return negative_score(self.gradient_area_gap, self.high_expression_area)
+
     def has_grad_score(self) -> bool:
         return (self.gradient_area_gap is not None
                 and self.gradient_area_gap >= 0) or (

@@ -10,6 +10,13 @@ like the production libraries). Masks are either independent, sparser
 images or cut from a target (a box of it, shifted by a few pixels and
 optionally mirrored), so that strong matches exist.
 
+For the shape pass every target can carry the two variants that
+``precomputeVariants`` writes beside a CDM: a 16-bit gray GradientImage
+(random 0..399, 0 on the foreground) and an RGB ZGapImage (the masked
+CDM dilated by a per-channel max; the shape oracle takes the z-gap image
+as given, so a square window of the reference's radius stands in for
+its disk).
+
 Everything is made from an explicitly seeded ``np.random.Generator``.
 """
 
@@ -29,32 +36,53 @@ from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron, Neuron
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
-def encode_png(rgb: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> 8-bit RGB, non-interlaced PNG bytes with every
-    row stored under filter type 0 (what io/image.decode_png_rgb8
-    reads)."""
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
-                         f"{rgb.shape}")
-    h, w, _ = rgb.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)
-    raw[:, 1:] = rgb.reshape(h, 3 * w)
+def _png(rows: np.ndarray, w: int, h: int, depth: int,
+         color: int) -> bytes:
+    """PNG bytes of uint8 [H, row bytes] rows, each stored under filter
+    type 0, non-interlaced."""
+    raw = np.zeros((h, 1 + rows.shape[1]), np.uint8)
+    raw[:, 1:] = rows
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     return (_PNG_MAGIC
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
+                                         0, 0, 0))
             # level 1: mostly-black images compress well even so, and
             # writing a 2,048-image library stays a few seconds
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
             + chunk(b"IEND", b""))
 
 
-def write_png(path, rgb: np.ndarray) -> None:
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> 8-bit RGB PNG bytes (what
+    io/image.decode_png_rgb8 reads)."""
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{rgb.shape}")
+    h, w, _ = rgb.shape
+    return _png(rgb.reshape(h, 3 * w), w, h, 8, 2)
+
+
+def encode_png_gray16(gray: np.ndarray) -> bytes:
+    """uint16 [H, W] -> 16-bit gray PNG bytes, big-endian samples (what
+    io/image.decode_png_gray16 reads)."""
+    if gray.dtype != np.uint16 or gray.ndim != 2:
+        raise ValueError(f"expected uint16 [H, W], got {gray.dtype} "
+                         f"{gray.shape}")
+    h, w = gray.shape
+    rows = np.ascontiguousarray(gray.astype(">u2")).view(np.uint8)
+    return _png(rows.reshape(h, 2 * w), w, h, 16, 0)
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """uint8 [H, W, 3] as 8-bit RGB, uint16 [H, W] as 16-bit gray."""
+    data = encode_png_gray16(img) if img.dtype == np.uint16 \
+        else encode_png(img)
     with open(path, "wb") as f:
-        f.write(encode_png(rgb))
+        f.write(data)
 
 
 _STROKE_WIDTH = 3
@@ -123,6 +151,54 @@ def cut_mask(rng: np.random.Generator, target: np.ndarray, *,
     return np.ascontiguousarray(out[:, ::-1]) if mirror else out
 
 
+def synthetic_gradient(rng: np.random.Generator, cdm: np.ndarray, *,
+                       mask_threshold: int = 20) -> np.ndarray:
+    """A GradientImage variant of `cdm`: uint16 [H, W], random 0..399,
+    and 0 on the foreground (any channel above `mask_threshold`), as
+    precomputeVariants writes it."""
+    grad = rng.integers(0, 400, cdm.shape[:2], dtype=np.uint16)
+    grad[(cdm > mask_threshold).any(axis=-1)] = 0
+    return grad
+
+
+def _window_max(a: np.ndarray, radius: int, axis: int,
+                step: int = 1) -> np.ndarray:
+    """max over the elements i + step * d, |d| <= radius, along `axis`
+    (zeros outside): windows doubled by shifted np.maximum, then two
+    overlapping ones."""
+    def span(m, start, stop):
+        idx = [slice(None)] * m.ndim
+        idx[axis] = slice(start, stop)
+        return m[tuple(idx)]
+
+    n = a.shape[axis]
+    size = 2 * radius + 1
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (radius * step, radius * step)
+    m = np.pad(a, pad)
+    k = 1  # m[i] = max of the padded a[i + step * j], 0 <= j < k
+    while 2 * k <= size:
+        m = np.maximum(span(m, 0, m.shape[axis] - k * step),
+                       span(m, k * step, None))
+        k *= 2
+    return np.maximum(span(m, 0, n),
+                      span(m, (size - k) * step, (size - k) * step + n))
+
+
+def synthetic_zgap(cdm: np.ndarray, *, mask_threshold: int = 20,
+                   radius: int = 20) -> np.ndarray:
+    """A ZGapImage variant of `cdm`: the masked CDM (channels of pixels
+    with none above `mask_threshold` cleared) dilated by a per-channel
+    max over a (2 radius + 1)^2 square, uint8 [H, W, 3]: 24 shifted
+    np.maximum passes at radius 20, which release the GIL."""
+    keep = (cdm > mask_threshold).any(axis=-1)
+    out = np.where(keep[..., None], cdm, 0).astype(np.uint8)
+    h, w = out.shape[:2]
+    # rows of interleaved RGB: a pixel's same channel is 3 bytes away
+    rows = _window_max(out.reshape(h, 3 * w), radius, 0)
+    return _window_max(rows, radius, 1, step=3).reshape(h, w, 3)
+
+
 @dataclasses.dataclass
 class SyntheticLibrary:
     targets: list[np.ndarray]
@@ -153,18 +229,37 @@ def synthetic_library(rng: np.random.Generator, n_targets: int,
 
 
 def write_neuron_images(directory, images: list[np.ndarray], prefix: str, *,
+                        gradients: list[np.ndarray] | None = None,
+                        zgaps: list[np.ndarray] | None = None,
                         threads: int = 8) -> list[Neuron]:
     """Write `images` as PNGs under `directory` and return one neuron
-    per image whose InputColorDepthImage is that file."""
-    os.makedirs(directory, exist_ok=True)
-    paths = [os.path.join(str(directory), f"{prefix}{i:05d}.png")
-             for i in range(len(images))]
+    per image whose InputColorDepthImage is that file. With `gradients`
+    / `zgaps`, each neuron's GradientImage / ZGapImage is the variant
+    written under `directory`/grad and `directory`/zgap."""
+    directory = str(directory)
+    jobs = {ComputeFileType.InputColorDepthImage: (directory, "", images)}
+    if gradients is not None:
+        jobs[ComputeFileType.GradientImage] = (
+            os.path.join(directory, "grad"), "_gradient", gradients)
+    if zgaps is not None:
+        jobs[ComputeFileType.ZGapImage] = (
+            os.path.join(directory, "zgap"), "_20pxRGB", zgaps)
+    paths = {}
+    for ftype, (d, suffix, imgs) in jobs.items():
+        if len(imgs) != len(images):
+            raise ValueError(f"{len(imgs)} {ftype.value} variants for "
+                             f"{len(images)} images")
+        os.makedirs(d, exist_ok=True)
+        paths[ftype] = [os.path.join(d, f"{prefix}{i:05d}{suffix}.png")
+                        for i in range(len(images))]
     with concurrent.futures.ThreadPoolExecutor(max_workers=threads) as pool:
-        list(pool.map(write_png, paths, images))
+        for ftype, (_, _, imgs) in jobs.items():
+            list(pool.map(write_png, paths[ftype], imgs))
     neurons = []
-    for i, path in enumerate(paths):
+    for i in range(len(images)):
         n = LMNeuron(mip_id=f"{prefix}-{i:05d}", library_name="synthetic",
                      published_name=f"{prefix}{i:05d}")
-        n.set_compute_file(ComputeFileType.InputColorDepthImage, path)
+        for ftype, ps in paths.items():
+            n.set_compute_file(ftype, ps[i])
         neurons.append(n)
     return neurons

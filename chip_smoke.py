@@ -8,15 +8,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
   0. the card (nvidia-smi name and power limit), torch / CUDA versions
      and the repo commit; exits 1 when CUDA is not available;
-  1. builds the seven CUDA kernels from kernels/csrc (one nvcc per
-     source, all at once, sm_90a);
+  1. builds the ten CUDA kernels from kernels/csrc (one nvcc per source,
+     all at once, sm_90a);
   2. checks each kernel against its plain PyTorch version on the card at
      the main paths' shapes (production image 566 x 1210; for the
      pixel-match kernels a 2,048-column target shard, a batch of 8 masks,
-     top-k 256; for the shape kernels the support of the first cut mask,
-     both orientations, 2,048 targets and a device store of those 2,048
-     targets): exact equality, and the median time of each kernel and of
-     its plain version;
+     top-k 256; K8 on the 2,048-target stack in both modes, K9 at
+     --pixColorFluctuation 1.0 and 0.37, K10; for the shape kernels the
+     support of the first cut mask, both orientations, 2,048 targets and
+     a device store of those 2,048 targets): exact equality (K9's
+     ambiguity flags included), the median time of each kernel, of its
+     plain version and of the one PyTorch call that computes the same
+     function where there is one, and each kernel's bound;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -33,7 +36,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      default path: host planes, then K5) must launch K5;
   5. checks sampled pairs of both phase-4 runs against the float64
      ShapeMatchOracle (gradientAreaGap and highExpressionArea exactly,
-     normalizedScore within the JSON's float32 rounding).
+     normalizedScore within the JSON's float32 rounding);
+  6. drives colorDepthSearch through the CLI on the first 16 masks five
+     times: the default path, the packed path
+     (--use-union-keys off: K8 + K9, flagged pairs rescored by the
+     float64 oracle), the classic key kernel (--use-key-planes: K1 +
+     K10), the x-union form (--use-union-keys x: K1 + K3) and the dense
+     key upload (CDS_DENSE_UPLOAD=1: K8 + K2 + K3); every result tree
+     must be byte-identical to the default run's, and each run must
+     launch its kernels. Then color_depth_search(...,
+     neg_query=<a mask image>, mirror_neg_query=True, device="cuda") on
+     8 masks must launch K10 for its negative pass, and 16 sampled
+     matches must equal the float64 PixelMatchOracle's with the negative
+     query.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -58,6 +73,7 @@ H, W = 566, 1210
 T_PAD = 2048
 BATCH = 8
 TOP_K = 256
+CLASSIC_MASKS = 16  # phase 6: two batches, ~250 flagged pairs rescored
 DEVICE = "cuda"
 FLAGS = ["--maskThreshold", "20", "--dataThreshold", "20",
          "--pixColorFluctuation", "1.0", "--xyShift", "2", "--mirrorMask",
@@ -87,7 +103,44 @@ GS_KERNELS = {
         f"{_CSRC}/pixel_major.cu",
         "colormipsearch_tpu/ops/shape_score.py:601"),
 }
-KERNELS = {**CDS_KERNELS, **GS_KERNELS}
+CLASSIC_KERNELS = {
+    "pack_target_planes": (
+        f"{_CSRC}/pack_planes.cu", "colormipsearch_tpu/ops/common.py:82"),
+    "pack_target_planes_keys": (
+        f"{_CSRC}/pack_planes.cu", "colormipsearch_tpu/ops/common.py:185"),
+    "score_query_batch": (
+        f"{_CSRC}/banded_score.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:487"),
+    "score_query_batch_keys": (
+        f"{_CSRC}/key_score.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:878"),
+}
+KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS}
+# the bound of a kernel: the larger of its bytes over the HBM rate and its
+# operations over the peak rate of the CUDA cores (NVIDIA H100 SXM data
+# sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, also
+# taken as the rate of the int32 operations these kernels do)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+# phase-6 runs of colorDepthSearch on the first CLASSIC_MASKS masks:
+# (name, extra CLI flags, environment, the kernels the run must launch)
+CLASSIC_RUNS = (
+    ("default", [], {}, tuple(CDS_KERNELS)),
+    ("packed", ["--use-union-keys", "off"], {},
+     ("pack_target_planes", "score_query_batch")),
+    ("key_planes", ["--use-key-planes"], {},
+     ("scatter_key_planes", "score_query_batch_keys")),
+    ("x_union", ["--use-union-keys", "x"], {},
+     ("scatter_key_planes", "score_query_batch_union_keys")),
+    ("dense_upload", [], {"CDS_DENSE_UPLOAD": "1"},
+     ("pack_target_planes_keys", "expand_union_tables_from_pos",
+      "score_query_batch_union_keys")),
+)
+# the phase-6 run whose launches each new kernel reports
+CLASSIC_MAIN_RUN = {"pack_target_planes": "packed",
+                    "score_query_batch": "packed",
+                    "score_query_batch_keys": "key_planes",
+                    "pack_target_planes_keys": "dense_upload"}
 
 
 def card_line() -> str:
@@ -153,31 +206,58 @@ def timed(fn, repeats: int) -> float:
 
 
 def max_abs_err(got, want) -> int:
-    """Largest elementwise difference over matching output tuples; raises
-    when shapes or dtypes differ."""
+    """Largest elementwise difference over matching output tuples, taken
+    2^26 elements at a time (the planes hold 1.4e9); raises when shapes
+    or dtypes differ."""
     err = 0
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"output mismatch: {a.shape} {a.dtype} vs "
                                  f"{b.shape} {b.dtype}")
-        if a.numel():
-            err = max(err, int((a.long() - b.long()).abs().max()))
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), 1 << 26):
+            d = a[i:i + (1 << 26)].long() - b[i:i + (1 << 26)].long()
+            err = max(err, int(d.abs().max()))
     return err
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the CUDA cores' peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / CORE_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def entry(err: int, ms: float, plain_ms: float, bound_: dict,
+          library_ms: float | None = None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound_}
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() if hasattr(x, "element_size")
+               else x.nbytes for x in xs)
+
+
 def report(out: dict) -> None:
-    for name, (err, ms, plain_ms) in out.items():
-        print(f"{name}: max_abs_err {err}, kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
-        if err != 0:
+    for name, e in out.items():
+        lib_ms = ("none" if e["library_ms"] is None
+                  else f"{e['library_ms']:.3f} ms")
+        print(f"{name}: max_abs_err {e['max_abs_err']}, kernel "
+              f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library "
+              f"{lib_ms}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})",
+              flush=True)
+        if e["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
 
 
 def check_kernels(lib, device) -> dict:
     """Phase 2, pixel match: every kernel against its plain version at
-    the main path's shapes. Returns {kernel: (max_abs_err, ms,
-    plain_ms)}."""
+    the main path's shapes. Returns {kernel: entry(...)}."""
     import numpy as np
+    import torch
 
     from colormipsearch_tpu_torch import convert
     from colormipsearch_tpu_torch.kernels import build as kbuild
@@ -188,19 +268,24 @@ def check_kernels(lib, device) -> dict:
     from colormipsearch_tpu_torch.ops import common, pixel_match as pm
 
     out = {}
+    n_px = H * W
     stack = np.stack(lib.targets[:T_PAD])
     pos, rgb, cum = common.coo_foreground(stack, 20, T_PAD)
     del stack
     args1 = (torch_from(pos, device), torch_from(rgb, device),
              torch_from(cum, device), common.rank_lut_tensor(device))
-    kw1 = dict(n_px=H * W, t_pad=T_PAD)
+    kw1 = dict(n_px=n_px, t_pad=T_PAD)
     planes = common.scatter_key_planes(*args1, **kw1)
     plain = common.scatter_key_planes_plain(*args1, **kw1)
-    out["scatter_key_planes"] = [max_abs_err([planes], [plain])]
+    err = max_abs_err([planes], [plain])
     del plain
-    out["scatter_key_planes"] += [
-        timed(lambda: common.scatter_key_planes(*args1, **kw1), 5),
-        timed(lambda: common.scatter_key_planes_plain(*args1, **kw1), 3)]
+    # per element: the classification and key (~16 operations) and a
+    # binary search over the cumulative counts (~4 per step)
+    out["scatter_key_planes"] = entry(
+        err, timed(lambda: common.scatter_key_planes(*args1, **kw1), 5),
+        timed(lambda: common.scatter_key_planes_plain(*args1, **kw1), 3),
+        bound(nbytes(*args1) + 4 * (n_px + 1) * T_PAD,
+              pos.size * (16 + 4 * (T_PAD.bit_length() + 1))))
     print(f"K1 scatter_key_planes: {pos.size} COO elements -> planes "
           f"{tuple(planes.shape)}", flush=True)
 
@@ -209,38 +294,56 @@ def check_kernels(lib, device) -> dict:
         m, 20, mirror=True, xy_shift=2, pix_color_fluctuation=1.0,
         excluded_region=region, light=True) for m in lib.masks[:BATCH]]
     u_pos, mu_pos, q_pos, key_list, u2 = pm.stack_union_pos_args(
-        plans, H * W)
+        plans, n_px)
     args2 = tuple(convert.as_tensor(a, device)
                   for a in (u_pos, q_pos, key_list)) \
         + convert.interval_tables(pm.interval_table_arrays(0.01), device)
     kw2 = dict(offsets=tuple(shift_offsets(2)), w=W, h=H)
     lo, sp = pm.expand_union_tables_from_pos(*args2, **kw2)
-    out["expand_union_tables_from_pos"] = [
+    n_lanes, n_u = lo.shape[1], lo.shape[3]
+    # ~20 operations per (mask, lane, element): geometry, two gathers
+    out["expand_union_tables_from_pos"] = entry(
         max_abs_err((lo, sp),
                     pm.expand_union_tables_from_pos_plain(*args2, **kw2)),
         timed(lambda: pm.expand_union_tables_from_pos(*args2, **kw2), 10),
         timed(lambda: pm.expand_union_tables_from_pos_plain(*args2, **kw2),
-              3)]
+              3),
+        bound(nbytes(*args2, lo, sp), BATCH * n_lanes * n_u * 20))
     print(f"K2 expand_union_tables_from_pos: lane tables "
           f"{tuple(lo.shape)}, u2 {u2}", flush=True)
 
     args3 = (planes, args2[0], convert.as_tensor(mu_pos, device), lo, sp,
              u2)
     best, mirrored = pm.score_query_batch_union_keys(*args3)
-    out["score_query_batch_union_keys"] = [
+    # the key rows the batch gathers, once each; per (orientation,
+    # element, column) one gather and 3 operations per lane and live
+    # window (the second window on the prefix u < u2 only)
+    rows = np.unique(np.concatenate([u_pos.ravel(), mu_pos.ravel()]))
+    n_or = 2 if mu_pos.shape[1] else 1
+    out["score_query_batch_union_keys"] = entry(
         max_abs_err((best, mirrored),
                     pm.score_query_batch_union_keys_plain(*args3)),
         timed(lambda: pm.score_query_batch_union_keys(*args3), 5),
-        timed(lambda: pm.score_query_batch_union_keys_plain(*args3), 1)]
+        timed(lambda: pm.score_query_batch_union_keys_plain(*args3), 1),
+        bound(rows.size * T_PAD * 4 + nbytes(*args3[1:5], best, mirrored),
+              BATCH * n_or * T_PAD * (n_u * (2 + 3 * n_lanes)
+                                      + max(u2, 0) * 3 * n_lanes)))
     print(f"K3 score_query_batch_union_keys: {BATCH} masks x {T_PAD} "
           f"columns, union {u_pos.shape[2]}, max score "
           f"{int(best.max())}", flush=True)
 
-    out["union_keys_topk"] = [
+    # a bitonic sort of T 64-bit keys a mask: ~log2(T)^2 / 2 steps of
+    # two operations per column
+    log_t = T_PAD.bit_length() - 1
+    out["union_keys_topk"] = entry(
         max_abs_err(pm.union_keys_topk(best, mirrored, TOP_K),
                     pm.union_keys_topk_plain(best, mirrored, TOP_K)),
         timed(lambda: pm.union_keys_topk(best, mirrored, TOP_K), 20),
-        timed(lambda: pm.union_keys_topk_plain(best, mirrored, TOP_K), 20)]
+        timed(lambda: pm.union_keys_topk_plain(best, mirrored, TOP_K), 20),
+        bound(nbytes(best, mirrored) + BATCH * TOP_K * 9,
+              BATCH * T_PAD * log_t * (log_t + 1)),
+        # torch.topk orders ties differently: timed only, used nowhere
+        timed(lambda: torch.topk(best, TOP_K), 20))
     report(out)
     del planes
     sync()
@@ -295,7 +398,7 @@ def build_fields(lib, variants, n: int) -> HostFields:
 def check_shape_kernels(lib, variants, device) -> dict:
     """Phase 2, shape pass: K7, K6 and K5 against their plain versions at
     production shapes, and the device-built planes against the host
-    tile gather. Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    tile gather. Returns {kernel: entry(...)}."""
     import numpy as np
     import torch
 
@@ -338,11 +441,14 @@ def check_shape_kernels(lib, variants, device) -> dict:
     ref = torch.zeros_like(buf)
     ss.upload_pixel_major_chunk(buf, chunk, p0)
     ss.upload_pixel_major_chunk_plain(ref, chunk, p0)
-    out["upload_pixel_major"] = [
+    dst = buf[p0:p0 + rows_per]
+    out["upload_pixel_major"] = entry(
         max_abs_err([buf], [ref]),
         timed(lambda: ss.upload_pixel_major_chunk(buf, chunk, p0), 10),
-        timed(lambda: ss.upload_pixel_major_chunk_plain(ref, chunk, p0), 3)]
-    del buf, ref, chunk
+        timed(lambda: ss.upload_pixel_major_chunk_plain(ref, chunk, p0), 3),
+        bound(2 * nbytes(chunk), 0),
+        timed(lambda: dst.copy_(chunk.t()), 10))
+    del buf, ref, chunk, dst
     sync()
     t0 = time.time()
     fields = tuple(ss.upload_pixel_major(f, device)
@@ -362,12 +468,19 @@ def check_shape_kernels(lib, variants, device) -> dict:
                            device=device, **kw)
     rows = torch.arange(T_PAD, dtype=torch.int32, device=device)
     t_gap, t_he = ss.shape_tile_device(fields, rows, tp, **kw)
-    out["shape_tile_device"] = [
+    # the field rows the plan touches, once each (zsl and grad: 4 bytes a
+    # target at each gap pixel; tfg: one byte a target per 8 ring
+    # pixels), and ~10 operations per output word
+    gap_px = np.unique(np.concatenate([pos_gap, g_pos]))
+    he_rows = np.unique(h_pos // 8)
+    out["shape_tile_device"] = entry(
         max_abs_err((t_gap, t_he),
                     ss.shape_tile_device_plain(fields, rows, tp, **kw)),
         timed(lambda: ss.shape_tile_device(fields, rows, tp, **kw), 10),
         timed(lambda: ss.shape_tile_device_plain(fields, rows, tp, **kw),
-              3)]
+              3),
+        bound(gap_px.size * T_PAD * 4 + he_rows.size * T_PAD
+              + nbytes(t_gap, t_he), 10 * (t_gap.numel() + t_he.numel())))
     t0 = time.time()
     want = ss.select_target_tile_from_store(
         host, np.arange(T_PAD), pos_gap, n_gap_pad, n_he_w,
@@ -384,15 +497,132 @@ def check_shape_kernels(lib, variants, device) -> dict:
 
     args = (t_gap, q_gap, t_he, q_he)
     hi, lo, he = ss.shape_score_pairs_split(*args)
-    out["shape_score_pairs_split"] = [
+    # ~12 operations per plane word: the gap test and sum, the ring
+    # popcount
+    out["shape_score_pairs_split"] = entry(
         max_abs_err((hi, lo, he), ss.shape_score_pairs_split_plain(*args)),
         timed(lambda: ss.shape_score_pairs_split(*args), 20),
-        timed(lambda: ss.shape_score_pairs_split_plain(*args), 3)]
+        timed(lambda: ss.shape_score_pairs_split_plain(*args), 3),
+        bound(nbytes(*args, hi, lo, he),
+              12 * (t_gap.numel() + t_he.numel())))
     print(f"K5 shape_score_pairs_split: 2 orientations x {T_PAD} targets,"
           f" max gap {int((hi.long() * 1024 + lo.long()).max())}, max "
           f"high-expression {int(he.max())}", flush=True)
     report(out)
     del fields, t_gap, t_he, args
+    sync()
+    free_cached()
+    kbuild.reset_launches()
+    return out
+
+
+def check_classic_kernels(lib, device) -> dict:
+    """Phase 2, the classic pixel-match paths: K8 in both modes on the
+    2,048-target stack, K9 on a batch of 8 masks at
+    --pixColorFluctuation 1.0 (its exact same-class branch) and 0.37 (the
+    banded one), K10 on the 1.0 batch's key plans, each against its plain
+    version. Returns {kernel: entry(...)}; K9's entry is the 1.0 batch's,
+    its max_abs_err the larger of the two."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.oracle.pixel import label_regions_mask
+    from colormipsearch_tpu_torch.ops import common, pixel_match as pm
+
+    out = {}
+    n_px = H * W
+    rgb = torch_from(np.stack(lib.targets[:T_PAD]), device)
+    lut = common.rank_lut_tensor(device)
+    # ~20 operations per (pixel, target): the classification and the word
+    k8_ops = 20 * T_PAD * n_px
+    planes = common.pack_target_planes(rgb, 20, t_pad=T_PAD)
+    out["pack_target_planes"] = entry(
+        max_abs_err([planes], [common.pack_target_planes_plain(
+            rgb, 20, t_pad=T_PAD)]),
+        timed(lambda: common.pack_target_planes(rgb, 20, t_pad=T_PAD), 5),
+        timed(lambda: common.pack_target_planes_plain(rgb, 20,
+                                                      t_pad=T_PAD), 1),
+        bound(nbytes(rgb, planes), k8_ops))
+    keys = common.pack_target_planes_keys(rgb, 20, lut, t_pad=T_PAD)
+    out["pack_target_planes_keys"] = entry(
+        max_abs_err([keys], [common.pack_target_planes_keys_plain(
+            rgb, 20, lut, t_pad=T_PAD)]),
+        timed(lambda: common.pack_target_planes_keys(rgb, 20, lut,
+                                                     t_pad=T_PAD), 5),
+        timed(lambda: common.pack_target_planes_keys_plain(
+            rgb, 20, lut, t_pad=T_PAD), 1),
+        bound(nbytes(rgb, lut, keys), k8_ops))
+    print(f"K8 pack_planes: stack {tuple(rgb.shape)} -> summary planes "
+          f"{tuple(planes.shape)}, key planes {tuple(keys.shape)}",
+          flush=True)
+    del rgb
+    sync()
+    free_cached()
+
+    region = label_regions_mask(W, H)
+    for flu in (1.0, 0.37):
+        kw = dict(mirror=True, xy_shift=2, pix_color_fluctuation=flu,
+                  excluded_region=region)
+        plans = [pm.build_query_plan(m, 20, **kw) for m in lib.masks[:BATCH]]
+        q_pad = max(p.positions.shape[1] for p in plans)
+        plans = [pm.build_query_plan(m, 20, pad_to=q_pad, **kw)
+                 for m in lib.masks[:BATCH]]
+        args = tuple(convert.as_tensor(np.stack([getattr(p, f)
+                                                 for p in plans]), device)
+                     for f in ("positions", "q_cls", "q_s", "q_p"))
+        kw9 = dict(target_threshold=-1, ztol_num=plans[0].ztol_num,
+                   ztol_den=plans[0].ztol_den,
+                   n_straight=plans[0].n_straight)
+        got = pm.score_query_batch(planes, *args, **kw9)
+        err = max_abs_err(got, pm.score_query_batch_plain(planes, *args,
+                                                          **kw9))
+        ms = timed(lambda: pm.score_query_batch(planes, *args, **kw9), 5)
+        plain_ms = timed(lambda: pm.score_query_batch_plain(
+            planes, *args, **kw9), 1)
+        pos = np.stack([p.positions for p in plans])
+        valid = pos[pos >= 0]
+        flagged = (got[2] > 0).sum(1).tolist()
+        print(f"K9 score_query_batch at {flu}%: {BATCH} masks x "
+              f"{pos.shape[1]} variants x {q_pad} padded query pixels "
+              f"({valid.size} valid elements a column) x {T_PAD} columns; "
+              f"max_abs_err {err} (flags included), kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms; query sizes "
+              f"{[p.query_size for p in plans]}; flagged pairs per mask "
+              f"{flagged}; max score {int(got[0].max())}", flush=True)
+        if flu == 1.0:
+            # the rows the batch gathers, once each; ~30 operations per
+            # valid (mask, variant, query pixel, column) element
+            out["score_query_batch"] = entry(
+                err, ms, plain_ms,
+                bound(np.unique(valid).size * T_PAD * 4
+                      + nbytes(*args, *got), 30 * valid.size * T_PAD))
+            kplans = [pm.key_plan_from_query_plan(p, n_px, flu)
+                      for p in plans]
+        else:
+            out["score_query_batch"]["max_abs_err"] = max(
+                err, out["score_query_batch"]["max_abs_err"])
+    del planes
+    kargs = tuple(convert.as_tensor(np.stack([getattr(p, f)
+                                              for p in kplans]), device)
+                  for f in ("positions", "lo", "span"))
+    n_straight = kplans[0].n_straight
+    got = pm.score_query_batch_keys(keys, *kargs, n_straight=n_straight)
+    kpos = np.stack([p.positions for p in kplans])
+    # one gather, three range tests and their OR per element
+    out["score_query_batch_keys"] = entry(
+        max_abs_err(got, pm.score_query_batch_keys_plain(
+            keys, *kargs, n_straight=n_straight)),
+        timed(lambda: pm.score_query_batch_keys(
+            keys, *kargs, n_straight=n_straight), 5),
+        timed(lambda: pm.score_query_batch_keys_plain(
+            keys, *kargs, n_straight=n_straight), 1),
+        bound(np.unique(kpos).size * T_PAD * 4 + nbytes(*kargs, *got),
+              9 * kpos.size * T_PAD))
+    print(f"K10 score_query_batch_keys: {tuple(kpos.shape)} positions x "
+          f"{T_PAD} columns, max score {int(got[0].max())}", flush=True)
+    report(out)
+    del keys, got
     sync()
     free_cached()
     kbuild.reset_launches()
@@ -682,6 +912,148 @@ def check_shape_oracle(lib, variants, work: str, rng) -> None:
           f"({n_checked})", flush=True)
 
 
+def _tree(root: str) -> dict:
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def run_classic_paths(work: str, n_masks: int) -> dict:
+    """Phase 6: colorDepthSearch through the CLI entry point on the first
+    n_masks masks, once per CLASSIC_RUNS entry, each with fresh launch
+    counts; every result tree must equal the default run's byte for
+    byte. Returns {run name: launches}."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    runs = {}
+    trees = {}
+    for name, flags, env, kernels in CLASSIC_RUNS:
+        out = os.path.join(work, f"classic_{name}")
+        os.environ.update(env)
+        try:
+            GLOBAL.reset()
+            reset_peak()
+            kbuild.reset_launches()
+            t0 = time.time()
+            rc = cli_main.main([
+                "colorDepthSearch", "-m",
+                f"{os.path.join(work, 'masks.json')}:0:{n_masks}",
+                "-i", os.path.join(work, "targets.json"), "--device", DEVICE,
+                "-od", out, "--perMaskSubdir", "masks", "--perTargetSubdir",
+                "targets", *FLAGS, *flags])
+            seconds = time.time() - t0
+            launches = dict(kbuild.launches)
+        finally:
+            for k in env:
+                del os.environ[k]
+        if rc != 0:
+            raise AssertionError(f"colorDepthSearch ({name}) exited {rc}")
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the {name} run never launched {missing}")
+        trees[name] = _tree(out)
+        emit = GLOBAL.get("cds.emit.seconds")
+        rescore = GLOBAL.get("cds.rescore.seconds")
+        print(f"phase 6 {name} {' '.join(flags)}"
+              f"{' '.join(f'{k}={v}' for k, v in env.items())}: "
+              f"{GLOBAL.get('pairsScored'):.0f} pairs of {n_masks} masks "
+              f"in {seconds:.2f}s; stage seconds "
+              f"{json.dumps(stage_seconds())}; emit {emit:.2f}s, of which "
+              f"the float64 rescore of {GLOBAL.get('cds.rescore.count'):.0f} "
+              f"flagged pairs {rescore:.2f}s; peak "
+              f"torch.cuda.max_memory_allocated {peak_gib():.2f} GiB; "
+              f"launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+        runs[name] = launches
+    ref = trees["default"]
+    if not any(k.startswith("masks") for k in ref):
+        raise AssertionError("the default run wrote no per-mask results")
+    for name, tree in trees.items():
+        if tree != ref:
+            diff = sorted(k for k in set(tree) | set(ref)
+                          if tree.get(k) != ref.get(k))
+            raise AssertionError(f"the {name} result tree differs from the "
+                                 f"default run's: {diff[:5]}")
+    print(f"phase 6: the {len(trees) - 1} other result trees equal the "
+          f"default run's byte for byte ({len(ref)} files)", flush=True)
+    return runs
+
+
+def check_negative_query(lib, work: str, n_masks: int, rng) -> dict:
+    """Phase 6, negative query: color_depth_search on the first n_masks
+    masks against every target with mask 1's image as the negative query
+    (mirrored), on the default engine (positive pass K2 + K3, negative
+    pass K10); 16 sampled matches against the float64 oracle. Returns the
+    run's launches."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import CDSParams, color_depth_search
+    from colormipsearch_tpu_torch.dataio.json_io import read_neurons_json
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.oracle.pixel import (
+        PixelMatchOracle,
+        label_regions_mask,
+    )
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    masks = read_neurons_json(os.path.join(work, "masks.json"))[:n_masks]
+    targets = read_neurons_json(os.path.join(work, "targets.json"))
+    params = CDSParams(mask_threshold=20, data_threshold=20,
+                       pix_color_fluctuation=1.0, xy_shift=2,
+                       mirror_mask=True, pct_positive_pixels=1.0,
+                       with_name_label_region=True,
+                       with_color_scale_region=True)
+    neg_png = os.path.join(work, "masks", "m00001.png")
+    GLOBAL.reset()
+    reset_peak()
+    kbuild.reset_launches()
+    t0 = time.time()
+    matches = color_depth_search(masks, targets, params, neg_query=neg_png,
+                                 mirror_neg_query=True, device=DEVICE)
+    seconds = time.time() - t0
+    launches = dict(kbuild.launches)
+    if len(matches) < 16:
+        raise AssertionError(f"only {len(matches)} negative-query matches")
+    region = label_regions_mask(W, H)
+    oracles = {}
+    sample = rng.choice(len(matches), 16, replace=False)
+    for i in sample:
+        m = matches[int(i)]
+        mi = int(m.mask_image.mip_id.split("-")[1])
+        ti = int(m.matched_image.mip_id.split("-")[1])
+        if mi not in oracles:
+            oracles[mi] = PixelMatchOracle(
+                lib.masks[mi], 20, mirror=True, target_threshold=20,
+                z_tolerance=0.01, xy_shift=2, excluded_region=region,
+                neg_query_rgb=lib.masks[1], neg_query_threshold=20,
+                mirror_neg_query=True)
+        res = oracles[mi].score(lib.targets[ti])
+        if (res.matching_pixels, res.mirrored) != (m.matching_pixels,
+                                                   m.mirrored):
+            raise AssertionError(
+                f"negative query, mask {mi} target {ti}: "
+                f"{m.matching_pixels}/{m.mirrored}, oracle "
+                f"{res.matching_pixels}/{res.mirrored}")
+    for k in ("expand_union_tables_from_pos", "score_query_batch_union_keys",
+              "score_query_batch_keys"):
+        if launches[k] == 0:
+            raise AssertionError(f"the negative-query run never launched {k}")
+    print(f"phase 6 negative query: {n_masks} masks x {len(targets)} "
+          f"targets in {seconds:.2f}s, {len(matches)} matches, 16 sampled "
+          f"equal the float64 oracle's; peak "
+          f"torch.cuda.max_memory_allocated {peak_gib():.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -690,9 +1062,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.targets < T_PAD or args.masks < BATCH \
-            or not 4 <= args.gs_masks <= args.masks:
+            or not 4 <= args.gs_masks <= args.masks \
+            or args.masks < CLASSIC_MASKS:
         ap.error(f"phase 2 needs at least {T_PAD} targets and {BATCH} "
-                 "masks, phase 4 between 4 and --masks masks")
+                 "masks, phase 4 between 4 and --masks masks, phase 6 "
+                 f"{CLASSIC_MASKS} masks")
 
     # phase 0
     t_run = time.time()
@@ -741,6 +1115,7 @@ def main() -> int:
     t0 = time.time()
     checks = check_kernels(lib, device)
     checks.update(check_shape_kernels(lib, variants, device))
+    checks.update(check_classic_kernels(lib, device))
     phases["2 kernel checks"] = time.time() - t0
     work = os.path.join(REPO, "build", "chip_smoke_data")
     shutil.rmtree(work, ignore_errors=True)
@@ -762,6 +1137,13 @@ def main() -> int:
         t0 = time.time()
         check_shape_oracle(lib, variants, work, rng)
         phases["5 shape oracle"] = time.time() - t0
+        # phase 6
+        t0 = time.time()
+        classic = run_classic_paths(work, CLASSIC_MASKS)
+        launches.update({k: classic[run][k]
+                         for k, run in CLASSIC_MAIN_RUN.items()})
+        check_negative_query(lib, work, BATCH, rng)
+        phases["6 classic paths"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -770,8 +1152,9 @@ def main() -> int:
           f"{time.time() - t_run:.1f}s", flush=True)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": checks[name][0], "ms": checks[name][1],
-                "plain_ms": checks[name][2]}
+                **{k: checks[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name, (src, replaces) in KERNELS.items()]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

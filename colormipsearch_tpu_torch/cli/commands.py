@@ -82,12 +82,17 @@ def _add_cds_params(sp):
                          "--cdsConcurrency); device dispatch is batched")
     sp.add_argument("--use-key-planes", action="store_true",
                     default=None,
-                    help="rank-key interval kernel (the port runs it only "
-                         "in its full-union form, the default)")
+                    help="rank-key interval kernel: exact device "
+                         "verdicts with no oracle fallback (also "
+                         "CDS_KEY_PLANES=1); alone it selects the classic "
+                         "key kernel")
     sp.add_argument("--use-union-keys", nargs="?", const="full",
                     choices=["x", "full", "off"], default=None,
-                    help="union lane form of the rank-key kernel; the "
-                         "port implements 'full' (the default) only")
+                    help="union lane form of the rank-key kernel (default "
+                         "'full': one dilated union per orientation); 'x' "
+                         "gathers the x-dilated union per dy-set, 'off' "
+                         "falls back to the classic kernels; implies "
+                         "--use-key-planes (also CDS_UNION_KEYS=full|x|0)")
 
 
 def _neuron_name_filter(neurons, patterns):
@@ -357,7 +362,8 @@ def cmd_color_depth_search(args) -> int:
 
 _STAGES = {
     "cds": ("prepMasks", "decodeTargets", "packUpload", "scoreAllPairs",
-            "planArgs", "dispatch", "emit", "packSelect", "packScatter"),
+            "planArgs", "dispatch", "emit", "rescore", "packSelect",
+            "packScatter"),
     "gs": ("queryPack", "storeLookup", "storeUpload", "deviceTileBuild",
            "storeGather", "dispatch"),
 }

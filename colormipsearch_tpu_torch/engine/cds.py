@@ -1,26 +1,36 @@
 """Color depth search engine (pixel-match pass) on one PyTorch device.
 
-The port of the JAX package's engine/cds.py in its default
-configuration, replacing the reference's per-pair threaded loop
+The port of the JAX package's engine/cds.py on one device, replacing the
+reference's per-pair threaded loop
 (cmd/cdsprocess/LocalColorMIPSearchProcessor.java:51-124):
 
-  * targets are decoded once per shard and packed into pixel-major int32
-    rank-key planes resident on the device (sparse COO upload + K1),
-  * each mask is compiled into a full-union plan (one dilated union of
-    every shifted query position, each shift an interval lane) and a
-    batch of masks is scored against a whole target shard in one kernel
-    launch (K3), after its lane tables are expanded on the device from
-    the compact positional wire form (K2),
-  * with a positive pctPositivePixels only a per-mask top-k (K4) travels
-    back, with a lossless dense fallback when a dropped pair could
-    still emit,
+  * targets are decoded once per shard and packed into pixel-major
+    planes resident on the device: rank-key planes (sparse COO upload +
+    K1, or the dense stack + K8 with CDS_DENSE_UPLOAD=1) or, on the
+    packed path, summary planes (dense stack + K8),
+  * each mask is compiled into a plan and a batch of masks is scored
+    against a whole target shard in one kernel launch. The kernel is
+    chosen as the JAX engine chooses it: the full-union lane kernel (K3,
+    lane tables expanded on the device by K2; the default), the x-union
+    lane kernel (K3 with one row set per dy), the classic key kernel
+    (K10) or the packed banded kernel (K9),
+  * on the packed path the device also counts, per pair, the elements
+    whose verdict lies in the f32 ambiguity band; flagged pairs are
+    rescored by the float64 PixelMatchOracle,
+  * an optional negative query (PixelMatchColorDepthSearchAlgorithm:
+    29-57, 195-217) is scored by K10 on key planes or K9 on summary
+    planes and subtracted,
+  * with a positive pctPositivePixels the union paths pull only a
+    per-mask top-k (K4), with a lossless dense fallback when a dropped
+    pair could still emit,
   * matches are assembled into CDMatch entities with the semantics of
     AbstractColorMIPSearchProcessor.findPixelMatch:59-90 (matchingPixels,
     matchingPixelsRatio == initial normalizedScore, mirrored, isMatch
     filter from ColorMIPSearch.isMatch:42-45).
 
-The verdicts are exact (the interval tables are bisected against the
-float64 oracle), so scores are bit-identical to the JAX package.
+Every path's final scores are exact (interval tables bisected against
+the float64 oracle; the banded path's flagged pairs rescored by it), so
+they are bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from colormipsearch_tpu_torch.model import (
     ProcessingType,
 )
 from colormipsearch_tpu_torch.oracle.pixel import (
+    PixelMatchOracle,
     label_regions_mask,
     shift_offsets,
 )
@@ -122,16 +133,22 @@ class CDSParams:
 
 @dataclasses.dataclass
 class TargetShard:
-    """Rank-key planes of one image shape, device-resident.
+    """Packed targets of one image shape, device-resident.
 
-    Shards after the first hold their decoded uint8 stack on the HOST
-    (``host_stack``) until the consumer packs them, so only one packed
-    plane set is ever resident on the device (ensure_planes)."""
+    ``kind`` "keys": int32 [P+1, t_pad] rank-key planes; "packed": int32
+    [P, t_pad] summary planes (uint32 bits). Raw pixels are not kept
+    once packed (a flagged pair re-decodes its one target, host_rgb),
+    except that shards after the first hold their decoded uint8 stack on
+    the HOST (``host_stack``) until the consumer packs them, so only one
+    packed plane set is ever resident on the device (ensure_planes)."""
     neurons: list[Neuron]
     shape: tuple[int, int]                 # (H, W)
-    planes: torch.Tensor | None            # int32 [P+1, t_pad]
+    planes: torch.Tensor | None
     device: torch.device
+    kind: str = "keys"
     file_type: ComputeFileType = ComputeFileType.InputColorDepthImage
+    # the data threshold folded into the planes (the kernels then run
+    # with target_threshold=-1)
     packed_threshold: int = 0
     # padded target-axis width (kernel shape)
     t_pad: int = 0
@@ -153,7 +170,9 @@ class TargetShard:
             return
         t0 = time.time()
         self.planes = _pack_target_stack(self.host_stack, self.t_pad,
-                                         self.packed_threshold, self.device)
+                                         self.kind, self.packed_threshold,
+                                         self.device)
+        common.synchronize(self.device)  # honest stage timing
         _METRICS.add("cds.packUpload.seconds", time.time() - t0)
         self.host_stack = None
 
@@ -164,7 +183,7 @@ class TargetShard:
         self.host_stack = None
 
     def host_rgb(self, t_idx: int) -> np.ndarray:
-        """Re-decode one target's RGB (host-side rescoring)."""
+        """Re-decode one target's RGB (ambiguity-flagged rescore only)."""
         from colormipsearch_tpu_torch.io import cache as mips_cache
 
         mip = mips_cache.load_mip(self.neurons[t_idx], self.file_type)
@@ -176,6 +195,7 @@ def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
                        file_type: ComputeFileType =
                        ComputeFileType.InputColorDepthImage,
                        tile_size: int = 4096,
+                       plane_kind: str = "keys",
                        defer_pack: bool = False) -> list[TargetShard]:
     """Decode target CDMs and pack them into device key planes, grouped
     by image shape and tiled to bound single-allocation size.
@@ -246,7 +266,8 @@ def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
             stack = np.stack(rgbs[i:i + tile_size])
             shard = TargetShard(
                 neurons[i:i + tile_size], shape, None, device,
-                file_type=file_type, packed_threshold=pack_threshold,
+                kind=plane_kind, file_type=file_type,
+                packed_threshold=pack_threshold,
                 t_pad=_target_bucket(stack.shape[0]), host_stack=stack)
             if not defer_pack:
                 # the first shard packs while the masks prep
@@ -255,13 +276,28 @@ def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
     return shards
 
 
-def _pack_target_stack(stack: np.ndarray, t_pad: int, pack_threshold: int,
+def _pack_target_stack(stack: np.ndarray, t_pad: int, plane_kind: str,
+                       pack_threshold: int,
                        device: torch.device) -> torch.Tensor:
-    """Pack a decoded uint8 [T, H, W, 3] stack into device key planes
-    (sparse COO upload of the ~2% foreground + K1)."""
-    return common.pack_target_planes_keys_sparse(
-        stack, pack_threshold, common.rank_lut_tensor(device), t_pad,
-        device)
+    """Pack a decoded uint8 [T, H, W, 3] stack into device planes, the
+    data threshold folded and the target axis padded to t_pad (zero
+    columns never score).
+
+    Key planes take the sparse COO upload of the ~2% foreground + K1,
+    or with CDS_DENSE_UPLOAD=1 (read per call) the dense stack + K8 in
+    its key mode; summary planes (the packed path) the dense stack + K8
+    in its summary mode."""
+    dense_keys = os.environ.get("CDS_DENSE_UPLOAD", "0") == "1"
+    if plane_kind == "keys" and not dense_keys:
+        return common.pack_target_planes_keys_sparse(
+            stack, pack_threshold, common.rank_lut_tensor(device), t_pad,
+            device)
+    rgb = torch.from_numpy(np.ascontiguousarray(stack)).to(device)
+    if plane_kind == "keys":
+        return common.pack_target_planes_keys(
+            rgb, pack_threshold, common.rank_lut_tensor(device),
+            t_pad=t_pad)
+    return common.pack_target_planes(rgb, pack_threshold, t_pad=t_pad)
 
 
 def _target_bucket(t: int, minimum: int = 32) -> int:
@@ -295,7 +331,7 @@ def iter_target_shards(targets: Sequence[Neuron], *, device: torch.device,
                        pack_threshold: int,
                        file_type: ComputeFileType =
                        ComputeFileType.InputColorDepthImage,
-                       tile_size: int = 4096):
+                       tile_size: int = 4096, plane_kind: str = "keys"):
     """Stream target shards tile by tile with background prefetch.
 
     While the device scores tile i, a worker thread decodes tile i+1.
@@ -306,7 +342,8 @@ def iter_target_shards(targets: Sequence[Neuron], *, device: torch.device,
     chunks = [list(targets[i:i + tile_size])
               for i in range(0, len(targets), tile_size)]
     kw = dict(device=device, pack_threshold=pack_threshold,
-              file_type=file_type, tile_size=tile_size)
+              file_type=file_type, tile_size=tile_size,
+              plane_kind=plane_kind)
     if len(chunks) <= 1:
         for ci, chunk in enumerate(chunks):
             yield from load_target_shards(chunk, defer_pack=ci > 0, **kw)
@@ -335,6 +372,8 @@ class CDSearchEngine:
     def __init__(self, params: CDSParams, *, device: torch.device | str,
                  use_mesh: bool | None = None,
                  neg_query_rgb: np.ndarray | None = None,
+                 neg_query_threshold: int | None = None,
+                 mirror_neg_query: bool = False,
                  decode_concurrency: int = 8,
                  use_key_planes: bool | None = None,
                  use_union_keys: bool | str | None = None):
@@ -344,10 +383,25 @@ class CDSearchEngine:
                 f"device {self.device} requested but CUDA is not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        if use_mesh:
+            raise not_ported("scoring over several devices", "multi-GPU")
         self.params = params
-        _require_default_path(use_mesh, neg_query_rgb, use_key_planes,
-                              use_union_keys)
+        # the kernel choice of the JAX engine (its engine/cds.py:470-506);
+        # the port reads the variables per engine, not at import
+        self.use_key_planes, self.use_union_keys = _resolve_kernel(
+            params.xy_shift, use_key_planes, use_union_keys)
+        # CDS_SPLIT_PLANES=1 selects the split-plane kernel where the JAX
+        # engine would run it: the packed path with no top-k
+        self._split_planes = os.environ.get("CDS_SPLIT_PLANES", "0") == "1"
+        self._key_plans: dict = {}
         self.decode_concurrency = max(1, decode_concurrency)
+        # optional negative query applied to every mask
+        # (PixelMatchColorDepthSearchAlgorithm:29-57 negQueryImage)
+        self.neg_query_rgb = neg_query_rgb
+        self.neg_query_threshold = (params.mask_threshold
+                                    if neg_query_threshold is None
+                                    else neg_query_threshold)
+        self.mirror_neg_query = mirror_neg_query
         self._plan_args_cache: dict = {}
         self._plan_args_inflight: dict = {}
         self._plan_args_lock = threading.Lock()
@@ -359,6 +413,45 @@ class CDSearchEngine:
 
     # query plans scored per kernel launch
     MASK_BATCH = 8
+
+    _KEY_PLANS_MAX = 512
+
+    def _key_plan(self, plan, n_pixels: int):
+        """The classic key plan of a QueryPlan, cached. Entries hold a
+        strong reference to the source plan, so a recycled object id can
+        never alias a freed plan's slot; n_pixels is part of the key
+        because the sentinel encoding depends on the plane shape."""
+        key = (id(plan), n_pixels)
+        cached = self._key_plans.get(key)
+        if cached is not None and cached[0] is plan:
+            return cached[1]
+        kp = pixel_match.key_plan_from_query_plan(
+            plan, n_pixels, self.params.pix_color_fluctuation)
+        if len(self._key_plans) >= self._KEY_PLANS_MAX:
+            self._key_plans.pop(next(iter(self._key_plans)))
+        self._key_plans[key] = (plan, kp)
+        return kp
+
+    def _stacked_key_args(self, plans, n_pixels: int):
+        """(pos, lo, span) tensors of a batch of classic key plans."""
+        def build():
+            kplans = [self._key_plan(pl, n_pixels) for pl in plans]
+            return tuple(convert.as_tensor(np.stack([getattr(kp, f)
+                                                     for kp in kplans]),
+                                           self.device)
+                         for f in ("positions", "lo", "span"))
+
+        return self._cached_plan_args(("keys", n_pixels), plans, build)
+
+    def _stacked_plan_args(self, plans):
+        """(pos, q_cls, q_s, q_p) tensors of a batch of QueryPlans."""
+        def build():
+            return tuple(convert.as_tensor(np.stack([getattr(pl, f)
+                                                     for pl in plans]),
+                                           self.device)
+                         for f in ("positions", "q_cls", "q_s", "q_p"))
+
+        return self._cached_plan_args("packed", plans, build)
 
     def _interval_tables_device(self):
         """The shared per-tolerance interval tables on the device
@@ -374,19 +467,45 @@ class CDSearchEngine:
         """Stacked union plan tensors for one mask batch:
         (u_pos, mu_pos, lane_lo, lane_span, u2).
 
-        Preferred: the POSITIONAL wire form (the per-lane tables are
-        expanded on the device by K2); masks with >= 65,535 query pixels
-        have no positional form and the batch then stacks the host-built
-        tables. Cached on the plans' identities, so each batch uploads
-        once for all target shards."""
-        plans = [e[2] for e in batch]
+        On the pure full-union path the prep pass built the union plans;
+        otherwise (the x-union form, or a negative query) they are built
+        here, per batch, from the decoded masks. Full-union plans prefer
+        the POSITIONAL wire form (the per-lane tables are expanded on the
+        device by K2); masks with >= 65,535 query pixels have no
+        positional form, and x-union plans none at all: those batches
+        stack the host-built tables. Cached on the batch plans'
+        identities, so each batch uploads once for all target shards."""
+        plans = [e[3] for e in batch]
+        p = self.params
+        builder = (pixel_match.build_full_union_key_plan
+                   if self.use_union_keys == "full"
+                   else pixel_match.build_union_key_plan)
+
+        def build_one(entry):
+            _mask, mask_rgb, region, _plan, _neg = entry
+            up = builder(
+                mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
+                xy_shift=p.xy_shift,
+                pix_color_fluctuation=p.pix_color_fluctuation,
+                excluded_region=region)
+            assert up is not None  # grid-checked at engine init
+            return up
 
         def build():
             dev = self.device
-            pa = pixel_match.stack_union_pos_args(plans, n_pixels)
+            if isinstance(plans[0], pixel_match.UnionKeyPlan):
+                ups = plans
+            else:
+                with concurrent.futures.ThreadPoolExecutor(
+                        max_workers=min(len(batch),
+                                        self.decode_concurrency)) as pool:
+                    ups = list(pool.map(build_one, batch))
+            pa = None
+            if self.use_union_keys == "full":
+                pa = pixel_match.stack_union_pos_args(ups, n_pixels)
             if pa is not None:
                 u_pos, mu_pos, q_pos, key_list, u2 = pa
-                h, w = batch[0][1]
+                h, w = batch[0][1].shape[:2]
                 offs = tuple((int(dx), int(dy)) for dx, dy
                              in shift_offsets(self.params.xy_shift))
                 u_dev = convert.as_tensor(u_pos, dev)  # upload ONCE, reuse
@@ -401,9 +520,10 @@ class CDSearchEngine:
             # plans pad to the batch's common union bucket AND interval
             # slot count; the trailing u2 stays a host int
             return convert.stacked_args(
-                pixel_match.stack_union_plan_args(plans, n_pixels), dev)
+                pixel_match.stack_union_plan_args(ups, n_pixels), dev)
 
-        return self._cached_plan_args(("ukeys", n_pixels), plans, build)
+        return self._cached_plan_args(
+            ("ukeys", self.use_union_keys, n_pixels), plans, build)
 
     # stacked plan tensors, cached so a batch re-scored against every
     # streamed target shard uploads its plans ONCE; bounded FIFO
@@ -473,9 +593,20 @@ class CDSearchEngine:
         list wrapper applies the final global per-mask trim."""
         from colormipsearch_tpu_torch.utils.metrics import stage_timer
 
+        if (self._split_planes and not self.use_key_planes
+                and (max_matches_per_mask <= 0
+                     or self.neg_query_rgb is not None)):
+            raise not_ported("CDS_SPLIT_PLANES=1 on the packed path (the "
+                             "split-plane kernel)", "remaining pixel forms")
         t0 = time.time()
         p = self.params
         tags = set(tags)
+        # on the pure full-union path prep builds the union plan directly
+        # (light: no expanded lane tables) and drops the decoded image,
+        # which only the flagged-pair rescore (never on this path: its
+        # verdicts are exact) would read
+        union_prep = (self.use_union_keys == "full"
+                      and self.neg_query_rgb is None)
 
         region_cache: dict = {}
         region_lock = threading.Lock()
@@ -496,23 +627,42 @@ class CDSearchEngine:
                 return None
             mask_rgb = mask_mip.image.as_rgb()
             h, w = mask_rgb.shape[:2]
-            plan = pixel_match.build_full_union_key_plan(
-                mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
-                xy_shift=p.xy_shift,
-                pix_color_fluctuation=p.pix_color_fluctuation,
-                excluded_region=shared_region(h, w), light=True)
+            region = shared_region(h, w)
+            if union_prep:
+                plan = pixel_match.build_full_union_key_plan(
+                    mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
+                    xy_shift=p.xy_shift,
+                    pix_color_fluctuation=p.pix_color_fluctuation,
+                    excluded_region=region, light=True)
+                # a zero-byte stub keeps the shape for the group key and
+                # fails loudly on any accidental pixel use
+                mask_rgb = np.empty((h, w, 0), np.uint8)
+            else:
+                plan = pixel_match.build_query_plan(
+                    mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
+                    xy_shift=p.xy_shift,
+                    pix_color_fluctuation=p.pix_color_fluctuation,
+                    excluded_region=region)
             if plan.query_size == 0:
                 return None
-            # batch entries: (mask, image shape, plan) — the decoded image
-            # itself is not needed once the plan exists
-            return (mask, (h, w), plan)
+            neg_plan = None
+            if self.neg_query_rgb is not None:
+                neg_plan = pixel_match.build_neg_query_plan(
+                    mask_rgb, p.mask_threshold,
+                    self.neg_query_rgb, self.neg_query_threshold,
+                    mirror_neg_query=self.mirror_neg_query,
+                    xy_shift=p.xy_shift,
+                    pix_color_fluctuation=p.pix_color_fluctuation,
+                    excluded_region=region)
+            return (mask, mask_rgb, region, plan, neg_plan)
 
         # start decoding + packing the FIRST target shard while the
         # masks prep (CDS_TARGET_TILE: shard width, default 4096)
         shard_iter = iter_target_shards(
             list(targets), device=self.device,
             pack_threshold=p.data_threshold,
-            tile_size=int(os.environ.get("CDS_TARGET_TILE", "4096")))
+            tile_size=int(os.environ.get("CDS_TARGET_TILE", "4096")),
+            plane_kind="keys" if self.use_key_planes else "packed")
         shard0_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         shard0_fut = shard0_pool.submit(lambda: next(shard_iter, None))
 
@@ -535,8 +685,14 @@ class CDSearchEngine:
         prep_futs = [prep_pool.submit(prep_one, m) for m in masks]
 
         def entry_key(entry):
-            _, shape, plan = entry
-            return (shape, plan.u_pos.shape[1])
+            # a batch shares the image shape, the padded query width and
+            # the padded negative-plan width (or has no negative plans)
+            _, mask_rgb, _, plan, neg_plan = entry
+            q_pad = (plan.u_pos.shape[1] if union_prep
+                     else plan.positions.shape[1])
+            return (mask_rgb.shape[:2], q_pad,
+                    None if neg_plan is None
+                    else neg_plan.positions.shape[1])
 
         def stream_batches():
             pending: dict[tuple, list] = {}
@@ -568,7 +724,10 @@ class CDSearchEngine:
             # while the device scores the previous batch
             n_px = key[0][0] * key[0][1]
             try:
-                self._stacked_union_args(batch, n_px)
+                if self.use_union_keys:
+                    self._stacked_union_args(batch, n_px)
+                elif self.use_key_planes:
+                    self._stacked_key_args([e[3] for e in batch], n_px)
             except Exception:  # noqa: BLE001 - warm only
                 pass  # the real call surfaces the error
 
@@ -671,15 +830,16 @@ class CDSearchEngine:
     def _emit_select_k(self, top_k: int) -> int:
         """Device-side emit-selection width (0 = disabled).
 
-        With a positive pctPositivePixels threshold, only pairs with
-        score/querySize > pct/100 can emit (the reference's isMatch
-        filter), so a launch pulls a [B, k] per-mask top-k selection
-        instead of the dense [B, T] rows.  Lossless by construction: the
-        caller checks every mask's k-th (smallest selected) score against
-        the emit test and falls back to the dense rows if a dropped pair
-        could still emit.  CDS_EMIT_TOPK overrides the width (0
-        disables)."""
-        if top_k > 0 or self.params.pct_positive_pixels <= 0:
+        With a positive pctPositivePixels threshold and no negative
+        query, only pairs with score/querySize > pct/100 can emit (the
+        reference's isMatch filter), so a union-path launch pulls a
+        [B, k] per-mask top-k selection instead of the dense [B, T] rows.
+        Lossless by construction: the caller checks every mask's k-th
+        (smallest selected) score against the emit test and falls back
+        to the dense rows if a dropped pair could still emit.
+        CDS_EMIT_TOPK overrides the width (0 disables)."""
+        if (top_k > 0 or self.neg_query_rgb is not None
+                or self.params.pct_positive_pixels <= 0):
             return 0
         return max(0, int(os.environ.get("CDS_EMIT_TOPK", "256")))
 
@@ -689,7 +849,7 @@ class CDSearchEngine:
         then also pass, so the caller must pull dense."""
         pct = self.params.pct_positive_pixels / 100.0
         for b, e in enumerate(batch):
-            qsize = e[2].query_size
+            qsize = e[3].query_size
             for s in np.ravel(kth[b]):
                 if s > 0 and s / qsize > pct:
                     return True
@@ -697,79 +857,177 @@ class CDSearchEngine:
 
     def _score_batch(self, batch, shard: TargetShard, tags: set,
                      session_ref_id, top_k: int = 0) -> list[CDMatch]:
+        p = self.params
+        # the data threshold is folded into every shard's planes, so the
+        # banded kernel's per-element threshold test is skipped
+        assert shard.packed_threshold == p.data_threshold
+        thr = -1
+        if self.neg_query_rgb is not None:
+            # the negative subtraction changes the ranking, so a top-k
+            # preselection on positive scores would be wrong
+            top_k = 0
+        plans = [e[3] for e in batch]
         n_pixels = shard.shape[0] * shard.shape[1]
+        use_keys = shard.kind == "keys"
+        pair_flags = None  # structurally zero on the key paths
         t_args0 = time.time()
-        u_pos, mu_pos, lane_lo, lane_span, u2 = \
-            self._stacked_union_args(batch, n_pixels)
+        if not use_keys:
+            args = self._stacked_plan_args(plans)
+        elif self.use_union_keys:
+            *kargs, u2 = self._stacked_union_args(batch, n_pixels)
+        else:
+            kargs = self._stacked_key_args(plans, n_pixels)
         _METRICS.add("cds.planArgs.seconds", time.time() - t_args0)
         t_disp0 = time.time()
-        sel_k = self._emit_select_k(top_k)
-        if sel_k and sel_k < shard.t_pad:
-            # threshold-emit selection: pull only the [B, k] top-k; the
-            # dense rows stay on the device as the no-recompute fallback
-            sk, ik, mk, best, mirrored = \
-                pixel_match.score_query_batch_union_keys_topk(
-                    shard.planes, u_pos, mu_pos, lane_lo, lane_span,
-                    u2=u2, k=sel_k)
-            sk = sk.cpu().numpy()
-            if not self._topk_kth_emittable(sk[:, -1], batch):
-                del best, mirrored  # free the device buffers
-                ik, mk = ik.cpu().numpy(), mk.cpu().numpy()
-                _METRICS.add("cds.emitSelect.count", 1)
-                _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
-                return self._emit_from_topk(batch, shard, sk, ik, mk, tags,
-                                            session_ref_id)
-            _METRICS.add("cds.emitSelectFallback.count", 1)
+        if not use_keys:
+            best, mirrored, pair_flags = pixel_match.score_query_batch(
+                shard.planes, *args, target_threshold=thr,
+                ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
+                n_straight=plans[0].n_straight)
+        elif self.use_union_keys:
+            sel_k = self._emit_select_k(top_k)
+            if sel_k and sel_k < shard.t_pad:
+                # threshold-emit selection: pull only the [B, k] top-k;
+                # the dense rows stay on the device as the no-recompute
+                # fallback
+                sk, ik, mk, best, mirrored = \
+                    pixel_match.score_query_batch_union_keys_topk(
+                        shard.planes, *kargs, u2=u2, k=sel_k)
+                sk = sk.cpu().numpy()
+                if not self._topk_kth_emittable(sk[:, -1], batch):
+                    del best, mirrored  # free the device buffers
+                    ik, mk = ik.cpu().numpy(), mk.cpu().numpy()
+                    _METRICS.add("cds.emitSelect.count", 1)
+                    _METRICS.add("cds.dispatch.seconds",
+                                 time.time() - t_disp0)
+                    return self._emit_from_topk(
+                        batch, shard, sk, ik, mk, np.zeros_like(sk), tags,
+                        session_ref_id)
+                _METRICS.add("cds.emitSelectFallback.count", 1)
+            else:
+                best, mirrored = pixel_match.score_query_batch_union_keys(
+                    shard.planes, *kargs, u2=u2)
         else:
-            best, mirrored = pixel_match.score_query_batch_union_keys(
-                shard.planes, u_pos, mu_pos, lane_lo, lane_span, u2=u2)
+            best, mirrored = pixel_match.score_query_batch_keys(
+                shard.planes, *kargs, n_straight=plans[0].n_straight)
+
+        # optional negative-query pass: the same kind of kernel over the
+        # per-mask negative plans; the overall max (straight vs mirrored)
+        # is the negative score to subtract. The group key pins the
+        # padded negative width, so a batch has negative plans for every
+        # mask or for none.
+        neg_plans = [e[4] for e in batch]
+        neg_best = neg_flags = None
+        if neg_plans[0] is not None:
+            ref = neg_plans[0]
+            if use_keys:
+                nb, _nm = pixel_match.score_query_batch_keys(
+                    shard.planes, *self._stacked_key_args(neg_plans,
+                                                          n_pixels),
+                    n_straight=ref.n_straight)
+            else:
+                nb, _nm, nf = pixel_match.score_query_batch(
+                    shard.planes, *self._stacked_plan_args(neg_plans),
+                    target_threshold=thr, ztol_num=ref.ztol_num,
+                    ztol_den=ref.ztol_den, n_straight=ref.n_straight)
+                neg_flags = nf[:, :shard.count].cpu().numpy()
+            neg_best = np.maximum(nb[:, :shard.count].cpu().numpy(), 0)
+
         # drop the zero-padded target columns (see _target_bucket)
         best = best[:, :shard.count].cpu().numpy()
         mirrored = mirrored[:, :shard.count].cpu().numpy()
+        pair_flags = (np.zeros_like(best) if pair_flags is None
+                      else pair_flags[:, :shard.count].cpu().numpy())
         _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
         t_emit0 = time.time()
 
         out: list[CDMatch] = []
-        for b, (mask, _shape, plan) in enumerate(batch):
-            cand = np.flatnonzero(best[b] > 0)
+        for b, (mask, mask_rgb, region, plan, neg_plan) in enumerate(batch):
+            flags_b = pair_flags[b]
+            if neg_flags is not None and neg_plan is not None:
+                flags_b = flags_b + neg_flags[b]
+            # flagged pairs join the candidates even at fast score 0: the
+            # oracle rescore may flip them to a positive exact score
+            cand = np.flatnonzero((best[b] > 0) | (flags_b > 0))
             if top_k > 0 and cand.size > top_k:
-                # preselection: keep every candidate reaching the k-th
-                # largest score (the caller's final per-mask trim ranks
-                # the rest)
-                score_c = best[b][cand]
-                kth = -np.partition(-score_c, top_k - 1)[top_k - 1]
-                cand = cand[score_c >= kth]
+                # interval-safe preselection: the exact score lies in
+                # [best - flags, best + flags]; keep every candidate
+                # whose upper bound reaches the k-th largest lower bound
+                # (the caller's final per-mask trim ranks exact scores)
+                lower = best[b][cand] - flags_b[cand]
+                upper = best[b][cand] + flags_b[cand]
+                kth = -np.partition(-lower, top_k - 1)[top_k - 1]
+                cand = cand[upper >= kth]
             out.extend(self._emit_matches(
-                mask, plan, shard, cand, best[b], mirrored[b], tags,
-                session_ref_id))
+                mask, mask_rgb, region, plan, shard, cand, best[b],
+                mirrored[b], flags_b, tags, session_ref_id,
+                neg_plan=neg_plan,
+                neg_best=None if neg_plan is None or neg_best is None
+                else neg_best[b]))
         _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
         return out
 
-    def _emit_from_topk(self, batch, shard, scores_k, idx_k, mirr_k, tags,
-                        session_ref_id) -> list[CDMatch]:
+    def _emit_from_topk(self, batch, shard, scores_k, idx_k, mirr_k,
+                        flags_k, tags, session_ref_id) -> list[CDMatch]:
         """Emit from the per-mask top-k candidates [B, k]."""
         out: list[CDMatch] = []
         t_emit0 = time.time()
-        for b, (mask, _shape, plan) in enumerate(batch):
+        for b, (mask, mask_rgb, region, plan, _neg) in enumerate(batch):
             best = np.zeros(shard.count, scores_k.dtype)
             mirrored = np.zeros(shard.count, bool)
+            flags = np.zeros(shard.count, flags_k.dtype)
             keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0)
             ti = idx_k[b][keep]
             best[ti] = scores_k[b][keep]
             mirrored[ti] = mirr_k[b][keep].astype(bool)
+            flags[ti] = flags_k[b][keep]
             out.extend(self._emit_matches(
-                mask, plan, shard, np.unique(ti), best, mirrored, tags,
-                session_ref_id))
+                mask, mask_rgb, region, plan, shard, np.unique(ti), best,
+                mirrored, flags, tags, session_ref_id))
         _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
         return out
 
-    def _emit_matches(self, mask, plan, shard, candidates, best, mirrored,
-                      tags, session_ref_id) -> list[CDMatch]:
+    def _emit_matches(self, mask, mask_rgb, region, plan, shard,
+                      candidates, best, mirrored, pair_flags, tags,
+                      session_ref_id, *, neg_plan=None,
+                      neg_best=None) -> list[CDMatch]:
         p = self.params
+        oracle = None  # built lazily, at the first flagged pair
         out: list[CDMatch] = []
         for t_idx in candidates:
+            if best[t_idx] <= 0 and pair_flags[t_idx] <= 0:
+                continue
             score = int(best[t_idx])
+            is_mirrored = bool(mirrored[t_idx])
             ratio = score / plan.query_size
+            if neg_best is not None:
+                # Java Math.round(double) == floor(x + 0.5)
+                neg = int(neg_best[t_idx])
+                score = int(np.floor(
+                    float(score)
+                    - float(neg) * plan.query_size / neg_plan.query_size
+                    + 0.5))
+                ratio -= neg / neg_plan.query_size
+            if pair_flags[t_idx] > 0:
+                # an element of this pair lies in the f32 ambiguity band:
+                # the float64 oracle decides the whole pair
+                if oracle is None:
+                    oracle = PixelMatchOracle(
+                        mask_rgb, p.mask_threshold, mirror=p.mirror_mask,
+                        target_threshold=p.data_threshold,
+                        z_tolerance=p.pix_color_fluctuation / 100,
+                        xy_shift=p.xy_shift, excluded_region=region,
+                        neg_query_rgb=self.neg_query_rgb,
+                        neg_query_threshold=self.neg_query_threshold,
+                        mirror_neg_query=self.mirror_neg_query)
+                t_r0 = time.time()
+                res = oracle.score(shard.host_rgb(t_idx))
+                _METRICS.add("cds.rescore.seconds", time.time() - t_r0)
+                _METRICS.add("cds.rescore.count", 1)
+                score, is_mirrored = res.matching_pixels, res.mirrored
+                ratio = res.matching_pixels_ratio
+                if score <= 0:
+                    continue
             if not (score > 0 and ratio > p.pct_positive_pixels / 100):
                 continue
             target = shard.neurons[t_idx]
@@ -781,7 +1039,7 @@ class CDSearchEngine:
                 mask_image_ref_id=mask.entity_id,
                 matched_image_ref_id=target.entity_id,
                 session_ref_id=session_ref_id,
-                mirrored=bool(mirrored[t_idx]),
+                mirrored=is_mirrored,
                 matching_pixels=score,
                 matching_pixels_ratio=ratio,
                 normalized_score=ratio,
@@ -791,21 +1049,18 @@ class CDSearchEngine:
         return out
 
 
-def _require_default_path(use_mesh, neg_query_rgb, use_key_planes,
-                          use_union_keys) -> None:
-    """Raise NotImplementedError for every configuration outside the
-    port's slice: the full-union rank-key kernel with the sparse upload
-    on one device, and no negative query. Same kernel resolution as the
-    JAX engine (an explicit use_key_planes pins that kernel; otherwise
-    CDS_UNION_KEYS, default "full", picks the union form)."""
-    if use_mesh:
-        raise not_ported("scoring over several devices", "multi-GPU")
-    if neg_query_rgb is not None:
-        raise not_ported("the negative query", "non-default CDS paths")
-    if os.environ.get("CDS_SPLIT_PLANES", "0") == "1":
-        raise not_ported("CDS_SPLIT_PLANES=1", "non-default CDS paths")
-    if os.environ.get("CDS_DENSE_UPLOAD", "0") == "1":
-        raise not_ported("CDS_DENSE_UPLOAD=1", "non-default CDS paths")
+def _resolve_kernel(xy_shift: int, use_key_planes, use_union_keys):
+    """(use_key_planes, use_union_keys) as the JAX engine resolves them.
+
+    CDS_KEY_PLANES=1 selects the key planes and CDS_UNION_KEYS (default
+    "full"; "0" = off) the union form, but only when the caller pinned
+    neither argument: an explicit use_key_planes=False runs the packed
+    kernel and use_key_planes=True the classic key kernel. Every bare
+    opt-in (True, 1, "1") means "full"; "x" falls back to the classic key
+    kernel (with a warning) when the shift offsets do not form a
+    {dx} x {dy} grid (xyShift > 2); a union form implies key planes."""
+    keys = os.environ.get("CDS_KEY_PLANES", "0") == "1" \
+        if use_key_planes is None else use_key_planes
     if use_union_keys is None:
         env = os.environ.get("CDS_UNION_KEYS", "full")
         union = (False if env == "0" else env) if use_key_planes is None \
@@ -814,8 +1069,13 @@ def _require_default_path(use_mesh, neg_query_rgb, use_key_planes,
         union = use_union_keys
     if union in (True, 1, "1"):
         union = "full"
-    if union != "full" or use_key_planes is False:
-        raise not_ported(
-            f"the kernel selection use_key_planes={use_key_planes!r}, "
-            f"use_union_keys={union!r} (only the full-union key kernel is "
-            "ported)", "non-default CDS paths")
+    if union in (False, 0, "0", "off", None):
+        union = False
+    if union not in (False, "x", "full"):
+        raise ValueError(f"use_union_keys: {union!r} "
+                         "(expected False, 'x' or 'full')")
+    if union == "x" and not pixel_match.offsets_form_grid(xy_shift):
+        LOG.warning("x-union keys disabled: xyShift %d offsets are not a "
+                    "{dx} x {dy} grid", xy_shift)
+        return True, False
+    return bool(keys or union), union

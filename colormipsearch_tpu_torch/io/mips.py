@@ -13,11 +13,17 @@ import collections
 import dataclasses
 import functools
 import os
+import re
 import threading
 import zipfile
+from pathlib import Path
 from typing import Optional
 
-from colormipsearch_tpu_torch.io.image import ImageData, read_image
+from colormipsearch_tpu_torch.io.image import (
+    ImageData,
+    is_image_file,
+    read_image,
+)
 from colormipsearch_tpu_torch.model import ComputeFileType, FileData, Neuron
 
 
@@ -55,6 +61,40 @@ def _is_int(s: str) -> bool:
 def _zip_names(archive_path: str) -> tuple[str, ...]:
     with zipfile.ZipFile(archive_path) as z:
         return tuple(n for n in z.namelist() if not n.endswith("/"))
+
+
+def list_image_files(location: str) -> list[FileData]:
+    """Enumerate image files at a location (dir, zip archive, or file)."""
+    p = Path(location)
+    if p.is_dir():
+        return [FileData(str(f)) for f in sorted(p.iterdir())
+                if f.is_file() and is_image_file(f.name)]
+    if p.suffix.lower() == ".zip":
+        return [FileData(str(p), n) for n in _zip_names(str(p))
+                if is_image_file(n)]
+    if p.exists():
+        return [FileData(str(p))]
+    return []
+
+
+def neurons_from_image_files(files: list[FileData], *,
+                             library_name: str | None = None,
+                             alignment_space: str | None = None
+                             ) -> list[Neuron]:
+    """Minimal neuron entities from raw image files (the library API's
+    path arguments; v2 readMIPsFromLocalFiles)."""
+    from colormipsearch_tpu_torch.io.naming import is_em_library
+    from colormipsearch_tpu_torch.model import EMNeuron, LMNeuron
+
+    cls = EMNeuron if is_em_library(library_name) else LMNeuron
+    out = []
+    for fd in files:
+        stem = re.sub(r"\.[^.]+$", "", os.path.basename(fd.name))
+        n = cls(mip_id=stem, library_name=library_name,
+                alignment_space=alignment_space, published_name=stem)
+        n.set_compute_file(ComputeFileType.InputColorDepthImage, fd)
+        out.append(n)
+    return out
 
 
 

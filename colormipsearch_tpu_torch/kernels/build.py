@@ -39,7 +39,14 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 _SIGNATURES = {
+    "cmst_pack_planes": [_P, _I64, _I64, _I64, _I32, _I32, _P, _P, _P],
+    "cmst_banded_score": [_P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _I32, _F32, _F32, _I32, _P,
+                          _P, _P, _P, _P],
+    "cmst_key_score": [_P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+                       _P, _P],
     "cmst_scatter_keys": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "cmst_expand_tables": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P,
                            _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
@@ -201,7 +208,9 @@ def stream_of(x) -> ctypes.c_void_p:
 KERNELS = ("scatter_key_planes", "expand_union_tables_from_pos",
            "score_query_batch_union_keys", "union_keys_topk",
            "shape_score_pairs_split", "shape_tile_device",
-           "upload_pixel_major")
+           "upload_pixel_major", "pack_target_planes",
+           "pack_target_planes_keys", "score_query_batch",
+           "score_query_batch_keys")
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 

@@ -37,4 +37,42 @@ inline int blocks_for(int64_t n, int threads) {
     return static_cast<int>((n + threads - 1) / threads);
 }
 
+namespace {
+
+// The variant reduction of reduce_variants_device (the JAX package's
+// ops/pixel_match.py:576) over per-variant counts int32 [B, V, T]:
+// best = max(straight max, mirror max), mirrored = mirror max >
+// straight max (strictly), pair_flags = the flag counts summed over all
+// V variants (FLAGS only). One thread per (mask, column).
+template <bool FLAGS>
+__global__ void reduce_variants_kernel(const int32_t* __restrict__ match,
+                                       const int32_t* __restrict__ flag,
+                                       int batch, int n_var, int n_straight,
+                                       int64_t n_cols,
+                                       int32_t* __restrict__ best,
+                                       uint8_t* __restrict__ mirrored,
+                                       int32_t* __restrict__ pair_flags) {
+    const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
+        + threadIdx.x;
+    if (i >= batch * n_cols) return;
+    const int64_t b = i / n_cols;
+    const int64_t t = i - b * n_cols;
+    const int64_t base = b * n_var * n_cols + t;
+    int straight = match[base];
+    int mirror = 0;
+    int flags = FLAGS ? flag[base] : 0;
+    for (int v = 1; v < n_var; ++v) {
+        const int c = match[base + v * n_cols];
+        if (v < n_straight) straight = max(straight, c);
+        else mirror = v == n_straight ? c : max(mirror, c);
+        if (FLAGS) flags += flag[base + v * n_cols];
+    }
+    const bool has_mirror = n_var > n_straight;
+    best[i] = has_mirror ? max(straight, mirror) : straight;
+    mirrored[i] = has_mirror && mirror > straight;
+    if (FLAGS) pair_flags[i] = flags;
+}
+
+}  // namespace
+
 }  // namespace cmst

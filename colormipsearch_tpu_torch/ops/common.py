@@ -1,18 +1,24 @@
-"""Rank-key target planes: pixel classification and the K1 pack.
+"""Target planes: pixel classification and the K1 and K8 packs.
 
-Targets are packed into pixel-major int32 [P+1, T] planes: each
-foreground pixel (any channel above the data threshold) holds the key
-(cls << KEY_RANK_BITS) | rank, where ``rank`` is the index of its hue
-ratio s/p in the sorted list of ALL achievable ratios; every other
-element, and the sentinel row P, is 0. A query-position row read then
-yields the lane-contiguous keys of all T targets (the JAX package's
-ops/common.py, rank-key section).
+Targets are packed into pixel-major planes, so that a query-position row
+read yields the lane-contiguous words of all T targets (the JAX
+package's ops/common.py):
 
-The default upload is sparse: only foreground pixels travel to the
+  * rank-key planes, int32 [P+1, T]: each foreground pixel (any channel
+    above the data threshold) holds the key (cls << KEY_RANK_BITS) |
+    rank, where ``rank`` is the index of its hue ratio s/p in the sorted
+    list of ALL achievable ratios; every other element, and the sentinel
+    row P, is 0;
+  * summary planes, [P, T] words (cls << 24) | (p << 16) | (s << 8) |
+    maxch, held as int32 with the bits of the JAX package's uint32, for
+    the banded predicate (ops/pixel_match.score_query_batch).
+
+The default key upload is sparse: only foreground pixels travel to the
 device as COO (position, RGB) elements, and the K1 kernel
 (kernels/csrc/scatter_keys.cu) classifies and scatters them into the
-planes. ``pack_target_planes_keys`` is the dense plain form K1 is
-checked against.
+planes. The dense uint8 stack goes to the device for the summary planes
+and, with CDS_DENSE_UPLOAD=1, for the key planes; K8
+(kernels/csrc/pack_planes.cu) packs it in either mode.
 """
 
 from __future__ import annotations
@@ -103,23 +109,138 @@ def rank_lut_tensor(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_rank_lut_flat()).to(device)
 
 
+def pack_summary(cls, s, p, maxch) -> torch.Tensor:
+    """Pack a classification into the summary word
+    (cls << 24) | (p << 16) | (s << 8) | maxch, as int32 (the bits of
+    the JAX package's uint32 word: cls < 8, so the sign bit is 0)."""
+    return ((cls << 24) | (p << 16) | (s << 8) | maxch).to(torch.int32)
+
+
+def unpack_summary(packed: torch.Tensor):
+    """Summary words -> (cls, s, p, maxch) int32."""
+    v = packed.to(torch.int32)
+    return (v >> 24) & 0x7, (v >> 8) & 0xFF, (v >> 16) & 0xFF, v & 0xFF
+
+
+def _packed_columns(rgb_stack: torch.Tensor, t_pad: int | None,
+                    sentinel: bool, word, chunk: int = 32) -> torch.Tensor:
+    """[P (+1 with `sentinel`), t_pad] int32 planes whose column t is
+    word(rgb_stack[t0:t1]) reshaped, taken `chunk` targets at a time so
+    that the intermediates stay bounded at production shapes; padding
+    columns and the sentinel row are zero."""
+    t = rgb_stack.shape[0]
+    t_pad = t if t_pad is None else t_pad
+    if t_pad < t:
+        raise ValueError(f"t_pad {t_pad} < {t} targets")
+    n_px = rgb_stack[0, ..., 0].numel() if t else 0
+    planes = torch.zeros((n_px + int(sentinel), t_pad), dtype=torch.int32,
+                         device=rgb_stack.device)
+    for t0 in range(0, t, chunk):
+        t1 = min(t, t0 + chunk)
+        planes[:n_px, t0:t1] = word(rgb_stack[t0:t1]).reshape(t1 - t0,
+                                                              -1).T
+    return planes
+
+
+def pack_target_planes_plain(rgb_stack: torch.Tensor,
+                             data_threshold: int | None = None, *,
+                             t_pad: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K8's summary mode (see
+    :func:`pack_target_planes`)."""
+    def word(rgb):
+        cls, s, p, maxch = classify(rgb)
+        packed = pack_summary(cls, s, p, maxch)
+        if data_threshold is None:
+            return packed
+        return torch.where(maxch > data_threshold, packed,
+                           torch.zeros_like(packed))
+
+    return _packed_columns(rgb_stack, t_pad, False, word)
+
+
+def pack_target_planes_keys_plain(rgb_stack: torch.Tensor,
+                                  data_threshold: int,
+                                  rank_lut: torch.Tensor, *,
+                                  t_pad: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K8's key mode (see
+    :func:`pack_target_planes_keys`); also the dense reference K1 is
+    checked against."""
+    def word(rgb):
+        cls, s, p, maxch = classify(rgb)
+        rank = rank_lut[((s << 8) | p).long()]
+        key = (cls << KEY_RANK_BITS) | rank
+        return torch.where((maxch > data_threshold) & (cls > 0), key,
+                           torch.zeros_like(key)).to(torch.int32)
+
+    return _packed_columns(rgb_stack, t_pad, True, word)
+
+
+def _pack_planes(rgb_stack, data_threshold, rank_lut, t_pad, name):
+    """K8 (kernels/csrc/pack_planes.cu) in the key mode when `rank_lut`
+    is given, else in the summary mode; CPU tensors take the plain
+    version."""
+    if rgb_stack.dim() != 4:
+        raise ValueError(f"rgb_stack: expected [T, H, W, 3], got "
+                         f"{tuple(rgb_stack.shape)}")
+    t, h, w = rgb_stack.shape[:3]
+    kbuild.check_tensor(rgb_stack, "rgb_stack", torch.uint8, (t, h, w, 3))
+    if rank_lut is not None:
+        kbuild.check_tensor(rank_lut, "rank_lut", torch.int32, (1 << 16,))
+        kbuild.same_device(rgb_stack, rank_lut)
+    if t_pad is not None and t_pad < t:
+        raise ValueError(f"t_pad {t_pad} < {t} targets")
+    if rgb_stack.device.type == "cpu":
+        if rank_lut is None:
+            return pack_target_planes_plain(rgb_stack, data_threshold,
+                                            t_pad=t_pad)
+        return pack_target_planes_keys_plain(rgb_stack, data_threshold,
+                                             rank_lut, t_pad=t_pad)
+    kbuild.require_cuda(rgb_stack)
+    t_pad = t if t_pad is None else t_pad
+    n_px = h * w
+    rows = n_px + 1 if rank_lut is not None else n_px
+    planes = torch.empty((rows, t_pad), dtype=torch.int32,
+                         device=rgb_stack.device)
+    thr = -1 if data_threshold is None else int(data_threshold)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_pack_planes(
+        rgb_stack.data_ptr(), t, n_px, t_pad, max(thr, -1),
+        int(rank_lut is not None),
+        None if rank_lut is None else rank_lut.data_ptr(),
+        planes.data_ptr(), kbuild.stream_of(rgb_stack)), name)
+    kbuild.count_launch(name)
+    return planes
+
+
+def pack_target_planes(rgb_stack: torch.Tensor,
+                       data_threshold: int | None = None, *,
+                       t_pad: int | None = None) -> torch.Tensor:
+    """K8, summary mode: uint8 [T, H, W, 3] -> int32 [P, t_pad] summary
+    planes (the uint32 words of the JAX package's pack_target_planes,
+    held as int32 with the same bits), columns >= T zero.
+
+    With `data_threshold`, below-threshold pixels pack to the zero word
+    (class 0 neither matches nor flags), and the scoring kernel runs with
+    target_threshold=-1. CPU tensors run the plain version; CUDA tensors
+    launch kernels/csrc/pack_planes.cu or raise.
+    """
+    return _pack_planes(rgb_stack, data_threshold, None, t_pad,
+                        "pack_target_planes")
+
+
 def pack_target_planes_keys(rgb_stack: torch.Tensor, data_threshold: int,
-                            rank_lut: torch.Tensor) -> torch.Tensor:
-    """uint8 [T, H, W, 3] -> int32 [P+1, T] rank-key planes (dense, plain
-    PyTorch; the reference K1 is checked against).
+                            rank_lut: torch.Tensor, *,
+                            t_pad: int | None = None) -> torch.Tensor:
+    """K8, key mode: uint8 [T, H, W, 3] -> int32 [P+1, t_pad] rank-key
+    planes (dense upload), columns >= T zero.
 
     The data threshold is ALWAYS folded (key 0 neither matches nor
     flags); row P is an all-zero sentinel so query plans can encode
-    padded / out-of-bounds positions as P.
+    padded / out-of-bounds positions as P. CPU tensors run the plain
+    version; CUDA tensors launch kernels/csrc/pack_planes.cu or raise.
     """
-    t = rgb_stack.shape[0]
-    cls, s, p, maxch = classify(rgb_stack)
-    rank = rank_lut[((s << 8) | p).long()]
-    key = (cls << KEY_RANK_BITS) | rank
-    key = torch.where((maxch > data_threshold) & (cls > 0), key,
-                      torch.zeros_like(key))
-    planes = key.to(torch.int32).reshape(t, -1).T
-    return torch.nn.functional.pad(planes, (0, 0, 0, 1)).contiguous()
+    return _pack_planes(rgb_stack, int(data_threshold), rank_lut, t_pad,
+                        "pack_target_planes_keys")
 
 
 def scatter_key_planes_plain(pos: torch.Tensor, rgb: torch.Tensor,

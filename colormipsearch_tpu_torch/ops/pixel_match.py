@@ -1,21 +1,27 @@
-"""Full-union rank-key pixel-match scoring: host plan construction and the
-device kernels K2-K4.
+"""Pixel-match scoring: host plan construction and the device kernels
+K2-K4, K9 and K10.
 
-The host side (interval tables bisected against the float64 oracle,
-union plans, the batch stackers) is carried over from the JAX package's
-ops/pixel_match.py unchanged, so both packages build identical plans.
-The device side replaces the package's jitted functions with
-hand-written CUDA kernels (kernels/csrc), each beside its plain PyTorch
-version:
+The host side (classic query plans, interval tables bisected against the
+float64 oracle, union plans, the batch stackers) is carried over from
+the JAX package's ops/pixel_match.py unchanged, so both packages build
+identical plans. The device side replaces the package's jitted
+functions with hand-written CUDA kernels (kernels/csrc), each beside its
+plain PyTorch version:
 
   * K2 ``expand_union_tables_from_pos``: positional wire form -> per-lane
     interval tables (expand_tables.cu),
   * K3 ``score_query_batch_union_keys``: union key gathers, per-lane
-    interval counts and the straight/mirror reduction (union_score.cu),
-  * K4 ``union_keys_topk``: per-mask top-k emit selection (topk.cu).
+    interval counts and the straight/mirror reduction (union_score.cu);
+    it scores the full-union and the x-union plans,
+  * K4 ``union_keys_topk``: per-mask top-k emit selection (topk.cu),
+  * K9 ``score_query_batch``: the banded f32 predicate on summary planes
+    with per-pair ambiguity flags (banded_score.cu),
+  * K10 ``score_query_batch_keys``: the classic rank-key kernel, three
+    interval windows per query pixel (key_score.cu).
 
-Tables that hold uint32 bits (interval lo/span) travel as int32 tensors
-with the same bits, because torch's uint32 lacks most operations.
+Tables that hold uint32 bits (interval lo/span, summary words) travel as
+int32 tensors with the same bits, because torch's uint32 lacks most
+operations.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from colormipsearch_tpu_torch.constants import (
     RG_RB,
 )
 from colormipsearch_tpu_torch.kernels import build as kbuild
+from colormipsearch_tpu_torch.ops import common
 from colormipsearch_tpu_torch.oracle import pixel as oracle_pixel
 
 # Adjacent-class compatibility table.  Each row:
@@ -79,6 +86,370 @@ def _bucket(q: int, minimum: int = 512) -> int:
         if n >= q:
             return n
     return base * 2
+
+
+# --- classic query plans and the banded f32 predicate -----------------------
+#
+# The packed path scores summary planes (ops/common.pack_target_planes)
+# with a predicate that is exact integer arithmetic for same-class pixels
+# and float32 with a guard band for the adjacent-class branches; pixels
+# whose verdict falls inside the band are counted separately (the pair's
+# flags), and the engine rescores flagged pairs with the float64 oracle.
+
+# float32 guard band around the z-tolerance for the adjacent-class gap;
+# float32 evaluation error is bounded by ~5e-7, float64-vs-exact by ~3e-16.
+ADJ_BAND = 1e-4
+
+# Largest z-tolerance denominator for the exact same-class test: the
+# f32-evaluated integer products must stay < 2^24 (b * 255 * 255), so
+# fractions up to 1/258 of a percent stay exact; coarser denominators
+# fall back to the banded-f32 ratio-gap branch.
+_MAX_INT_DENOM = 258
+
+
+@dataclasses.dataclass
+class QueryPlan:
+    """Host-side precomputation for one query (mask) image: the
+    reference's shifted/mirrored position arrays
+    (PixelMatchColorDepthSearchAlgorithm ctor) in padded dense form."""
+    positions: np.ndarray      # int32 [V, Q] target-lookup positions, -1 pad
+    q_cls: np.ndarray          # int32 [Q]
+    q_s: np.ndarray            # int32 [Q]
+    q_p: np.ndarray            # int32 [Q]
+    query_size: int            # true (unpadded) number of query positions
+    n_straight: int            # variants [0:n_straight] are unmirrored
+    mirror: bool
+    ztol_num: int
+    ztol_den: int
+
+    @property
+    def n_variants(self) -> int:
+        return self.positions.shape[0]
+
+
+def build_query_plan(query_rgb: np.ndarray, query_threshold: int, *,
+                     mirror: bool, xy_shift: int,
+                     pix_color_fluctuation,
+                     excluded_region: np.ndarray | None = None,
+                     pad_to: int | None = None) -> QueryPlan:
+    """Build the padded position/attribute arrays for one query image."""
+    h, w = query_rgb.shape[:2]
+    fg = (query_rgb > query_threshold).any(axis=-1)
+    if excluded_region is not None:
+        fg &= ~excluded_region
+    positions = np.flatnonzero(fg.reshape(-1)).astype(np.int64)
+    q = positions.size
+
+    # classify only the foreground (~0.1-1% of the plane)
+    cls, s, p = oracle_pixel.classify_rgb(
+        query_rgb.reshape(-1, 3)[positions])
+    q_cls = cls.astype(np.int32)
+    q_s = s.astype(np.int32)
+    q_p = p.astype(np.int32)
+
+    x = positions % w
+    y = positions // w
+    variants = []
+    for dx, dy in oracle_pixel.shift_offsets(xy_shift):
+        nx, ny = x + dx, y + dy
+        ok = (nx >= 0) & (nx < w) & (ny >= 0) & (ny < h)
+        variants.append(np.where(ok, ny * w + nx, -1))
+    n_straight = len(variants)
+    if mirror:
+        for v in list(variants):
+            vx = v % w
+            variants.append(np.where(v < 0, -1, v + (w - 1) - 2 * vx))
+    pos = np.stack(variants).astype(np.int32) if q else \
+        np.full((n_straight * (2 if mirror else 1), 0), -1, np.int32)
+
+    q_pad = pad_to if pad_to is not None else _bucket(q)
+    if q_pad < q:
+        raise ValueError(f"pad_to {q_pad} < query size {q}")
+    if q_pad > q:
+        pos = np.pad(pos, ((0, 0), (0, q_pad - q)), constant_values=-1)
+        q_cls = np.pad(q_cls, (0, q_pad - q))
+        q_s = np.pad(q_s, (0, q_pad - q))
+        q_p = np.pad(q_p, (0, q_pad - q))
+
+    a, b = common.ztol_fraction(pix_color_fluctuation)
+    return QueryPlan(pos, q_cls, q_s, q_p, q, n_straight, mirror, a, b)
+
+
+def build_neg_query_plan(query_rgb: np.ndarray, query_threshold: int,
+                         neg_query_rgb: np.ndarray, neg_query_threshold: int,
+                         *, mirror_neg_query: bool, xy_shift: int,
+                         pix_color_fluctuation,
+                         excluded_region: np.ndarray | None = None,
+                         pad_to: int | None = None) -> QueryPlan | None:
+    """Build the negative-query plan for device scoring.
+
+    Reference semantics (PixelMatchColorDepthSearchAlgorithm:36-57,195-217):
+    the negative pass reads SOURCE pixels from the negative image at the
+    POSITIVE query's positions, zipped with the shifted NEGATIVE query
+    position arrays as target lookups, truncated to the shorter length.
+    The returned plan's ``query_size`` is the TRUE negative-query
+    foreground size (the divisor of the score subtraction), which may
+    exceed the padded zip length.  Returns None when either side is empty.
+    """
+    h, w = query_rgb.shape[:2]
+    fg = (query_rgb > query_threshold).any(axis=-1)
+    neg_fg = (neg_query_rgb > neg_query_threshold).any(axis=-1)
+    if excluded_region is not None:
+        fg &= ~excluded_region
+        neg_fg &= ~excluded_region
+    positions = np.flatnonzero(fg.reshape(-1)).astype(np.int64)
+    neg_positions = np.flatnonzero(neg_fg.reshape(-1)).astype(np.int64)
+    neg_query_size = int(neg_positions.size)
+    size = min(positions.size, neg_query_size)
+    if size == 0:
+        return None
+
+    src = positions[:size]
+    ncls, ns, np_ = oracle_pixel.classify_rgb(
+        neg_query_rgb.reshape(-1, 3)[src])
+    q_cls = ncls.astype(np.int32)
+    q_s = ns.astype(np.int32)
+    q_p = np_.astype(np.int32)
+
+    x = neg_positions % w
+    y = neg_positions // w
+    variants = []
+    for dx, dy in oracle_pixel.shift_offsets(xy_shift):
+        nx, ny = x + dx, y + dy
+        ok = (nx >= 0) & (nx < w) & (ny >= 0) & (ny < h)
+        variants.append(np.where(ok, ny * w + nx, -1)[:size])
+    n_straight = len(variants)
+    if mirror_neg_query:
+        for v in list(variants):
+            vx = v % w
+            variants.append(np.where(v < 0, -1, v + (w - 1) - 2 * vx))
+    pos = np.stack(variants).astype(np.int32)
+
+    q_pad = pad_to if pad_to is not None else _bucket(size)
+    if q_pad > size:
+        pos = np.pad(pos, ((0, 0), (0, q_pad - size)), constant_values=-1)
+        q_cls = np.pad(q_cls, (0, q_pad - size))
+        q_s = np.pad(q_s, (0, q_pad - size))
+        q_p = np.pad(q_p, (0, q_pad - size))
+
+    a, b = common.ztol_fraction(pix_color_fluctuation)
+    return QueryPlan(pos, q_cls, q_s, q_p, neg_query_size, n_straight,
+                     mirror_neg_query, a, b)
+
+
+@functools.lru_cache(maxsize=1)
+def _adj_rule_tables():
+    """Per-query-class adjacency rule tables.
+
+    Every dominance class has at most TWO adjacent classes it can match
+    (e.g. BG pairs with BR and GB), so instead of sweeping all 10 rows of
+    _ADJ_TABLE per pair, each query pixel carries its <= 2 candidate
+    rules; the kernel evaluates exactly those.  Arrays are indexed
+    [class 0..6, rule slot 0..1]:
+      tc       target class (0 = slot disabled)
+      qms, qmp, qless   query-side ratio precondition (exact ints)
+      tms, tmp, tless   target-side ratio precondition
+      sign, offs        gap = sign * (q_r + t_r) + offs   (offs = -/+ 2c)
+    """
+    shape = (7, 2)
+    tc = np.zeros(shape, np.int32)
+    qms = np.zeros(shape, np.int32)
+    qmp = np.zeros(shape, np.int32)
+    qless = np.zeros(shape, bool)
+    tms = np.zeros(shape, np.int32)
+    tmp_ = np.zeros(shape, np.int32)
+    tless = np.zeros(shape, bool)
+    sign = np.zeros(shape, np.float32)
+    offs = np.zeros(shape, np.float32)
+    slot = [0] * 7
+    for qc, t, (a, b, ql), (c_, d, tl), plus, const in _ADJ_TABLE:
+        k = slot[qc]
+        slot[qc] += 1
+        tc[qc, k] = t
+        qms[qc, k], qmp[qc, k], qless[qc, k] = a, b, ql
+        tms[qc, k], tmp_[qc, k], tless[qc, k] = c_, d, tl
+        sign[qc, k] = 1.0 if plus else -1.0
+        offs[qc, k] = np.float32(-2.0 * const) if plus \
+            else np.float32(2.0 * const)
+    return tc, qms, qmp, qless, tms, tmp_, tless, sign, offs
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    """A float32 scalar tensor (x rounded to nearest, as jnp.float32)."""
+    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
+                        device=device)
+
+
+def query_side_rules(q_cls, q_s, q_p, *, ztol_num: int, ztol_den: int):
+    """Per-query-pixel precomputation for the elementwise predicate, in
+    the JAX package's f32 operation order (torch, on the tensors' device).
+
+    Folds the adjacent-class machinery of calculatePixelGap (:260-388)
+    into at most two one-sided bound tests per query pixel: every
+    adjacent-class branch is "target class == tc AND a one-sided ratio
+    condition", because the target-side precondition and the gap
+    threshold bound t_r from the SAME side —
+
+        plus rules  (gap = (q_r - c) + (t_r - c) <= ztol):
+            t_r <  pre_hi   and  t_r <= ztol + 2c - q_r
+        minus rules (gap = (c - q_r) + (c - t_r) <= ztol):
+            t_r >  pre_lo   and  t_r >= 2c - ztol - q_r
+
+    so the per-element test is one bound test on g = t_s - B*t_p
+    (direction chosen by `upper`), with B precomputed here per (query
+    pixel, rule slot). Boundary points (the strict-vs-non-strict
+    distinction and all f32 rounding) fall inside the ambiguity band and
+    are flagged for the float64 oracle.
+
+    Returns (same_cls, bq_s, bq_p, a_qp, tc, bound, upper):
+      same_cls: int32 — q_cls where the same-class branch can fire
+                (ratio > 0 per :262), else -1
+      bq_s, bq_p, a_qp: f32 — ztol_den * q_s, ztol_den * q_p and
+                ztol_num * q_p (the same-class test
+                |q_s*t_p - t_s*q_p| * b <= a * q_p * t_p, exact in f32
+                while every product is < 2^24)
+      tc:       int32 [2, ...] — adjacency rule target class (0 = off)
+      bound:    f32  [2, ...] — ratio bound B
+      upper:    bool [2, ...] — True for upper (t_r <= B), else lower
+    """
+    a, b = ztol_num, ztol_den
+    dev = q_cls.device
+    ztol_f32 = _f32(a / b, dev)
+    f32 = torch.float32
+
+    q_r = q_s.to(f32) / q_p.clamp(min=1).to(f32)
+    tc_t, qms_t, qmp_t, qless_t, tms_t, tmp_t, _tless, sign_t, offs_t = \
+        (torch.from_numpy(t).to(dev) for t in _adj_rule_tables())
+    cls = q_cls.long()
+
+    same_cls = torch.where(q_s >= 1, q_cls, -1).to(torch.int32)
+    bq_s = (b * q_s).to(f32)
+    bq_p = (b * q_p).to(f32)
+    a_qp = (a * q_p).to(f32)
+
+    tc, bound, upper = [], [], []
+    for k in (0, 1):
+        # query-side precondition (exact ints), folded into the rule's
+        # target class (0 = rule disabled for this query pixel)
+        q_lhs = qms_t[cls, k] * q_s - qmp_t[cls, k] * q_p
+        pre_q = torch.where(qless_t[cls, k], q_lhs < 0, q_lhs > 0)
+        tc.append(torch.where(pre_q, tc_t[cls, k], 0).to(torch.int32))
+        # plus rules (sign +1, offs = -2c): upper bound
+        #   min(pre_hi, ztol + 2c - q_r)   with pre_hi = tmp/tms
+        # minus rules (sign -1, offs = +2c): lower bound
+        #   max(pre_lo, 2c - ztol - q_r)
+        pre_ratio = tmp_t[cls, k].to(f32) / tms_t[cls, k].clamp(min=1) \
+            .to(f32)
+        plus = sign_t[cls, k] > 0
+        offs = offs_t[cls, k]
+        gap_bound = torch.where(plus, (ztol_f32 - offs) - q_r,
+                                (-ztol_f32 + offs) - q_r)
+        bound.append(torch.where(plus, torch.minimum(pre_ratio, gap_bound),
+                                 torch.maximum(pre_ratio, gap_bound)))
+        upper.append(plus)
+    return (same_cls, bq_s, bq_p, a_qp, torch.stack(tc), torch.stack(bound),
+            torch.stack(upper))
+
+
+def element_predicate(q_cls, q_s, q_p, t_cls, t_s, t_p, t_max, *,
+                      target_threshold: int, ztol_num: int, ztol_den: int):
+    """Elementwise match predicate on pixel summaries (broadcastable):
+    (match, flag) bool tensors, `flag` marking the ambiguity-band
+    pixels whose verdict the float64 oracle re-checks."""
+    rules = query_side_rules(q_cls, q_s, q_p, ztol_num=ztol_num,
+                             ztol_den=ztol_den)
+    return predicate_from_rules(
+        rules, q_s, q_p, t_cls, t_s, t_p, t_max,
+        target_threshold=target_threshold, ztol_num=ztol_num,
+        ztol_den=ztol_den)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors, rounded once (a fused multiply-add,
+    as CUDA's __fmaf_rn). The product of two floats is exact in float64;
+    the sum's rounding error comes from TwoSum, and a sum that is not
+    exact is rounded to odd (the neighbour with an odd last bit), which
+    then rounds to float32 as the exact value would (53 >= 24 + 2
+    bits)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    inexact_even = (err != 0) & ((bits & 1) == 0)
+    # the neighbour in err's direction: one more unit of magnitude when
+    # err has the sign of s, one less otherwise
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where(inexact_even, bits + step, bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def predicate_from_rules(rules, q_s, q_p, t_cls, t_s, t_p, t_max, *,
+                         target_threshold: int, ztol_num: int,
+                         ztol_den: int):
+    """The [elements]-shaped half of the predicate (see query_side_rules),
+    in the f32 operation order the JAX function compiles to (see the
+    adjacent-class bound test below)."""
+    a, b = ztol_num, ztol_den
+    dev = t_s.device
+    f32 = torch.float32
+    band = _f32(ADJ_BAND, dev)
+    same_cls, bq_s, bq_p, a_qp, tc, bound, upper = rules
+
+    ts_f = t_s.to(f32)
+    tp_f = t_p.to(f32)
+    same = (same_cls == t_cls) & (t_s >= 1)
+    if b <= _MAX_INT_DENOM:
+        # exact-in-f32 integer arithmetic: every product < 2^24
+        lhs = torch.abs(bq_s * tp_f - ts_f * bq_p)
+        rhs = a_qp * tp_f
+        m_same = same & (lhs <= rhs)
+        f_same = same & (lhs == rhs)
+    else:
+        q_r = q_s.to(f32) / q_p.clamp(min=1).to(f32)
+        t_r32 = ts_f / tp_f.clamp(min=1)
+        ztol_f32 = _f32(a / b, dev)
+        gap = torch.abs(t_r32 - q_r)
+        m_same = same & (gap <= ztol_f32)
+        f_same = same & (torch.abs(gap - ztol_f32) < band)
+
+    # the two rule slots target DISTINCT classes, so at most one rule can
+    # fire per element: select its bound/direction by class equality
+    sel0 = t_cls == tc[0]
+    sel1 = t_cls == tc[1]
+    sel = (sel0 | sel1) & (t_cls > 0)
+    bound_sel = torch.where(sel0, bound[0], bound[1])
+    upper_sel = torch.where(sel0, upper[0], upper[1])
+    # g = ts_f - bound_sel * tp_f. XLA (its CPU backend) compiles the
+    # sign test `g <= 0` as `ts_f <= bound_sel * tp_f`, the product
+    # rounded on its own, and the band test's g as one fused multiply-add
+    # (rounded once); the JAX function's verdicts follow both, and so do
+    # these. (Both roundings err by ~1e-7, far inside the 1e-4 band.)
+    m_adj = sel & ((ts_f <= bound_sel * tp_f) == upper_sel)
+    g = fma_f32(-bound_sel, tp_f, ts_f)
+    f_adj = sel & (torch.abs(g) < band * tp_f)
+
+    match = m_same | m_adj
+    flag = f_same | f_adj
+    if target_threshold >= 0:
+        # a negative threshold means it was folded into the pack
+        valid = t_max > target_threshold
+        match = match & valid
+        flag = flag & valid
+    return match, flag
+
+
+def reduce_variant_scores(scores: np.ndarray, plan: QueryPlan):
+    """[V, T] per-variant scores -> (best [T], mirrored [T]) per reference
+    max semantics (mirror wins only when strictly greater)."""
+    straight = scores[:plan.n_straight].max(axis=0)
+    if plan.mirror:
+        mirrored = scores[plan.n_straight:].max(axis=0)
+        best = np.maximum(straight, mirrored)
+        return best, mirrored > straight
+    return straight, np.zeros(scores.shape[1], dtype=bool)
 
 
 # --- rank-key interval predicate ------------------------------------------
@@ -304,6 +675,40 @@ def build_key_intervals(q_cls: np.ndarray, q_s: np.ndarray,
     return tab_lo[:, key], tab_span[:, key]
 
 
+@dataclasses.dataclass
+class KeyQueryPlan:
+    """Rank-key form of QueryPlan: positions are sentinel-encoded
+    (padded / out-of-bounds lanes point at the planes' all-zero row P)
+    and per-pixel predicates are three key intervals."""
+    positions: np.ndarray      # int32 [V, Q], sentinel = n_pixels
+    lo: np.ndarray             # uint32 [3, Q]
+    span: np.ndarray           # uint32 [3, Q]
+    query_size: int
+    n_straight: int
+    mirror: bool
+
+    @property
+    def n_variants(self) -> int:
+        return self.positions.shape[0]
+
+
+def key_plan_from_query_plan(plan: QueryPlan, n_pixels: int,
+                             pix_color_fluctuation) -> KeyQueryPlan:
+    """Convert a built QueryPlan for the classic key kernel (K10).
+
+    `n_pixels` is H*W of the image the positions index (the sentinel
+    row); the z-tolerance re-derives from the fluctuation value the
+    same way the reference does (double division by 100).
+    """
+    pos = np.where(plan.positions < 0, n_pixels,
+                   plan.positions).astype(np.int32)
+    lo, span = build_key_intervals(
+        plan.q_cls, plan.q_s, plan.q_p,
+        float(pix_color_fluctuation) / 100.0)
+    return KeyQueryPlan(pos, lo, span, plan.query_size,
+                        plan.n_straight, plan.mirror)
+
+
 # --- full-union lane form of the rank-key kernel ----------------------------
 #
 # The xy-shift variants of a query gather heavily overlapping row sets,
@@ -421,6 +826,94 @@ def _select_query_foreground(query_rgb: np.ndarray,
         fg &= ~excluded_region
     positions = np.flatnonzero(fg.reshape(-1)).astype(np.int64)
     return positions, query_rgb.reshape(-1, 3)[positions]
+
+
+def offsets_form_grid(xy_shift: int) -> bool:
+    """True when shift_offsets(xy_shift) is a full {dx} x {dy} grid —
+    the precondition of the x-union lane factorization (holds for the
+    production xy_shift in {0, 2}; not for > 2)."""
+    offsets = oracle_pixel.shift_offsets(xy_shift)
+    dxs = sorted({dx for dx, _ in offsets})
+    dys = sorted({dy for _, dy in offsets})
+    return {(dx, dy) for dx in dxs for dy in dys} == set(offsets)
+
+
+def build_union_key_plan(query_rgb: np.ndarray, query_threshold: int, *,
+                         mirror: bool, xy_shift: int,
+                         pix_color_fluctuation,
+                         excluded_region: np.ndarray | None = None,
+                         pad_to: int | None = None
+                         ) -> UnionKeyPlan | None:
+    """Build the x-union lane plan: the x-dilated union of the query
+    support gathered once per dy-set (S = 3 sets at xyShift 2), each dx
+    shift an interval lane. Scored by K3 with S > 1 and no slot-2
+    prefix.
+
+    Returns None when the shift offsets do not form a {dy} x {dx} grid
+    (they do for the production xy_shift in {0, 2}); callers fall back
+    to the classic key plan.
+    """
+    if not offsets_form_grid(xy_shift):
+        return None
+    offsets = oracle_pixel.shift_offsets(xy_shift)
+    dxs = sorted({dx for dx, _ in offsets})
+    dys = sorted({dy for _, dy in offsets})
+
+    h, w = query_rgb.shape[:2]
+    n_pixels = h * w
+    positions, vals = _select_query_foreground(
+        query_rgb, query_threshold, excluded_region)
+
+    # classify only the foreground; pos_index maps a flat pixel back to
+    # its row in the classified arrays (-1 = not a query position)
+    cls, s, p = oracle_pixel.classify_rgb(vals)
+    pos_index = np.full(n_pixels, -1, np.int64)
+    pos_index[positions] = np.arange(positions.size)
+
+    # x-dilated union of the query support (flat positions; dx shifts
+    # that leave the row are skipped, like the reference's -1 sentinel)
+    x = positions % w
+    union = np.unique(np.concatenate(
+        [(positions + dx)[(x + dx >= 0) & (x + dx < w)] for dx in dxs])) \
+        if positions.size else np.empty(0, np.int64)
+    u_count = union.size
+    ux = union % w
+    uy = union // w
+
+    # per-lane interval constants: lane dx at union row u reads query
+    # pixel q = u - dx (same image row, must be a query position);
+    # inactive elements get class 0, which build_key_intervals maps to
+    # the empty interval
+    ztol = float(pix_color_fluctuation) / 100.0
+    lane_lo = np.empty((len(dxs), 3, u_count), np.uint32)
+    lane_span = np.empty_like(lane_lo)
+    for j, dx in enumerate(dxs):
+        qx = ux - dx
+        src = union - dx
+        # qx in [0, w) keeps src on the same row and inside the image
+        jj = pos_index[np.clip(src, 0, n_pixels - 1)]
+        active = (qx >= 0) & (qx < w) & (jj >= 0)
+        idx = np.where(active, jj, 0)
+        lane_lo[j], lane_span[j] = build_key_intervals(
+            np.where(active, cls[idx], 0), np.where(active, s[idx], 0),
+            np.where(active, p[idx], 0), ztol)
+
+    # dy row sets (straight + mirrored); y overflow -> sentinel row
+    u_pos = np.full((len(dys), u_count), n_pixels, np.int32)
+    mu_pos = np.full((len(dys) if mirror else 0, u_count), n_pixels,
+                     np.int32)
+    mirror_u = union + (w - 1) - 2 * ux
+    for i, dy in enumerate(dys):
+        ok = (uy + dy >= 0) & (uy + dy < h)
+        u_pos[i] = np.where(ok, union + dy * w, n_pixels)
+        if mirror:
+            mu_pos[i] = np.where(ok, mirror_u + dy * w, n_pixels)
+
+    lane_lo, lane_span = compact_interval_slots(lane_lo, lane_span)
+    plan = UnionKeyPlan(u_pos, mu_pos, lane_lo, lane_span,
+                        int(positions.size), mirror)
+    return pad_union_key_plan(
+        plan, pad_to if pad_to is not None else _bucket(u_count), n_pixels)
 
 
 def build_full_union_key_plan(query_rgb: np.ndarray, query_threshold: int,
@@ -966,3 +1459,201 @@ def score_query_batch_union_keys_topk(planes, u_pos, mu_pos, lane_lo,
         planes, u_pos, mu_pos, lane_lo, lane_span, u2)
     scores_k, idx_k, mirr_k = union_keys_topk(best, mirrored, k)
     return scores_k, idx_k, mirr_k, best, mirrored
+
+
+# --- the classic kernels: K9 (banded, packed planes) and K10 (keys) -------
+
+
+def _reduce_variants(scores: torch.Tensor, n_straight: int):
+    """[V, T] counts -> (best int32 [T], mirrored bool [T]) with the
+    semantics of reduce_variants_device (mirror wins only when strictly
+    greater than the best straight variant)."""
+    straight = scores[:n_straight].max(0).values
+    if scores.shape[0] > n_straight:
+        mirror = scores[n_straight:].max(0).values
+        return (torch.maximum(straight, mirror).to(torch.int32),
+                mirror > straight)
+    return straight.to(torch.int32), torch.zeros_like(straight,
+                                                      dtype=torch.bool)
+
+
+def _check_classic(planes, pos, n_straight: int, per_q: dict) -> None:
+    """Validation shared by the K9 and K10 wrappers."""
+    kbuild.check_tensor(planes, "planes", torch.int32)
+    kbuild.check_tensor(pos, "pos", torch.int32)
+    if planes.dim() != 2 or pos.dim() != 3:
+        raise ValueError(f"expected planes [rows, T] and pos [B, V, Q], got "
+                         f"{tuple(planes.shape)} and {tuple(pos.shape)}")
+    batch, n_var, n_q = pos.shape
+    for name, (x, shape) in per_q.items():
+        kbuild.check_tensor(x, name, torch.int32, shape)
+    kbuild.same_device(planes, pos, *(x for x, _ in per_q.values()))
+    if not 1 <= n_straight <= n_var:
+        raise ValueError(f"n_straight {n_straight} outside [1, {n_var}]")
+    if batch * n_var > 65535:
+        raise ValueError(f"{batch} masks x {n_var} variants in one launch "
+                         "(at most 65,535)")
+
+
+def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
+                            target_threshold: int, ztol_num: int,
+                            ztol_den: int, n_straight: int,
+                            rows: int = 8192):
+    """Plain PyTorch version of K9 (see score_query_batch). Walks each
+    mask's query in chunks of about `rows` / V pixels, so its [V, chunk,
+    T] intermediates stay bounded at production shapes."""
+    rules = query_side_rules(q_cls, q_s, q_p, ztol_num=ztol_num,
+                             ztol_den=ztol_den)
+    same_cls, bq_s, bq_p, a_qp, tc, bound, upper = rules
+    batch, n_var, n_q = pos.shape
+    n_cols = planes.shape[1]
+    dev = planes.device
+    chunk = max(1, rows // n_var)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    pair_flags = torch.empty((batch, n_cols), dtype=torch.int32,
+                             device=dev)
+    for b in range(batch):
+        match = torch.zeros((n_var, n_cols), dtype=torch.int64, device=dev)
+        flag = torch.zeros_like(match)
+        for c0 in range(0, n_q, chunk):
+            c1 = min(n_q, c0 + chunk)
+            pos_c = pos[b, :, c0:c1]                              # [V, c]
+            words = planes.index_select(
+                0, pos_c.clamp(min=0).reshape(-1).long()).reshape(
+                    n_var, c1 - c0, n_cols)
+
+            def col(x):
+                return x[b, c0:c1][None, :, None]                 # [1, c, 1]
+
+            def pair(x):
+                return x[:, b, c0:c1][:, None, :, None]       # [2, 1, c, 1]
+
+            m, f = predicate_from_rules(
+                (col(same_cls), col(bq_s), col(bq_p), col(a_qp), pair(tc),
+                 pair(bound), pair(upper)),
+                col(q_s), col(q_p), *common.unpack_summary(words),
+                target_threshold=target_threshold, ztol_num=ztol_num,
+                ztol_den=ztol_den)
+            ok = (pos_c >= 0)[:, :, None]
+            match += (m & ok).sum(1)
+            flag += (f & ok).sum(1)
+        best[b], mirrored[b] = _reduce_variants(match, n_straight)
+        pair_flags[b] = flag.sum(0).to(torch.int32)
+    return best, mirrored, pair_flags
+
+
+def score_query_batch(planes, pos, q_cls, q_s, q_p, *,
+                      target_threshold: int, ztol_num: int, ztol_den: int,
+                      n_straight: int):
+    """K9: a batch of classic query plans against summary planes.
+
+    planes int32 [P, T] (summary words, ops/common.pack_target_planes);
+    pos int32 [B, V, Q] (-1 = skip); q_cls, q_s, q_p int32 [B, Q];
+    target_threshold < 0 when the data threshold is folded into the
+    planes; the z-tolerance is the exact fraction ztol_num / ztol_den.
+    Returns (best int32 [B, T], mirrored bool [B, T], pair_flags int32
+    [B, T]): the best variant's match count, whether a mirrored variant
+    won strictly, and the number of ambiguity-band elements summed over
+    all variants (pairs with flags > 0 are rescored by the float64
+    oracle). The query-side rules are computed here with torch, on the
+    tensors' device. CPU tensors run the plain version; CUDA tensors
+    launch kernels/csrc/banded_score.cu or raise.
+    """
+    batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
+    _check_classic(planes, pos, n_straight,
+                   {"q_cls": (q_cls, (batch, n_q)),
+                    "q_s": (q_s, (batch, n_q)), "q_p": (q_p, (batch, n_q))})
+    kw = dict(target_threshold=target_threshold, ztol_num=ztol_num,
+              ztol_den=ztol_den, n_straight=n_straight)
+    if planes.device.type == "cpu":
+        return score_query_batch_plain(planes, pos, q_cls, q_s, q_p, **kw)
+    kbuild.require_cuda(planes)
+    dev = planes.device
+    n_cols = planes.shape[1]
+    same_cls, bq_s, bq_p, a_qp, tc, bound, upper = (
+        x.contiguous() for x in query_side_rules(
+            q_cls, q_s, q_p, ztol_num=ztol_num, ztol_den=ztol_den))
+    q_r = (q_s.to(torch.float32)
+           / q_p.clamp(min=1).to(torch.float32)).contiguous()
+    scratch = torch.zeros((2, batch, n_var, n_cols), dtype=torch.int32,
+                          device=dev)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    pair_flags = torch.empty((batch, n_cols), dtype=torch.int32,
+                             device=dev)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_banded_score(
+        planes.data_ptr(), n_cols, pos.data_ptr(), batch, n_var, n_q,
+        n_straight, same_cls.data_ptr(), bq_s.data_ptr(), bq_p.data_ptr(),
+        a_qp.data_ptr(), q_r.data_ptr(), tc.data_ptr(), bound.data_ptr(),
+        upper.data_ptr(), int(ztol_den <= _MAX_INT_DENOM),
+        float(np.float32(ztol_num / ztol_den)), float(np.float32(ADJ_BAND)),
+        max(int(target_threshold), -1), scratch.data_ptr(), best.data_ptr(),
+        mirrored.data_ptr(), pair_flags.data_ptr(), kbuild.stream_of(planes)),
+        "score_query_batch")
+    kbuild.count_launch("score_query_batch")
+    return best, mirrored, pair_flags
+
+
+def score_query_batch_keys_plain(planes, pos, lo, span, *, n_straight: int,
+                                 rows: int = 8192):
+    """Plain PyTorch version of K10 (see score_query_batch_keys), chunked
+    over the query like score_query_batch_plain."""
+    batch, n_var, n_q = pos.shape
+    n_cols = planes.shape[1]
+    dev = planes.device
+    chunk = max(1, rows // n_var)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    for b in range(batch):
+        lo_b = lo[b].long()
+        sp_b = span[b].long() & _U32
+        match = torch.zeros((n_var, n_cols), dtype=torch.int64, device=dev)
+        for c0 in range(0, n_q, chunk):
+            c1 = min(n_q, c0 + chunk)
+            key = planes.index_select(
+                0, pos[b, :, c0:c1].reshape(-1).long()).reshape(
+                    n_var, c1 - c0, n_cols).long()
+            hit = None
+            for r in range(3):
+                m = ((key - lo_b[r, c0:c1, None]) & _U32) \
+                    <= sp_b[r, c0:c1, None]
+                hit = m if hit is None else hit | m
+            match += hit.sum(1)
+        best[b], mirrored[b] = _reduce_variants(match, n_straight)
+    return best, mirrored
+
+
+def score_query_batch_keys(planes, pos, lo, span, *, n_straight: int):
+    """K10: a batch of classic key plans against rank-key planes.
+
+    planes int32 [P+1, T]; pos int32 [B, V, Q] (sentinel-encoded, every
+    entry a plane row); lo/span int32 [B, 3, Q] (uint32 bits of the
+    interval windows, key_plan_from_query_plan). Returns (best int32
+    [B, T], mirrored bool [B, T]); the predicate has no ambiguity band,
+    so there are no flags. CPU tensors run the plain version; CUDA
+    tensors launch kernels/csrc/key_score.cu or raise.
+    """
+    batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
+    _check_classic(planes, pos, n_straight,
+                   {"lo": (lo, (batch, 3, n_q)),
+                    "span": (span, (batch, 3, n_q))})
+    if planes.device.type == "cpu":
+        return score_query_batch_keys_plain(planes, pos, lo, span,
+                                            n_straight=n_straight)
+    kbuild.require_cuda(planes)
+    dev = planes.device
+    n_cols = planes.shape[1]
+    scratch = torch.zeros((batch, n_var, n_cols), dtype=torch.int32,
+                          device=dev)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_key_score(
+        planes.data_ptr(), n_cols, pos.data_ptr(), batch, n_var, n_q,
+        n_straight, lo.data_ptr(), span.data_ptr(), scratch.data_ptr(),
+        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(planes)),
+        "score_query_batch_keys")
+    kbuild.count_launch("score_query_batch_keys")
+    return best, mirrored

@@ -73,6 +73,25 @@ def test_slice_result_files_identical_to_jax(tmp_path, pct):
         assert port[name] == ref[name], name
 
 
+@pytest.mark.parametrize("form", [
+    ["--use-union-keys", "off"], ["--use-key-planes"],
+    ["--use-union-keys", "x"], ["--use-union-keys", "x", "--xyShift", "4"],
+])
+def test_kernel_forms_result_files_identical_to_jax(tmp_path, form):
+    """The packed path (banded kernel, flagged pairs rescored), the
+    classic key kernel and the x-union form (and its fallback at
+    xyShift 4) write the JAX CLI's result trees byte for byte."""
+    args = _inputs(tmp_path, seed=47, n_targets=16, n_masks=3)
+    flags = FLAGS + ["--pctPositivePixels", "0.0", *form]
+    assert torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
+                            "-od", str(tmp_path / "port"), *flags]) == 0
+    assert jax_main.main(["colorDepthSearch", *args,
+                          "-od", str(tmp_path / "jax"), *flags]) == 0
+    port, ref = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
+    assert any(k.startswith("masks/") for k in port)
+    assert port == ref
+
+
 def test_port_runs_without_jax_and_pil(tmp_path):
     """Import every port module and run a tiny CPU colorDepthSearch in a
     process where jax and PIL cannot be imported."""
@@ -138,19 +157,46 @@ def test_device_cuda_without_gpu_is_an_error(tmp_path):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(use_union_keys="x"), dict(use_union_keys="off"),
-    dict(use_key_planes=False), dict(use_key_planes=True),
-    dict(use_mesh=True), dict(neg_query_rgb=np.zeros((4, 4, 3), np.uint8)),
-    dict(env=("CDS_SPLIT_PLANES", "1")), dict(env=("CDS_DENSE_UPLOAD", "1")),
-    dict(env=("CDS_UNION_KEYS", "0")),
+    dict(use_mesh=True),
+    dict(use_key_planes=False, env=("CDS_SPLIT_PLANES", "1")),
+    dict(env=[("CDS_SPLIT_PLANES", "1"), ("CDS_UNION_KEYS", "0")]),
 ])
 def test_outside_the_slice_raises(setting, monkeypatch):
+    """Scoring over several devices, and the split-plane kernel the JAX
+    engine runs for CDS_SPLIT_PLANES=1 on the packed path without a
+    top-k, are not ported."""
     setting = dict(setting)
-    env = setting.pop("env", None)
-    if env:
-        monkeypatch.setenv(*env)
+    env = setting.pop("env", [])
+    for name, value in [env] if isinstance(env, tuple) else env:
+        monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CDSearchEngine(CDSParams(), device="cpu", **setting)
+        CDSearchEngine(CDSParams(), device="cpu",
+                       **setting).find_all_matches([], [])
+
+
+def test_split_planes_outside_the_packed_path_runs(tmp_path, monkeypatch):
+    """CDS_SPLIT_PLANES=1 changes nothing on the default (full-union)
+    path, nor on the packed path with a top-k, as in the JAX engine."""
+    args = _inputs(tmp_path, seed=46, n_targets=8, n_masks=2)
+    monkeypatch.setenv("CDS_SPLIT_PLANES", "1")
+    for name, extra in (("default", []), ("topk", [
+            "--use-union-keys", "off", "--max-matches-per-mask", "3"])):
+        flags = FLAGS + ["--pctPositivePixels", "1.0", *extra]
+        assert torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
+                                "-od", str(tmp_path / name), *flags]) == 0
+        monkeypatch.delenv("CDS_SPLIT_PLANES")
+        assert torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
+                                "-od", str(tmp_path / f"{name}0"),
+                                *flags]) == 0
+        monkeypatch.setenv("CDS_SPLIT_PLANES", "1")
+        assert _tree(tmp_path / name) == _tree(tmp_path / f"{name}0")
+        assert any(k.startswith("masks/") for k in _tree(tmp_path / name))
+
+
+def test_unknown_union_form_is_a_value_error(monkeypatch):
+    monkeypatch.setenv("CDS_UNION_KEYS", "y")
+    with pytest.raises(ValueError, match="use_union_keys"):
+        CDSearchEngine(CDSParams(), device="cpu")
 
 
 def test_db_storage_raises(tmp_path):

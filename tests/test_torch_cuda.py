@@ -197,3 +197,119 @@ def test_cuda_shape_kernels_count_and_refuse(cuda_device):
     with pytest.raises(TypeError):
         tss.upload_pixel_major_chunk(buf, chunk.to(torch.uint8), 0)
     assert kbuild.launches["upload_pixel_major"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_classic_kernels_equal_plain_versions(cuda_device):
+    """K8 (both modes), K9 (the exact and the banded same-class branch,
+    folded and unfolded threshold, with and without mirror) and K10
+    against their plain versions on the card, flags included (small
+    shapes; chip_smoke.py repeats this at the production shapes)."""
+    rng = np.random.default_rng(7)
+    h, w, t, t_pad = 30, 40, 37, 64
+    stack = np.stack([testing.scattered_pixels(rng, h, w, 300)
+                      for _ in range(t)])
+    rgb = torch.from_numpy(stack).to(cuda_device)
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    for thr in (None, 20):
+        planes = tcommon.pack_target_planes(rgb, thr, t_pad=t_pad)
+        assert torch.equal(planes, tcommon.pack_target_planes_plain(
+            rgb, thr, t_pad=t_pad))
+    keys = tcommon.pack_target_planes_keys(rgb, 20, lut, t_pad=t_pad)
+    assert torch.equal(keys, tcommon.pack_target_planes_keys_plain(
+        rgb, 20, lut, t_pad=t_pad))
+    queries = [testing.scattered_pixels(rng, h, w, n) for n in (250, 90)]
+    queries.append(stack[5].copy())
+    for flu, xy, mirror in ((1.0, 2, True), (0.37, 2, True),
+                            (2.0, 4, False)):
+        plans = [tpm.build_query_plan(q, 20, mirror=mirror, xy_shift=xy,
+                                      pix_color_fluctuation=flu, pad_to=640)
+                 for q in queries]
+        args = [convert.as_tensor(np.stack([getattr(p, f) for p in plans]),
+                                  cuda_device)
+                for f in ("positions", "q_cls", "q_s", "q_p")]
+        kw = dict(ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
+                  n_straight=plans[0].n_straight)
+        for thr, pl in ((-1, tcommon.pack_target_planes(rgb, 20,
+                                                        t_pad=t_pad)),
+                        (20, tcommon.pack_target_planes(rgb, None,
+                                                        t_pad=t_pad))):
+            got = tpm.score_query_batch(pl, *args, target_threshold=thr,
+                                        **kw)
+            want = tpm.score_query_batch_plain(pl, *args,
+                                               target_threshold=thr, **kw)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (flu, xy, mirror, thr)
+            assert int(got[0].max()) > 0
+        kplans = [tpm.key_plan_from_query_plan(p, h * w, flu)
+                  for p in plans]
+        kargs = [convert.as_tensor(np.stack([getattr(p, f) for p in kplans]),
+                                   cuda_device)
+                 for f in ("positions", "lo", "span")]
+        got = tpm.score_query_batch_keys(keys, *kargs,
+                                         n_straight=kw["n_straight"])
+        want = tpm.score_query_batch_keys_plain(keys, *kargs,
+                                                n_straight=kw["n_straight"])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (flu, xy, mirror)
+
+
+@pytest.mark.cuda
+def test_cuda_classic_kernels_count_and_refuse(cuda_device):
+    """One launch per wrapper call on CUDA tensors; wrong inputs raise
+    before anything launches."""
+    kbuild.reset_launches()
+    rgb = torch.zeros((3, 10, 12, 3), dtype=torch.uint8, device=cuda_device)
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    planes = tcommon.pack_target_planes(rgb, 20, t_pad=32)
+    keys = tcommon.pack_target_planes_keys(rgb, 20, lut, t_pad=32)
+    with pytest.raises(ValueError):
+        tcommon.pack_target_planes(rgb, 20, t_pad=2)
+    pos = torch.zeros((2, 3, 16), dtype=torch.int32, device=cuda_device)
+    q = torch.ones((2, 16), dtype=torch.int32, device=cuda_device)
+    kw = dict(target_threshold=-1, ztol_num=1, ztol_den=100)
+    tpm.score_query_batch(planes, pos, q, q, q, n_straight=3, **kw)
+    with pytest.raises(ValueError):
+        tpm.score_query_batch(planes, pos, q, q, q, n_straight=4, **kw)
+    lo = torch.zeros((2, 3, 16), dtype=torch.int32, device=cuda_device)
+    tpm.score_query_batch_keys(keys, pos, lo, lo, n_straight=1)
+    with pytest.raises(TypeError):
+        tpm.score_query_batch_keys(keys, pos.long(), lo, lo, n_straight=1)
+    assert {k: kbuild.launches[k] for k in (
+        "pack_target_planes", "pack_target_planes_keys",
+        "score_query_batch", "score_query_batch_keys")} == dict.fromkeys(
+        ("pack_target_planes", "pack_target_planes_keys",
+         "score_query_batch", "score_query_batch_keys"), 1)
+
+
+@pytest.mark.cuda
+def test_cuda_banded_kernel_band_edges(cuda_device):
+    """K9 against its plain version where the f32 rounding decides: each
+    mask repeats one query pixel over every achievable target ratio of
+    every class; the first, (BR, 2/11), meets (BG, 109/205) with |g|
+    inside the 0.37% band only when g is rounded once, as XLA rounds it."""
+    rng = np.random.default_rng(9)
+    sv, pv = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    ok = (pv >= 1) & (sv < pv)
+    t_s, t_p = sv[ok].astype(np.int64), pv[ok].astype(np.int64)
+    cls = np.arange(1, 7)
+    planes = convert.as_tensor(
+        ((cls[None] << 24) | (t_p[:, None] << 16) | (t_s[:, None] << 8)
+         | t_p[:, None]).astype(np.uint32), cuda_device)
+    batch, n_q = 24, t_s.size
+    q_p = np.r_[11, rng.integers(1, 256, batch - 1)]
+    q_s = np.r_[2, np.minimum(rng.integers(0, 255, batch - 1), q_p[1:] - 1)]
+    q_cls = np.r_[1, rng.integers(1, 7, batch - 1)]
+    per_q = [convert.as_tensor(np.repeat(x[:, None], n_q, 1)
+                               .astype(np.int32), cuda_device)
+             for x in (q_cls, q_s, q_p)]
+    pos = convert.as_tensor(np.tile(np.arange(n_q, dtype=np.int32),
+                                    (batch, 1, 1)), cuda_device)
+    for num, den in ((1, 100), (37, 10000)):
+        kw = dict(target_threshold=-1, ztol_num=num, ztol_den=den,
+                  n_straight=1)
+        got = tpm.score_query_batch(planes, pos, *per_q, **kw)
+        want = tpm.score_query_batch_plain(planes, pos, *per_q, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (num, den)
+        assert int(got[2].sum()) > 0

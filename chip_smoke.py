@@ -8,18 +8,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
   0. the card (nvidia-smi name and power limit), torch / CUDA versions
      and the repo commit; exits 1 when CUDA is not available;
-  1. builds the ten CUDA kernels from kernels/csrc (one nvcc per source,
-     all at once, sm_90a);
+  1. builds the thirteen CUDA kernels from kernels/csrc (one nvcc per
+     source, all at once, sm_90a);
   2. checks each kernel against its plain PyTorch version on the card at
      the main paths' shapes (production image 566 x 1210; for the
      pixel-match kernels a 2,048-column target shard, a batch of 8 masks,
-     top-k 256; K8 on the 2,048-target stack in both modes, K9 at
-     --pixColorFluctuation 1.0 and 0.37, K10; for the shape kernels the
-     support of the first cut mask, both orientations, 2,048 targets and
-     a device store of those 2,048 targets): exact equality (K9's
-     ambiguity flags included), the median time of each kernel, of its
-     plain version and of the one PyTorch call that computes the same
-     function where there is one, and each kernel's bound;
+     top-k 256; K8 on the 2,048-target stack in its three modes, K12 in
+     its three modes on those summary planes and on K1's key planes, K9
+     and K11 at --pixColorFluctuation 1.0 and 0.37, K10, K13 on the K3
+     batch; for the shape kernels the support of the first cut mask,
+     both orientations, 2,048 targets and a device store of those 2,048
+     targets): exact equality (K9's and K11's ambiguity flags included),
+     the median time of each kernel, of its plain version and of the one
+     PyTorch call that computes the same function where there is one,
+     and each kernel's bound; and each re-encoding against what it
+     re-encodes: K12's key planes equal K8's and K1's, K12's split pair
+     K8's split mode, K11's counts and flags K9's, K13's scores K3's;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -37,18 +41,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
   5. checks sampled pairs of both phase-4 runs against the float64
      ShapeMatchOracle (gradientAreaGap and highExpressionArea exactly,
      normalizedScore within the JSON's float32 rounding);
-  6. drives colorDepthSearch through the CLI on the first 16 masks five
+  6. drives colorDepthSearch through the CLI on the first 16 masks six
      times: the default path, the packed path
      (--use-union-keys off: K8 + K9, flagged pairs rescored by the
      float64 oracle), the classic key kernel (--use-key-planes: K1 +
-     K10), the x-union form (--use-union-keys x: K1 + K3) and the dense
-     key upload (CDS_DENSE_UPLOAD=1: K8 + K2 + K3); every result tree
-     must be byte-identical to the default run's, and each run must
-     launch its kernels. Then color_depth_search(...,
+     K10), the x-union form (--use-union-keys x: K1 + K3), the dense
+     key upload (CDS_DENSE_UPLOAD=1: K8 + K2 + K3) and the split planes
+     (--use-union-keys off with CDS_SPLIT_PLANES=1: K8, K12 + K11); every
+     result tree must be byte-identical to the default run's, each run
+     must launch its kernels, and the split run must rescore as many
+     flagged pairs as the packed run. Then color_depth_search(...,
      neg_query=<a mask image>, mirror_neg_query=True, device="cuda") on
-     8 masks must launch K10 for its negative pass, and 16 sampled
-     matches must equal the float64 PixelMatchOracle's with the negative
-     query.
+     8 masks must launch K10 for its negative pass, a second one with
+     CDS_SPLIT_PLANES=1 and CDS_UNION_KEYS=0 K11 for its positive pass
+     and K9 for its negative one; both must find the same matches, and
+     16 sampled matches must equal the float64 PixelMatchOracle's with
+     the negative query.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -115,7 +123,25 @@ CLASSIC_KERNELS = {
         f"{_CSRC}/key_score.cu",
         "colormipsearch_tpu/ops/pixel_match.py:878"),
 }
-KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS}
+# K8's split mode, K12 (three modes), K11 and K13
+SPLIT_KERNELS = {
+    "pack_target_planes_split": (
+        f"{_CSRC}/pack_planes.cu", "colormipsearch_tpu/ops/common.py:101"),
+    "split_planes_from_packed": (
+        f"{_CSRC}/repack_planes.cu", "colormipsearch_tpu/ops/common.py:121"),
+    "key_planes_from_packed": (
+        f"{_CSRC}/repack_planes.cu", "colormipsearch_tpu/ops/common.py:308"),
+    "split_key_planes": (
+        f"{_CSRC}/repack_planes.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:1544"),
+    "score_query_batch_split": (
+        f"{_CSRC}/banded_score.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:559"),
+    "score_query_batch_union_keys_splitk": (
+        f"{_CSRC}/union_score.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:1612"),
+}
+KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS, **SPLIT_KERNELS}
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
 # operations over the peak rate of the CUDA cores (NVIDIA H100 SXM data
 # sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, also
@@ -135,12 +161,19 @@ CLASSIC_RUNS = (
     ("dense_upload", [], {"CDS_DENSE_UPLOAD": "1"},
      ("pack_target_planes_keys", "expand_union_tables_from_pos",
       "score_query_batch_union_keys")),
+    ("split", ["--use-union-keys", "off"], {"CDS_SPLIT_PLANES": "1"},
+     ("pack_target_planes", "split_planes_from_packed",
+      "score_query_batch_split")),
 )
-# the phase-6 run whose launches each new kernel reports
+# the phase-6 run whose launches each kernel of K8-K13 reports (K8's
+# split mode, K12's key and split-key modes and K13 are on no path of
+# either engine: their launches stay phase 3's, 0)
 CLASSIC_MAIN_RUN = {"pack_target_planes": "packed",
                     "score_query_batch": "packed",
                     "score_query_batch_keys": "key_planes",
-                    "pack_target_planes_keys": "dense_upload"}
+                    "pack_target_planes_keys": "dense_upload",
+                    "split_planes_from_packed": "split",
+                    "score_query_batch_split": "split"}
 
 
 def card_line() -> str:
@@ -241,6 +274,14 @@ def nbytes(*xs) -> int:
                else x.nbytes for x in xs)
 
 
+def require_equal(what: str, got, want) -> None:
+    """Raise unless the tensors of `got` equal those of `want` exactly."""
+    err = max_abs_err(got, want)
+    print(f"{what}: max_abs_err {err}", flush=True)
+    if err:
+        raise AssertionError(f"{what}: the outputs differ")
+
+
 def report(out: dict) -> None:
     for name, e in out.items():
         lib_ms = ("none" if e["library_ms"] is None
@@ -253,9 +294,11 @@ def report(out: dict) -> None:
             raise AssertionError(f"{name} disagrees with its plain version")
 
 
-def check_kernels(lib, device) -> dict:
+def check_kernels(lib, device) -> tuple[dict, dict]:
     """Phase 2, pixel match: every kernel against its plain version at
-    the main path's shapes. Returns {kernel: entry(...)}."""
+    the main path's shapes. Returns ({kernel: entry(...)}, K1's planes
+    and K3's batch, inputs, outputs and bound terms, which
+    check_classic_kernels re-encodes)."""
     import numpy as np
     import torch
 
@@ -320,14 +363,15 @@ def check_kernels(lib, device) -> dict:
     # window (the second window on the prefix u < u2 only)
     rows = np.unique(np.concatenate([u_pos.ravel(), mu_pos.ravel()]))
     n_or = 2 if mu_pos.shape[1] else 1
+    k3_ops = BATCH * n_or * T_PAD * (n_u * (2 + 3 * n_lanes)
+                                     + max(u2, 0) * 3 * n_lanes)
     out["score_query_batch_union_keys"] = entry(
         max_abs_err((best, mirrored),
                     pm.score_query_batch_union_keys_plain(*args3)),
         timed(lambda: pm.score_query_batch_union_keys(*args3), 5),
         timed(lambda: pm.score_query_batch_union_keys_plain(*args3), 1),
         bound(rows.size * T_PAD * 4 + nbytes(*args3[1:5], best, mirrored),
-              BATCH * n_or * T_PAD * (n_u * (2 + 3 * n_lanes)
-                                      + max(u2, 0) * 3 * n_lanes)))
+              k3_ops))
     print(f"K3 score_query_batch_union_keys: {BATCH} masks x {T_PAD} "
           f"columns, union {u_pos.shape[2]}, max score "
           f"{int(best.max())}", flush=True)
@@ -345,10 +389,10 @@ def check_kernels(lib, device) -> dict:
         # torch.topk orders ties differently: timed only, used nowhere
         timed(lambda: torch.topk(best, TOP_K), 20))
     report(out)
-    del planes
     sync()
     kbuild.reset_launches()
-    return out
+    return out, {"planes": planes, "args3": args3, "best": best,
+                 "mirrored": mirrored, "rows": rows.size, "ops": k3_ops}
 
 
 def torch_from(arr, device):
@@ -516,13 +560,17 @@ def check_shape_kernels(lib, variants, device) -> dict:
     return out
 
 
-def check_classic_kernels(lib, device) -> dict:
-    """Phase 2, the classic pixel-match paths: K8 in both modes on the
-    2,048-target stack, K9 on a batch of 8 masks at
-    --pixColorFluctuation 1.0 (its exact same-class branch) and 0.37 (the
-    banded one), K10 on the 1.0 batch's key plans, each against its plain
-    version. Returns {kernel: entry(...)}; K9's entry is the 1.0 batch's,
-    its max_abs_err the larger of the two."""
+def check_classic_kernels(lib, device, k1: dict) -> dict:
+    """Phase 2, the classic pixel-match paths and the split encodings: K8
+    in its three modes on the 2,048-target stack; K12 in its three modes,
+    on those summary planes and on K1's key planes (`k1`, from
+    check_kernels); K13 on the split K1 planes with K3's batch; K9 and
+    K11 on a batch of 8 masks at --pixColorFluctuation 1.0 (the exact
+    same-class branch) and 0.37 (the banded one); K10 on the 1.0 batch's
+    key plans; each against its plain version, and each re-encoding
+    against what it re-encodes. Returns {kernel: entry(...)}; K9's and
+    K11's entries are the 1.0 batch's, their max_abs_err the larger of
+    the two."""
     import numpy as np
 
     from colormipsearch_tpu_torch import convert
@@ -553,10 +601,67 @@ def check_classic_kernels(lib, device) -> dict:
         timed(lambda: common.pack_target_planes_keys_plain(
             rgb, 20, lut, t_pad=T_PAD), 1),
         bound(nbytes(rgb, lut, keys), k8_ops))
+    split8 = common.pack_target_planes_split(rgb, 20, t_pad=T_PAD)
+    out["pack_target_planes_split"] = entry(
+        max_abs_err(split8, common.pack_target_planes_split_plain(
+            rgb, 20, t_pad=T_PAD)),
+        timed(lambda: common.pack_target_planes_split(rgb, 20,
+                                                      t_pad=T_PAD), 5),
+        timed(lambda: common.pack_target_planes_split_plain(
+            rgb, 20, t_pad=T_PAD), 1),
+        bound(nbytes(rgb, *split8), k8_ops))
     print(f"K8 pack_planes: stack {tuple(rgb.shape)} -> summary planes "
-          f"{tuple(planes.shape)}, key planes {tuple(keys.shape)}",
-          flush=True)
+          f"{tuple(planes.shape)}, key planes {tuple(keys.shape)}, split "
+          f"planes {tuple(split8[0].shape)}", flush=True)
+    require_equal("K8 key planes vs K1's", [keys], [k1["planes"]])
     del rgb
+    sync()
+    free_cached()
+
+    # K12: ~4 integer operations an element (10 with the LUT read)
+    sp, c8 = common.split_planes_from_packed(planes)
+    out["split_planes_from_packed"] = entry(
+        max_abs_err((sp, c8), common.split_planes_from_packed_plain(planes)),
+        timed(lambda: common.split_planes_from_packed(planes), 5),
+        timed(lambda: common.split_planes_from_packed_plain(planes), 1),
+        bound(nbytes(planes, sp, c8), 4 * planes.numel()))
+    require_equal("K12 split pair vs K8's split mode", (sp, c8), split8)
+    del split8
+    keys12 = common.key_planes_from_packed(planes, lut)
+    out["key_planes_from_packed"] = entry(
+        max_abs_err([keys12], [common.key_planes_from_packed_plain(
+            planes, lut)]),
+        timed(lambda: common.key_planes_from_packed(planes, lut), 5),
+        timed(lambda: common.key_planes_from_packed_plain(planes, lut), 1),
+        bound(nbytes(planes, lut, keys12), 10 * planes.numel()))
+    require_equal("K12 key planes vs K8's", [keys12], [keys])
+    require_equal("K12 key planes vs K1's", [keys12], [k1["planes"]])
+    del keys12
+    k1_planes = k1["planes"]
+    rank, cls = pm.split_key_planes(k1_planes)
+    out["split_key_planes"] = entry(
+        max_abs_err((rank, cls), common.split_key_planes_plain(k1_planes)),
+        timed(lambda: pm.split_key_planes(k1_planes), 5),
+        timed(lambda: common.split_key_planes_plain(k1_planes), 1),
+        bound(nbytes(k1_planes, rank, cls), 4 * k1_planes.numel()))
+    args13 = (rank, cls, *k1["args3"][1:])
+    got = pm.score_query_batch_union_keys_splitk(*args13)
+    # K3's work with a 2-byte and a 1-byte gather for its 4-byte one
+    out["score_query_batch_union_keys_splitk"] = entry(
+        max_abs_err(got, pm.score_query_batch_union_keys_splitk_plain(
+            *args13)),
+        timed(lambda: pm.score_query_batch_union_keys_splitk(*args13), 5),
+        timed(lambda: pm.score_query_batch_union_keys_splitk_plain(*args13),
+              1),
+        bound(k1["rows"] * T_PAD * 3 + nbytes(*args13[2:6], *got),
+              k1["ops"]))
+    require_equal("K13 vs K3", got, (k1["best"], k1["mirrored"]))
+    print(f"K12 repack_planes: split pair {tuple(sp.shape)}, key planes "
+          f"{(planes.shape[0] + 1, planes.shape[1])}, split key "
+          f"planes {tuple(rank.shape)}; K13 max score {int(got[0].max())}",
+          flush=True)
+    del rank, cls, got, args13, k1_planes
+    k1.clear()
     sync()
     free_cached()
 
@@ -571,15 +676,22 @@ def check_classic_kernels(lib, device) -> dict:
         args = tuple(convert.as_tensor(np.stack([getattr(p, f)
                                                  for p in plans]), device)
                      for f in ("positions", "q_cls", "q_s", "q_p"))
-        kw9 = dict(target_threshold=-1, ztol_num=plans[0].ztol_num,
-                   ztol_den=plans[0].ztol_den,
-                   n_straight=plans[0].n_straight)
+        kw11 = dict(ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
+                    n_straight=plans[0].n_straight)
+        kw9 = dict(target_threshold=-1, **kw11)
         got = pm.score_query_batch(planes, *args, **kw9)
         err = max_abs_err(got, pm.score_query_batch_plain(planes, *args,
                                                           **kw9))
         ms = timed(lambda: pm.score_query_batch(planes, *args, **kw9), 5)
         plain_ms = timed(lambda: pm.score_query_batch_plain(
             planes, *args, **kw9), 1)
+        got11 = pm.score_query_batch_split(sp, c8, *args, **kw11)
+        err11 = max_abs_err(got11, pm.score_query_batch_split_plain(
+            sp, c8, *args, **kw11))
+        ms11 = timed(lambda: pm.score_query_batch_split(sp, c8, *args,
+                                                        **kw11), 5)
+        plain11_ms = timed(lambda: pm.score_query_batch_split_plain(
+            sp, c8, *args, **kw11), 1)
         pos = np.stack([p.positions for p in plans])
         valid = pos[pos >= 0]
         flagged = (got[2] > 0).sum(1).tolist()
@@ -590,19 +702,30 @@ def check_classic_kernels(lib, device) -> dict:
               f"plain {plain_ms:.3f} ms; query sizes "
               f"{[p.query_size for p in plans]}; flagged pairs per mask "
               f"{flagged}; max score {int(got[0].max())}", flush=True)
+        print(f"K11 score_query_batch_split at {flu}%: max_abs_err {err11} "
+              f"(flags included), kernel {ms11:.3f} ms, plain "
+              f"{plain11_ms:.3f} ms", flush=True)
+        require_equal(f"K11 vs K9 at {flu}% (best, mirrored, flags)", got11,
+                      got)
+        # the rows the batch gathers, once each; ~30 operations per
+        # valid (mask, variant, query pixel, column) element
+        n_rows = np.unique(valid).size
         if flu == 1.0:
-            # the rows the batch gathers, once each; ~30 operations per
-            # valid (mask, variant, query pixel, column) element
             out["score_query_batch"] = entry(
                 err, ms, plain_ms,
-                bound(np.unique(valid).size * T_PAD * 4
-                      + nbytes(*args, *got), 30 * valid.size * T_PAD))
+                bound(n_rows * T_PAD * 4 + nbytes(*args, *got),
+                      30 * valid.size * T_PAD))
+            out["score_query_batch_split"] = entry(
+                err11, ms11, plain11_ms,
+                bound(n_rows * T_PAD * 3 + nbytes(*args, *got11),
+                      30 * valid.size * T_PAD))
             kplans = [pm.key_plan_from_query_plan(p, n_px, flu)
                       for p in plans]
         else:
-            out["score_query_batch"]["max_abs_err"] = max(
-                err, out["score_query_batch"]["max_abs_err"])
-    del planes
+            for name, e in (("score_query_batch", err),
+                            ("score_query_batch_split", err11)):
+                out[name]["max_abs_err"] = max(e, out[name]["max_abs_err"])
+    del planes, sp, c8
     kargs = tuple(convert.as_tensor(np.stack([getattr(p, f)
                                               for p in kplans]), device)
                   for f in ("positions", "lo", "span"))
@@ -927,7 +1050,8 @@ def run_classic_paths(work: str, n_masks: int) -> dict:
     """Phase 6: colorDepthSearch through the CLI entry point on the first
     n_masks masks, once per CLASSIC_RUNS entry, each with fresh launch
     counts; every result tree must equal the default run's byte for
-    byte. Returns {run name: launches}."""
+    byte, and the split run must rescore the packed run's number of
+    flagged pairs. Returns {run name: launches}."""
     from colormipsearch_tpu_torch.cli import main as cli_main
     from colormipsearch_tpu_torch.cli.commands import stage_seconds
     from colormipsearch_tpu_torch.kernels import build as kbuild
@@ -935,6 +1059,7 @@ def run_classic_paths(work: str, n_masks: int) -> dict:
 
     runs = {}
     trees = {}
+    rescored = {}
     for name, flags, env, kernels in CLASSIC_RUNS:
         out = os.path.join(work, f"classic_{name}")
         os.environ.update(env)
@@ -960,10 +1085,11 @@ def run_classic_paths(work: str, n_masks: int) -> dict:
         if missing:
             raise AssertionError(f"the {name} run never launched {missing}")
         trees[name] = _tree(out)
+        rescored[name] = GLOBAL.get("cds.rescore.count")
         emit = GLOBAL.get("cds.emit.seconds")
         rescore = GLOBAL.get("cds.rescore.seconds")
-        print(f"phase 6 {name} {' '.join(flags)}"
-              f"{' '.join(f'{k}={v}' for k, v in env.items())}: "
+        print(f"phase 6 {name} "
+              f"{' '.join([*flags, *(f'{k}={v}' for k, v in env.items())])}: "
               f"{GLOBAL.get('pairsScored'):.0f} pairs of {n_masks} masks "
               f"in {seconds:.2f}s; stage seconds "
               f"{json.dumps(stage_seconds())}; emit {emit:.2f}s, of which "
@@ -984,17 +1110,23 @@ def run_classic_paths(work: str, n_masks: int) -> dict:
                                  f"default run's: {diff[:5]}")
     print(f"phase 6: the {len(trees) - 1} other result trees equal the "
           f"default run's byte for byte ({len(ref)} files)", flush=True)
+    if rescored["split"] != rescored["packed"]:
+        raise AssertionError(f"the split run rescored {rescored['split']} "
+                             f"flagged pairs, the packed run "
+                             f"{rescored['packed']}")
+    print(f"phase 6: the split and packed runs rescored "
+          f"{rescored['split']:.0f} flagged pairs each", flush=True)
     return runs
 
 
-def check_negative_query(lib, work: str, n_masks: int, rng) -> dict:
+def check_negative_query(lib, work: str, n_masks: int, rng) -> None:
     """Phase 6, negative query: color_depth_search on the first n_masks
     masks against every target with mask 1's image as the negative query
-    (mirrored), on the default engine (positive pass K2 + K3, negative
-    pass K10); 16 sampled matches against the float64 oracle. Returns the
-    run's launches."""
-    import numpy as np
-
+    (mirrored), once on the default engine (positive pass K2 + K3,
+    negative pass K10) and once with CDS_SPLIT_PLANES=1 and
+    CDS_UNION_KEYS=0 (the packed path: positive pass K12 + K11, negative
+    pass K9, flagged pairs rescored); both must find the same matches,
+    and 16 sampled matches of each must equal the float64 oracle's."""
     from colormipsearch_tpu_torch import CDSParams, color_depth_search
     from colormipsearch_tpu_torch.dataio.json_io import read_neurons_json
     from colormipsearch_tpu_torch.kernels import build as kbuild
@@ -1012,23 +1144,57 @@ def check_negative_query(lib, work: str, n_masks: int, rng) -> dict:
                        with_name_label_region=True,
                        with_color_scale_region=True)
     neg_png = os.path.join(work, "masks", "m00001.png")
-    GLOBAL.reset()
-    reset_peak()
-    kbuild.reset_launches()
-    t0 = time.time()
-    matches = color_depth_search(masks, targets, params, neg_query=neg_png,
-                                 mirror_neg_query=True, device=DEVICE)
-    seconds = time.time() - t0
-    launches = dict(kbuild.launches)
-    if len(matches) < 16:
-        raise AssertionError(f"only {len(matches)} negative-query matches")
+    runs = (("default", {}, ("expand_union_tables_from_pos",
+                             "score_query_batch_union_keys",
+                             "score_query_batch_keys")),
+            ("split", {"CDS_SPLIT_PLANES": "1", "CDS_UNION_KEYS": "0"},
+             ("pack_target_planes", "split_planes_from_packed",
+              "score_query_batch_split", "score_query_batch")))
+    found = {}
+    for name, env, kernels in runs:
+        os.environ.update(env)
+        try:
+            GLOBAL.reset()
+            reset_peak()
+            kbuild.reset_launches()
+            t0 = time.time()
+            matches = color_depth_search(masks, targets, params,
+                                         neg_query=neg_png,
+                                         mirror_neg_query=True,
+                                         device=DEVICE)
+            seconds = time.time() - t0
+            launches = dict(kbuild.launches)
+        finally:
+            for k in env:
+                del os.environ[k]
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the {name} negative-query run never "
+                                 f"launched {missing}")
+        found[name] = {(m.mask_image.mip_id, m.matched_image.mip_id):
+                       (m.matching_pixels, m.mirrored,
+                        m.matching_pixels_ratio) for m in matches}
+        print(f"phase 6 negative query ({name}): {n_masks} masks x "
+              f"{len(targets)} targets in {seconds:.2f}s, {len(matches)} "
+              f"matches, {GLOBAL.get('cds.rescore.count'):.0f} flagged "
+              f"pairs rescored; peak torch.cuda.max_memory_allocated "
+              f"{peak_gib():.2f} GiB; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if found["split"] != found["default"]:
+        diff = sorted(set(found["split"].items())
+                      ^ set(found["default"].items()))
+        raise AssertionError(f"negative query: the split run's matches "
+                             f"differ from the default run's: {diff[:5]}")
+    if len(found["default"]) < 16:
+        raise AssertionError(f"only {len(found['default'])} negative-query "
+                             "matches")
     region = label_regions_mask(W, H)
     oracles = {}
-    sample = rng.choice(len(matches), 16, replace=False)
-    for i in sample:
-        m = matches[int(i)]
-        mi = int(m.mask_image.mip_id.split("-")[1])
-        ti = int(m.matched_image.mip_id.split("-")[1])
+    pairs = sorted(found["default"])
+    for i in rng.choice(len(pairs), 16, replace=False):
+        mask_id, target_id = pairs[int(i)]
+        mi = int(mask_id.split("-")[1])
+        ti = int(target_id.split("-")[1])
         if mi not in oracles:
             oracles[mi] = PixelMatchOracle(
                 lib.masks[mi], 20, mirror=True, target_threshold=20,
@@ -1036,22 +1202,15 @@ def check_negative_query(lib, work: str, n_masks: int, rng) -> dict:
                 neg_query_rgb=lib.masks[1], neg_query_threshold=20,
                 mirror_neg_query=True)
         res = oracles[mi].score(lib.targets[ti])
-        if (res.matching_pixels, res.mirrored) != (m.matching_pixels,
-                                                   m.mirrored):
-            raise AssertionError(
-                f"negative query, mask {mi} target {ti}: "
-                f"{m.matching_pixels}/{m.mirrored}, oracle "
-                f"{res.matching_pixels}/{res.mirrored}")
-    for k in ("expand_union_tables_from_pos", "score_query_batch_union_keys",
-              "score_query_batch_keys"):
-        if launches[k] == 0:
-            raise AssertionError(f"the negative-query run never launched {k}")
-    print(f"phase 6 negative query: {n_masks} masks x {len(targets)} "
-          f"targets in {seconds:.2f}s, {len(matches)} matches, 16 sampled "
-          f"equal the float64 oracle's; peak "
-          f"torch.cuda.max_memory_allocated {peak_gib():.2f} GiB; launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    return launches
+        for name, got in found.items():
+            if (res.matching_pixels, res.mirrored) != \
+                    got[(mask_id, target_id)][:2]:
+                raise AssertionError(
+                    f"negative query ({name}), mask {mi} target {ti}: "
+                    f"{got[(mask_id, target_id)][:2]}, oracle "
+                    f"{res.matching_pixels}/{res.mirrored}")
+    print("phase 6 negative query: both runs found the same matches; 16 "
+          "sampled equal the float64 oracle's", flush=True)
 
 
 def main() -> int:
@@ -1113,9 +1272,9 @@ def main() -> int:
           f"{phases['library']:.1f}s", flush=True)
     # phase 2
     t0 = time.time()
-    checks = check_kernels(lib, device)
+    checks, k1 = check_kernels(lib, device)
     checks.update(check_shape_kernels(lib, variants, device))
-    checks.update(check_classic_kernels(lib, device))
+    checks.update(check_classic_kernels(lib, device, k1))
     phases["2 kernel checks"] = time.time() - t0
     work = os.path.join(REPO, "build", "chip_smoke_data")
     shutil.rmtree(work, ignore_errors=True)

@@ -6,7 +6,10 @@ turn the JAX package's arrays (device arrays or numpy outputs; anything
 ``np.asarray`` accepts, so jax is never imported here) into the port's
 tensors on a given device, bit-exact: uint32 tables become int32 tensors
 holding the same bits (torch's uint32 lacks most operations), uint16
-index arrays widen to int32, everything else keeps its dtype.
+index arrays widen to int32, everything else keeps its dtype. The uint16
+planes of the split encodings are the exception: the kernels read them
+as 16-bit words, so :func:`split_planes` and :func:`split_key_planes`
+keep them as int16 tensors with the same bits.
 """
 
 from __future__ import annotations
@@ -56,3 +59,29 @@ def interval_tables(tabs, device: torch.device) -> tuple:
     """interval_table_arrays' (lo, span) uint32 [2, n_keys] -> int32
     tensors with the same bits."""
     return tuple(as_tensor(t, device) for t in tabs)
+
+
+def _split_pair(hi16, lo8, names: tuple, device: torch.device) -> tuple:
+    a = np.ascontiguousarray(np.asarray(hi16))
+    b = np.ascontiguousarray(np.asarray(lo8))
+    if a.dtype != np.uint16 or b.dtype != np.uint8 or a.ndim != 2 \
+            or a.shape != b.shape:
+        raise ValueError(f"expected {names[0]} uint16 and {names[1]} uint8 "
+                         f"planes of one [rows, T] shape, got {a.dtype} "
+                         f"{a.shape} and {b.dtype} {b.shape}")
+    return (torch.from_numpy(a.view(np.int16)).to(device),
+            torch.from_numpy(b).to(device))
+
+
+def split_planes(sp, c8, device: torch.device) -> tuple:
+    """The JAX package's split planes (uint16 [P, T] (p << 8) | s, uint8
+    [P, T] cls; pack_target_planes_split, split_planes_from_packed) ->
+    (int16 tensor with the same bits, uint8 tensor)."""
+    return _split_pair(sp, c8, ("sp", "c8"), device)
+
+
+def split_key_planes(rank, cls, device: torch.device) -> tuple:
+    """The JAX package's split key planes (uint16 [P+1, T] rank, uint8
+    [P+1, T] cls; split_key_planes) -> (int16 tensor with the same bits,
+    uint8 tensor)."""
+    return _split_pair(rank, cls, ("rank", "cls"), device)

@@ -13,7 +13,9 @@ reference's per-pair threaded loop
     chosen as the JAX engine chooses it: the full-union lane kernel (K3,
     lane tables expanded on the device by K2; the default), the x-union
     lane kernel (K3 with one row set per dy), the classic key kernel
-    (K10) or the packed banded kernel (K9),
+    (K10) or the packed banded kernel (K9); with CDS_SPLIT_PLANES=1 the
+    packed path without a top-k re-encodes each shard's summary planes
+    into the 3-byte split pair (K12) at first use and scores on it (K11),
   * on the packed path the device also counts, per pair, the elements
     whose verdict lies in the f32 ambiguity band; flagged pairs are
     rescored by the float64 PixelMatchOracle,
@@ -136,11 +138,14 @@ class TargetShard:
     """Packed targets of one image shape, device-resident.
 
     ``kind`` "keys": int32 [P+1, t_pad] rank-key planes; "packed": int32
-    [P, t_pad] summary planes (uint32 bits). Raw pixels are not kept
-    once packed (a flagged pair re-decodes its one target, host_rgb),
-    except that shards after the first hold their decoded uint8 stack on
-    the HOST (``host_stack``) until the consumer packs them, so only one
-    packed plane set is ever resident on the device (ensure_planes)."""
+    [P, t_pad] summary planes (uint32 bits), beside them the split pair
+    (int16 [P, t_pad] (p << 8) | s bits, uint8 [P, t_pad] cls) once the
+    split-plane kernel asks for it (``split_planes``). Raw pixels are not
+    kept once packed (a flagged pair re-decodes its one target,
+    host_rgb), except that shards after the first hold their decoded
+    uint8 stack on the HOST (``host_stack``) until the consumer packs
+    them, so only one packed plane set is ever resident on the device
+    (ensure_planes)."""
     neurons: list[Neuron]
     shape: tuple[int, int]                 # (H, W)
     planes: torch.Tensor | None
@@ -153,6 +158,8 @@ class TargetShard:
     # padded target-axis width (kernel shape)
     t_pad: int = 0
     host_stack: np.ndarray | None = None
+    # lazy split-plane pair (CDS_SPLIT_PLANES=1), made from `planes`
+    split_planes: tuple | None = None
 
     def __post_init__(self):
         if not self.t_pad and self.planes is not None:
@@ -176,10 +183,19 @@ class TargetShard:
         _METRICS.add("cds.packUpload.seconds", time.time() - t0)
         self.host_stack = None
 
+    def split_pair(self) -> tuple:
+        """The split-plane pair of the summary planes, made by K12 at
+        first use (JAX engine/cds.py _split_planes); the summary planes
+        stay for a negative query's pass."""
+        if self.split_planes is None:
+            self.split_planes = common.split_planes_from_packed(self.planes)
+        return self.split_planes
+
     def release(self) -> None:
-        """Drop this shard's device planes so the next shard's pack has
-        the memory."""
+        """Drop this shard's device planes (and their split pair) so the
+        next shard's pack has the memory."""
         self.planes = None
+        self.split_planes = None
         self.host_stack = None
 
     def host_rgb(self, t_idx: int) -> np.ndarray:
@@ -392,7 +408,7 @@ class CDSearchEngine:
             params.xy_shift, use_key_planes, use_union_keys)
         # CDS_SPLIT_PLANES=1 selects the split-plane kernel where the JAX
         # engine would run it: the packed path with no top-k
-        self._split_planes = os.environ.get("CDS_SPLIT_PLANES", "0") == "1"
+        self._use_split = os.environ.get("CDS_SPLIT_PLANES", "0") == "1"
         self._key_plans: dict = {}
         self.decode_concurrency = max(1, decode_concurrency)
         # optional negative query applied to every mask
@@ -593,11 +609,6 @@ class CDSearchEngine:
         list wrapper applies the final global per-mask trim."""
         from colormipsearch_tpu_torch.utils.metrics import stage_timer
 
-        if (self._split_planes and not self.use_key_planes
-                and (max_matches_per_mask <= 0
-                     or self.neg_query_rgb is not None)):
-            raise not_ported("CDS_SPLIT_PLANES=1 on the packed path (the "
-                             "split-plane kernel)", "remaining pixel forms")
         t0 = time.time()
         p = self.params
         tags = set(tags)
@@ -869,6 +880,10 @@ class CDSearchEngine:
         plans = [e[3] for e in batch]
         n_pixels = shard.shape[0] * shard.shape[1]
         use_keys = shard.kind == "keys"
+        # CDS_SPLIT_PLANES=1: the split-plane kernel on the packed path
+        # (the planes' threshold is always folded); a top-k stays on the
+        # summary planes, as in the JAX engine
+        use_split = not use_keys and self._use_split and top_k == 0
         pair_flags = None  # structurally zero on the key paths
         t_args0 = time.time()
         if not use_keys:
@@ -879,7 +894,11 @@ class CDSearchEngine:
             kargs = self._stacked_key_args(plans, n_pixels)
         _METRICS.add("cds.planArgs.seconds", time.time() - t_args0)
         t_disp0 = time.time()
-        if not use_keys:
+        if use_split:
+            best, mirrored, pair_flags = pixel_match.score_query_batch_split(
+                *shard.split_pair(), *args, ztol_num=plans[0].ztol_num,
+                ztol_den=plans[0].ztol_den, n_straight=plans[0].n_straight)
+        elif not use_keys:
             best, mirrored, pair_flags = pixel_match.score_query_batch(
                 shard.planes, *args, target_threshold=thr,
                 ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,

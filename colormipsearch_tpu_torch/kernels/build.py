@@ -41,10 +41,14 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 _SIGNATURES = {
-    "cmst_pack_planes": [_P, _I64, _I64, _I64, _I32, _I32, _P, _P, _P],
+    "cmst_pack_planes": [_P, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
+    "cmst_repack_planes": [_I32, _P, _I64, _I64, _P, _P, _P, _P],
     "cmst_banded_score": [_P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P, _P,
                           _P, _P, _P, _P, _P, _I32, _F32, _F32, _I32, _P,
                           _P, _P, _P, _P],
+    "cmst_banded_score_split": [_P, _P, _I64, _P, _I32, _I32, _I32, _I32, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _I32, _F32, _F32,
+                                _P, _P, _P, _P, _P],
     "cmst_key_score": [_P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
                        _P, _P],
     "cmst_scatter_keys": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
@@ -52,6 +56,9 @@ _SIGNATURES = {
                            _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
     "cmst_union_score": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _I32,
                          _I32, _I32, _I32, _I32, _P, _P, _P],
+    "cmst_union_score_splitk": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P,
+                                _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                                _P],
     "cmst_topk": [_P, _P, _I32, _I64, _I32, _P, _P, _P, _P],
     "cmst_shape_split": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _P, _P],
     "cmst_shape_tile": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
@@ -210,7 +217,10 @@ KERNELS = ("scatter_key_planes", "expand_union_tables_from_pos",
            "shape_score_pairs_split", "shape_tile_device",
            "upload_pixel_major", "pack_target_planes",
            "pack_target_planes_keys", "score_query_batch",
-           "score_query_batch_keys")
+           "score_query_batch_keys", "pack_target_planes_split",
+           "split_planes_from_packed", "key_planes_from_packed",
+           "split_key_planes", "score_query_batch_split",
+           "score_query_batch_union_keys_splitk")
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 

@@ -1,8 +1,14 @@
-// K9: the banded f32 pixel-match predicate on packed summary planes.
+// K9 and K11: the banded f32 pixel-match predicate on packed summary
+// planes (K9) or on split planes (K11).
 //
-// Replaces colormipsearch_tpu/ops/pixel_match.py
+// K9 replaces colormipsearch_tpu/ops/pixel_match.py
 // `score_query_against_planes_raw` + `score_query_batch` +
-// `reduce_variants_device` (with `predicate_from_rules`). For mask b,
+// `reduce_variants_device` (with `predicate_from_rules`); K11 replaces
+// `score_query_against_split_planes_raw` + `score_query_batch_split`
+// (row 10 of the kernel table), the same predicate on the split pair
+// uint16 (p << 8) | s and uint8 cls (threshold always folded: no maxch
+// test). The two differ only in the plane loader, a template argument;
+// everything after the load is one code. For mask b,
 // variant v and target column t it counts the query pixels q whose
 // target pixel planes[pos[b, v, q], t] matches (the match count) and
 // those whose verdict lies in the ambiguity band (the flag count, the
@@ -23,7 +29,8 @@
 // version's (and the JAX function's) bit for bit. Never build with
 // -use_fast_math.
 //
-// Bound on the H100: one 4-byte gather and ~25 integer and f32
+// Bound on the H100: one 4-byte gather (K11: a 2-byte and a 1-byte
+// gather) and ~25 integer and f32
 // operations per (mask, variant, query pixel, column) element, 6e9
 // elements for 8 masks x 18 variants x 20,480 padded query pixels x
 // 2,048 columns. K3's lesson (one thread walking a whole query serially
@@ -42,16 +49,50 @@ namespace {
 constexpr int QC = 256;       // query pixels staged per block
 constexpr int THREADS = 256;  // columns per block
 
-template <bool EXACT_SAME, bool FOLDED>
+// Loaders read the planes through the read-only cache (__ldg).
+
+// K9's loader: one int32 summary word (cls << 24) | (p << 16) | (s << 8)
+// | maxch; valid unless the threshold is tested here (not FOLDED)
+struct SummaryPlanes {
+    const int32_t* planes;
+    int thr;
+    template <bool FOLDED>
+    __device__ __forceinline__ bool load(int64_t i, int& t_cls, int& t_s,
+                                         int& t_p) const {
+        const int v = __ldg(planes + i);
+        t_cls = (v >> 24) & 0x7;
+        t_s = (v >> 8) & 0xFF;
+        t_p = (v >> 16) & 0xFF;
+        return FOLDED || (v & 0xFF) > thr;
+    }
+};
+
+// K11's loader: the split pair, the threshold folded into it; the class
+// byte is taken as it is, as the JAX function takes it
+struct SplitPlanes {
+    const uint16_t* sp;
+    const uint8_t* c8;
+    template <bool FOLDED>
+    __device__ __forceinline__ bool load(int64_t i, int& t_cls, int& t_s,
+                                         int& t_p) const {
+        const int w = __ldg(sp + i);
+        t_cls = __ldg(c8 + i);
+        t_s = w & 0xFF;
+        t_p = w >> 8;
+        return true;
+    }
+};
+
+template <bool EXACT_SAME, bool FOLDED, class Planes>
 __global__ void banded_score_kernel(
-        const int32_t* __restrict__ planes, int64_t n_cols,
+        const Planes planes, int64_t n_cols,
         const int32_t* __restrict__ pos, int n_var, int n_q,
         const int32_t* __restrict__ same_cls,
         const float* __restrict__ bq_s, const float* __restrict__ bq_p,
         const float* __restrict__ a_qp, const float* __restrict__ q_r,
         const int32_t* __restrict__ tc, const float* __restrict__ bound,
         const uint8_t* __restrict__ upper, int64_t rule_stride,
-        float ztol, float band, int thr,
+        float ztol, float band,
         int32_t* __restrict__ match_out, int32_t* __restrict__ flag_out) {
     __shared__ int32_t s_pos[QC];
     __shared__ int32_t s_same[QC];
@@ -96,11 +137,9 @@ __global__ void banded_score_kernel(
     for (int k = 0; k < n; ++k) {
         const int p = s_pos[k];
         if (p < 0) continue;
-        const int v = planes[static_cast<int64_t>(p) * n_cols + t];
-        const int t_cls = (v >> 24) & 0x7;
-        const int t_s = (v >> 8) & 0xFF;
-        const int t_p = (v >> 16) & 0xFF;
-        const bool valid = FOLDED || (v & 0xFF) > thr;
+        int t_cls, t_s, t_p;
+        const bool valid = planes.template load<FOLDED>(
+            static_cast<int64_t>(p) * n_cols + t, t_cls, t_s, t_p);
         const float ts_f = static_cast<float>(t_s);
         const float tp_f = static_cast<float>(t_p);
 
@@ -140,39 +179,26 @@ __global__ void banded_score_kernel(
     if (n_flag) atomicAdd(flag_out + out, n_flag);
 }
 
-template <bool EXACT_SAME>
-void launch(bool folded, const dim3& grid, cudaStream_t st,
-            const int32_t* planes, int64_t n_cols, const int32_t* pos,
-            int n_var, int n_q, const int32_t* same_cls, const float* bq_s,
-            const float* bq_p, const float* a_qp, const float* q_r,
-            const int32_t* tc, const float* bound, const uint8_t* upper,
-            int64_t rule_stride, float ztol, float band, int thr,
-            int32_t* match, int32_t* flag) {
-    if (folded)
-        banded_score_kernel<EXACT_SAME, true><<<grid, THREADS, 0, st>>>(
-            planes, n_cols, pos, n_var, n_q, same_cls, bq_s, bq_p, a_qp,
-            q_r, tc, bound, upper, rule_stride, ztol, band, thr, match,
-            flag);
-    else
-        banded_score_kernel<EXACT_SAME, false><<<grid, THREADS, 0, st>>>(
-            planes, n_cols, pos, n_var, n_q, same_cls, bq_s, bq_p, a_qp,
-            q_r, tc, bound, upper, rule_stride, ztol, band, thr, match,
-            flag);
+template <bool EXACT_SAME, bool FOLDED, class Planes>
+void launch(const dim3& grid, cudaStream_t st, const Planes& planes,
+            int64_t n_cols, const int32_t* pos, int n_var, int n_q,
+            const int32_t* same_cls, const float* bq_s, const float* bq_p,
+            const float* a_qp, const float* q_r, const int32_t* tc,
+            const float* bound, const uint8_t* upper, int64_t rule_stride,
+            float ztol, float band, int32_t* match, int32_t* flag) {
+    banded_score_kernel<EXACT_SAME, FOLDED, Planes>
+        <<<grid, THREADS, 0, st>>>(
+        planes, n_cols, pos, n_var, n_q, same_cls, bq_s, bq_p, a_qp, q_r,
+        tc, bound, upper, rule_stride, ztol, band, match, flag);
 }
 
-}  // namespace
-
-// planes int32 [P, n_cols] (summary words); pos int32 [batch, n_var,
-// n_q]; same_cls int32, bq_s / bq_p / a_qp / q_r f32 [batch, n_q]; tc
-// int32, bound f32, upper uint8 [2, batch, n_q]; scratch int32
-// [2, batch, n_var, n_cols], zeroed by the caller -> best int32, mirrored
-// uint8, pair_flags int32 [batch, n_cols]. thr < 0: threshold folded.
-extern "C" int cmst_banded_score(
-        const void* planes, int64_t n_cols, const void* pos, int batch,
+// the counts into the zeroed scratch, then the variant reduction
+template <bool FOLDED, class Planes>
+int run(const Planes& planes, int64_t n_cols, const void* pos, int batch,
         int n_var, int n_q, int n_straight, const void* same_cls,
         const void* bq_s, const void* bq_p, const void* a_qp,
         const void* q_r, const void* tc, const void* bound,
-        const void* upper, int exact_same, float ztol, float band, int thr,
+        const void* upper, int exact_same, float ztol, float band,
         void* scratch, void* best, void* mirrored, void* pair_flags,
         void* stream) {
     if (n_straight < 1 || n_straight > n_var
@@ -188,8 +214,8 @@ extern "C" int cmst_banded_score(
                         (n_q + QC - 1) / QC, batch * n_var);
         const int64_t rule_stride = static_cast<int64_t>(batch) * n_q;
         auto args = [&](auto launcher) {
-            launcher(thr < 0, grid, st, static_cast<const int32_t*>(planes),
-                     n_cols, static_cast<const int32_t*>(pos), n_var, n_q,
+            launcher(grid, st, planes, n_cols,
+                     static_cast<const int32_t*>(pos), n_var, n_q,
                      static_cast<const int32_t*>(same_cls),
                      static_cast<const float*>(bq_s),
                      static_cast<const float*>(bq_p),
@@ -198,9 +224,10 @@ extern "C" int cmst_banded_score(
                      static_cast<const int32_t*>(tc),
                      static_cast<const float*>(bound),
                      static_cast<const uint8_t*>(upper), rule_stride, ztol,
-                     band, thr, match, flag);
+                     band, match, flag);
         };
-        if (exact_same) args(launch<true>); else args(launch<false>);
+        if (exact_same) args(launch<true, FOLDED, Planes>);
+        else args(launch<false, FOLDED, Planes>);
         cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return err;
     }
@@ -212,4 +239,47 @@ extern "C" int cmst_banded_score(
                              static_cast<uint8_t*>(mirrored),
                              static_cast<int32_t*>(pair_flags));
     return cudaGetLastError();
+}
+
+}  // namespace
+
+// K9: planes int32 [P, n_cols] (summary words); pos int32 [batch, n_var,
+// n_q]; same_cls int32, bq_s / bq_p / a_qp / q_r f32 [batch, n_q]; tc
+// int32, bound f32, upper uint8 [2, batch, n_q]; scratch int32
+// [2, batch, n_var, n_cols], zeroed by the caller -> best int32, mirrored
+// uint8, pair_flags int32 [batch, n_cols]. thr < 0: threshold folded.
+extern "C" int cmst_banded_score(
+        const void* planes, int64_t n_cols, const void* pos, int batch,
+        int n_var, int n_q, int n_straight, const void* same_cls,
+        const void* bq_s, const void* bq_p, const void* a_qp,
+        const void* q_r, const void* tc, const void* bound,
+        const void* upper, int exact_same, float ztol, float band, int thr,
+        void* scratch, void* best, void* mirrored, void* pair_flags,
+        void* stream) {
+    const SummaryPlanes p{static_cast<const int32_t*>(planes), thr};
+    auto go = [&](auto run_) {
+        return run_(p, n_cols, pos, batch, n_var, n_q, n_straight, same_cls,
+                    bq_s, bq_p, a_qp, q_r, tc, bound, upper, exact_same,
+                    ztol, band, scratch, best, mirrored, pair_flags, stream);
+    };
+    return thr < 0 ? go(run<true, SummaryPlanes>)
+                   : go(run<false, SummaryPlanes>);
+}
+
+// K11: the split pair sp uint16 and c8 uint8 [P, n_cols] (threshold
+// folded); every other argument as cmst_banded_score's.
+extern "C" int cmst_banded_score_split(
+        const void* sp, const void* c8, int64_t n_cols, const void* pos,
+        int batch, int n_var, int n_q, int n_straight, const void* same_cls,
+        const void* bq_s, const void* bq_p, const void* a_qp,
+        const void* q_r, const void* tc, const void* bound,
+        const void* upper, int exact_same, float ztol, float band,
+        void* scratch, void* best, void* mirrored, void* pair_flags,
+        void* stream) {
+    const SplitPlanes p{static_cast<const uint16_t*>(sp),
+                        static_cast<const uint8_t*>(c8)};
+    return run<true>(p, n_cols, pos, batch, n_var, n_q, n_straight,
+                     same_cls, bq_s, bq_p, a_qp, q_r, tc, bound, upper,
+                     exact_same, ztol, band, scratch, best, mirrored,
+                     pair_flags, stream);
 }

@@ -1,9 +1,15 @@
-// K3: full-union rank-key scoring with the variant reduction fused in.
+// K3 and K13: full-union rank-key scoring with the variant reduction
+// fused in, on int32 key planes (K3) or on split key planes (K13).
 //
-// Replaces colormipsearch_tpu/ops/pixel_match.py
+// K3 replaces colormipsearch_tpu/ops/pixel_match.py
 // `score_query_union_keys_raw` + `score_query_batch_union_keys` +
-// `reduce_variants_device`. For mask b and target column t, every union
-// element u gathers key = planes[pos[u], t]; lane j counts the u whose
+// `reduce_variants_device`; K13 replaces
+// `score_query_union_keys_splitk_raw` + `score_query_batch_union_keys_
+// splitk` (row 12 of the kernel table), which gathers the key as
+// (cls << 15) | rank from a uint16 rank plane and a uint8 class plane
+// (ops/pixel_match.split_key_planes). The two differ only in the key
+// loader, a template argument. For mask b and target column t, every
+// union element u gathers key = planes[pos[u], t]; lane j counts the u whose
 // key lies in one of its interval windows, (key - lo) mod 2^32 <= span.
 // Segmented tables (two slots, 0 <= u2 < U) ADD the slot-2 hits on the
 // prefix u < u2; otherwise the slots are ORed at full width. The
@@ -11,9 +17,10 @@
 // result is best = max(straight max, mirror max) and
 // mirrored = mirror max > straight max.
 //
-// Bound on the H100: the key gathers. Each element reads one int32 per
-// target column from row pos[u] — T*4 contiguous bytes, coalesced across
-// the block's threads — so a mask costs 4*U*T bytes per orientation,
+// Bound on the H100: the key gathers. Each element reads one int32 (K13:
+// a uint16 and a uint8) per target column from row pos[u] — T*4 (T*3)
+// contiguous bytes, coalesced across the block's threads — so a mask
+// costs 4*U*T (3*U*T) bytes per orientation,
 // mostly from HBM (the planes are GBs; the rows a mask touches are
 // scattered). The range tests are ~2-3 integer ops per (lane, slot) on
 // data already in registers. Design: one thread per target column, one
@@ -31,9 +38,28 @@ constexpr int TILE_U = 128;     // union elements staged per tile
 constexpr int MAX_SLOTS = 3;
 constexpr int THREADS = 256;
 
-template <bool SEG>
-__global__ void union_score_kernel(const int32_t* __restrict__ planes,
-                                   int64_t n_cols,
+// Loaders read the planes through the read-only cache (__ldg).
+
+// K3's loader: the int32 key itself
+struct KeyPlanes {
+    const int32_t* planes;
+    __device__ __forceinline__ uint32_t load(int64_t i) const {
+        return static_cast<uint32_t>(__ldg(planes + i));
+    }
+};
+
+// K13's loader: (cls << 15) | rank, as the JAX function rebuilds it
+struct SplitKeyPlanes {
+    const uint16_t* rank;
+    const uint8_t* cls;
+    __device__ __forceinline__ uint32_t load(int64_t i) const {
+        return (static_cast<uint32_t>(__ldg(cls + i)) << cmst::KEY_RANK_BITS)
+            | __ldg(rank + i);
+    }
+};
+
+template <bool SEG, class Planes>
+__global__ void union_score_kernel(const Planes planes, int64_t n_cols,
                                    const int32_t* __restrict__ u_pos,
                                    const int32_t* __restrict__ mu_pos,
                                    int n_sets, int n_msets,
@@ -88,9 +114,8 @@ __global__ void union_score_kernel(const int32_t* __restrict__ planes,
                     __syncthreads();
                     if (!active) continue;
                     for (int k = 0; k < n; ++k) {
-                        const uint32_t key = static_cast<uint32_t>(
-                            planes[static_cast<int64_t>(s_pos[k]) * n_cols
-                                   + tc]);
+                        const uint32_t key = planes.load(
+                            static_cast<int64_t>(s_pos[k]) * n_cols + tc);
                         const bool second = SEG && (u0 + k < u2);
 #pragma unroll
                         for (int j = 0; j < LANE_GROUP; ++j) {
@@ -129,8 +154,37 @@ __global__ void union_score_kernel(const int32_t* __restrict__ planes,
     }
 }
 
+template <class Planes>
+int run(const Planes& planes, int64_t n_cols, const void* u_pos,
+        const void* mu_pos, int n_sets, int n_msets, const void* lane_lo,
+        const void* lane_span, int batch, int n_lanes, int n_slots, int n_u,
+        int u2, int segmented, void* best, void* mirrored, void* stream) {
+    if (n_slots < 1 || n_slots > MAX_SLOTS) return cudaErrorInvalidValue;
+    if (batch == 0 || n_cols == 0) return cudaGetLastError();
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(cmst::blocks_for(n_cols, THREADS), batch);
+    const int32_t* up = static_cast<const int32_t*>(u_pos);
+    const int32_t* mp = static_cast<const int32_t*>(mu_pos);
+    const uint32_t* lo = static_cast<const uint32_t*>(lane_lo);
+    const uint32_t* sp = static_cast<const uint32_t*>(lane_span);
+    int32_t* b = static_cast<int32_t*>(best);
+    uint8_t* m = static_cast<uint8_t*>(mirrored);
+    if (segmented)
+        union_score_kernel<true, Planes><<<grid, THREADS, 0, st>>>(
+            planes, n_cols, up, mp, n_sets, n_msets, lo, sp, n_lanes,
+            n_slots, n_u, u2, b, m);
+    else
+        union_score_kernel<false, Planes><<<grid, THREADS, 0, st>>>(
+            planes, n_cols, up, mp, n_sets, n_msets, lo, sp, n_lanes,
+            n_slots, n_u, u2, b, m);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
+// K3: planes int32 [rows, n_cols]; u_pos int32 [batch, n_sets, n_u],
+// mu_pos [batch, n_msets, n_u]; lane_lo / lane_span uint32 [batch,
+// n_lanes, n_slots, n_u] -> best int32, mirrored uint8 [batch, n_cols].
 extern "C" int cmst_union_score(const void* planes, int64_t n_cols,
                                 const void* u_pos, const void* mu_pos,
                                 int n_sets, int n_msets,
@@ -138,28 +192,24 @@ extern "C" int cmst_union_score(const void* planes, int64_t n_cols,
                                 int batch, int n_lanes, int n_slots,
                                 int n_u, int u2, int segmented,
                                 void* best, void* mirrored, void* stream) {
-    if (n_slots < 1 || n_slots > MAX_SLOTS) return cudaErrorInvalidValue;
-    if (batch == 0 || n_cols == 0) return cudaGetLastError();
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(cmst::blocks_for(n_cols, THREADS), batch);
-    if (segmented) {
-        union_score_kernel<true><<<grid, THREADS, 0, st>>>(
-            static_cast<const int32_t*>(planes), n_cols,
-            static_cast<const int32_t*>(u_pos),
-            static_cast<const int32_t*>(mu_pos), n_sets, n_msets,
-            static_cast<const uint32_t*>(lane_lo),
-            static_cast<const uint32_t*>(lane_span), n_lanes, n_slots, n_u,
-            u2, static_cast<int32_t*>(best),
-            static_cast<uint8_t*>(mirrored));
-    } else {
-        union_score_kernel<false><<<grid, THREADS, 0, st>>>(
-            static_cast<const int32_t*>(planes), n_cols,
-            static_cast<const int32_t*>(u_pos),
-            static_cast<const int32_t*>(mu_pos), n_sets, n_msets,
-            static_cast<const uint32_t*>(lane_lo),
-            static_cast<const uint32_t*>(lane_span), n_lanes, n_slots, n_u,
-            u2, static_cast<int32_t*>(best),
-            static_cast<uint8_t*>(mirrored));
-    }
-    return cudaGetLastError();
+    return run(KeyPlanes{static_cast<const int32_t*>(planes)}, n_cols,
+               u_pos, mu_pos, n_sets, n_msets, lane_lo, lane_span, batch,
+               n_lanes, n_slots, n_u, u2, segmented, best, mirrored, stream);
+}
+
+// K13: rank uint16 and cls uint8 [rows, n_cols]; every other argument as
+// cmst_union_score's.
+extern "C" int cmst_union_score_splitk(const void* rank, const void* cls,
+                                       int64_t n_cols, const void* u_pos,
+                                       const void* mu_pos, int n_sets,
+                                       int n_msets, const void* lane_lo,
+                                       const void* lane_span, int batch,
+                                       int n_lanes, int n_slots, int n_u,
+                                       int u2, int segmented, void* best,
+                                       void* mirrored, void* stream) {
+    return run(SplitKeyPlanes{static_cast<const uint16_t*>(rank),
+                              static_cast<const uint8_t*>(cls)},
+               n_cols, u_pos, mu_pos, n_sets, n_msets, lane_lo, lane_span,
+               batch, n_lanes, n_slots, n_u, u2, segmented, best, mirrored,
+               stream);
 }

@@ -11,14 +11,21 @@ package's ops/common.py):
     row P, is 0;
   * summary planes, [P, T] words (cls << 24) | (p << 16) | (s << 8) |
     maxch, held as int32 with the bits of the JAX package's uint32, for
-    the banded predicate (ops/pixel_match.score_query_batch).
+    the banded predicate (ops/pixel_match.score_query_batch);
+  * split planes, the pair uint16 [P, T] (p << 8) | s, held as int16
+    with the same bits (torch's uint16 lacks most operations), and uint8
+    [P, T] cls, for the split-plane predicate
+    (ops/pixel_match.score_query_batch_split).
 
 The default key upload is sparse: only foreground pixels travel to the
 device as COO (position, RGB) elements, and the K1 kernel
 (kernels/csrc/scatter_keys.cu) classifies and scatters them into the
 planes. The dense uint8 stack goes to the device for the summary planes
 and, with CDS_DENSE_UPLOAD=1, for the key planes; K8
-(kernels/csrc/pack_planes.cu) packs it in either mode.
+(kernels/csrc/pack_planes.cu) packs it in any of the three encodings.
+K12 (kernels/csrc/repack_planes.cu) re-encodes planes already on the
+device: summary planes to the split pair or to key planes, key planes
+to the split key pair (ops/pixel_match.split_key_planes).
 """
 
 from __future__ import annotations
@@ -122,6 +129,25 @@ def unpack_summary(packed: torch.Tensor):
     return (v >> 24) & 0x7, (v >> 8) & 0xFF, (v >> 16) & 0xFF, v & 0xFF
 
 
+def _lo16_hi8(words: torch.Tensor):
+    """int32 words -> (int16 holding the bits of the uint16 bits 0-15,
+    uint8 bits 16-23): the two planes of a split encoding."""
+    lo = words & 0xFFFF
+    return (((lo ^ 0x8000) - 0x8000).to(torch.int16),
+            ((words >> 16) & 0xFF).to(torch.uint8))
+
+
+def _split_rows(src: torch.Tensor, word, rows: int = 1 << 16):
+    """_lo16_hi8(word(src)) for int32 [n, cols] planes, `rows` rows at a
+    time so that the intermediates stay bounded at production shapes."""
+    n, cols = src.shape
+    lo = torch.empty((n, cols), dtype=torch.int16, device=src.device)
+    hi = torch.empty((n, cols), dtype=torch.uint8, device=src.device)
+    for r0 in range(0, n, rows):
+        lo[r0:r0 + rows], hi[r0:r0 + rows] = _lo16_hi8(word(src[r0:r0 + rows]))
+    return lo, hi
+
+
 def _packed_columns(rgb_stack: torch.Tensor, t_pad: int | None,
                     sentinel: bool, word, chunk: int = 32) -> torch.Tensor:
     """[P (+1 with `sentinel`), t_pad] int32 planes whose column t is
@@ -175,41 +201,71 @@ def pack_target_planes_keys_plain(rgb_stack: torch.Tensor,
     return _packed_columns(rgb_stack, t_pad, True, word)
 
 
-def _pack_planes(rgb_stack, data_threshold, rank_lut, t_pad, name):
-    """K8 (kernels/csrc/pack_planes.cu) in the key mode when `rank_lut`
-    is given, else in the summary mode; CPU tensors take the plain
-    version."""
+def pack_target_planes_split_plain(rgb_stack: torch.Tensor,
+                                   data_threshold: int, *,
+                                   t_pad: int | None = None):
+    """Plain PyTorch version of K8's split mode (see
+    :func:`pack_target_planes_split`)."""
+    def word(rgb):
+        cls, s, p, maxch = classify(rgb)
+        both = (cls << 16) | (p << 8) | s
+        return torch.where(maxch > data_threshold, both,
+                           torch.zeros_like(both))
+
+    return _split_rows(_packed_columns(rgb_stack, t_pad, False, word),
+                       lambda w: w)
+
+
+# K8's modes (kernels/csrc/pack_planes.cu): (C mode, launch counter)
+_PACK_MODES = {"summary": (0, "pack_target_planes"),
+               "keys": (1, "pack_target_planes_keys"),
+               "split": (2, "pack_target_planes_split")}
+
+
+def _pack_planes(rgb_stack, data_threshold, t_pad, mode: str,
+                 rank_lut=None):
+    """K8 (kernels/csrc/pack_planes.cu) in the given mode; CPU tensors
+    take the plain version. The launch counts under the mode's public
+    function name."""
+    c_mode, name = _PACK_MODES[mode]
     if rgb_stack.dim() != 4:
         raise ValueError(f"rgb_stack: expected [T, H, W, 3], got "
                          f"{tuple(rgb_stack.shape)}")
     t, h, w = rgb_stack.shape[:3]
     kbuild.check_tensor(rgb_stack, "rgb_stack", torch.uint8, (t, h, w, 3))
-    if rank_lut is not None:
+    if mode == "keys":
         kbuild.check_tensor(rank_lut, "rank_lut", torch.int32, (1 << 16,))
         kbuild.same_device(rgb_stack, rank_lut)
     if t_pad is not None and t_pad < t:
         raise ValueError(f"t_pad {t_pad} < {t} targets")
     if rgb_stack.device.type == "cpu":
-        if rank_lut is None:
+        if mode == "summary":
             return pack_target_planes_plain(rgb_stack, data_threshold,
                                             t_pad=t_pad)
-        return pack_target_planes_keys_plain(rgb_stack, data_threshold,
-                                             rank_lut, t_pad=t_pad)
+        if mode == "keys":
+            return pack_target_planes_keys_plain(rgb_stack, data_threshold,
+                                                 rank_lut, t_pad=t_pad)
+        return pack_target_planes_split_plain(rgb_stack, data_threshold,
+                                              t_pad=t_pad)
     kbuild.require_cuda(rgb_stack)
     t_pad = t if t_pad is None else t_pad
     n_px = h * w
-    rows = n_px + 1 if rank_lut is not None else n_px
-    planes = torch.empty((rows, t_pad), dtype=torch.int32,
-                         device=rgb_stack.device)
+    dev = rgb_stack.device
+    if mode == "split":
+        out = (torch.empty((n_px, t_pad), dtype=torch.int16, device=dev),
+               torch.empty((n_px, t_pad), dtype=torch.uint8, device=dev))
+    else:
+        rows = n_px + 1 if mode == "keys" else n_px
+        out = (torch.empty((rows, t_pad), dtype=torch.int32, device=dev),)
     thr = -1 if data_threshold is None else int(data_threshold)
     lib = kbuild.load_library()
     kbuild.check(lib.cmst_pack_planes(
         rgb_stack.data_ptr(), t, n_px, t_pad, max(thr, -1),
-        int(rank_lut is not None),
-        None if rank_lut is None else rank_lut.data_ptr(),
-        planes.data_ptr(), kbuild.stream_of(rgb_stack)), name)
+        c_mode, None if rank_lut is None else rank_lut.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr() if len(out) > 1 else None,
+        kbuild.stream_of(rgb_stack)), name)
     kbuild.count_launch(name)
-    return planes
+    return out if mode == "split" else out[0]
 
 
 def pack_target_planes(rgb_stack: torch.Tensor,
@@ -224,8 +280,7 @@ def pack_target_planes(rgb_stack: torch.Tensor,
     target_threshold=-1. CPU tensors run the plain version; CUDA tensors
     launch kernels/csrc/pack_planes.cu or raise.
     """
-    return _pack_planes(rgb_stack, data_threshold, None, t_pad,
-                        "pack_target_planes")
+    return _pack_planes(rgb_stack, data_threshold, t_pad, "summary")
 
 
 def pack_target_planes_keys(rgb_stack: torch.Tensor, data_threshold: int,
@@ -239,8 +294,108 @@ def pack_target_planes_keys(rgb_stack: torch.Tensor, data_threshold: int,
     padded / out-of-bounds positions as P. CPU tensors run the plain
     version; CUDA tensors launch kernels/csrc/pack_planes.cu or raise.
     """
-    return _pack_planes(rgb_stack, int(data_threshold), rank_lut, t_pad,
-                        "pack_target_planes_keys")
+    return _pack_planes(rgb_stack, int(data_threshold), t_pad, "keys",
+                        rank_lut)
+
+
+def pack_target_planes_split(rgb_stack: torch.Tensor, data_threshold: int,
+                             *, t_pad: int | None = None):
+    """K8, split mode: uint8 [T, H, W, 3] -> (int16 [P, t_pad], the bits
+    of the JAX package's uint16 (p << 8) | s; uint8 [P, t_pad] cls), the
+    pair of pack_target_planes_split, columns >= T zero.
+
+    The data threshold is ALWAYS folded (a dead pixel zeroes both
+    planes). CPU tensors run the plain version; CUDA tensors launch
+    kernels/csrc/pack_planes.cu or raise.
+    """
+    return _pack_planes(rgb_stack, int(data_threshold), t_pad, "split")
+
+
+def split_planes_from_packed_plain(planes: torch.Tensor):
+    """Plain PyTorch version of K12's split mode (see
+    :func:`split_planes_from_packed`)."""
+    return _split_rows(
+        planes, lambda v: ((v >> 8) & 0xFFFF) | (((v >> 24) & 0x7) << 16))
+
+
+def key_planes_from_packed_plain(planes: torch.Tensor,
+                                 rank_lut: torch.Tensor, *,
+                                 rows: int = 1 << 16) -> torch.Tensor:
+    """Plain PyTorch version of K12's key mode (see
+    :func:`key_planes_from_packed`), `rows` rows at a time."""
+    n, cols = planes.shape
+    out = torch.zeros((n + 1, cols), dtype=torch.int32, device=planes.device)
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)  # row n is the sentinel
+        cls, s, p, _ = unpack_summary(planes[r0:r1])
+        key = (cls << KEY_RANK_BITS) | rank_lut[((s << 8) | p).long()]
+        out[r0:r1] = torch.where(cls > 0, key, torch.zeros_like(key))
+    return out
+
+
+def split_key_planes_plain(keys: torch.Tensor):
+    """Plain PyTorch version of K12's split-key mode (see
+    ops/pixel_match.split_key_planes)."""
+    return _split_rows(keys, lambda v: (v & ((1 << KEY_RANK_BITS) - 1))
+                       | (((v >> KEY_RANK_BITS) & 0xFF) << 16))
+
+
+# K12's modes (kernels/csrc/repack_planes.cu): (C mode, plain version)
+_REPACK_MODES = {
+    "split_planes_from_packed": (0, split_planes_from_packed_plain),
+    "key_planes_from_packed": (1, key_planes_from_packed_plain),
+    "split_key_planes": (2, split_key_planes_plain),
+}
+
+
+def repack_planes(planes: torch.Tensor, name: str, rank_lut=None):
+    """K12 (kernels/csrc/repack_planes.cu) in the mode of the public
+    function `name` (a key of _REPACK_MODES); CPU tensors take the plain
+    version."""
+    mode, plain = _REPACK_MODES[name]
+    kbuild.check_tensor(planes, "planes", torch.int32)
+    if planes.dim() != 2:
+        raise ValueError(f"planes: expected [rows, T], got "
+                         f"{tuple(planes.shape)}")
+    if rank_lut is not None:
+        kbuild.check_tensor(rank_lut, "rank_lut", torch.int32, (1 << 16,))
+        kbuild.same_device(planes, rank_lut)
+    if planes.device.type == "cpu":
+        return plain(planes) if rank_lut is None else plain(planes, rank_lut)
+    kbuild.require_cuda(planes)
+    rows, cols = planes.shape
+    dev = planes.device
+    if rank_lut is not None:
+        out = (torch.empty((rows + 1, cols), dtype=torch.int32, device=dev),)
+    else:
+        out = (torch.empty((rows, cols), dtype=torch.int16, device=dev),
+               torch.empty((rows, cols), dtype=torch.uint8, device=dev))
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_repack_planes(
+        mode, planes.data_ptr(), rows, cols,
+        None if rank_lut is None else rank_lut.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr() if len(out) > 1 else None,
+        kbuild.stream_of(planes)), name)
+    kbuild.count_launch(name)
+    return out if len(out) > 1 else out[0]
+
+
+def split_planes_from_packed(planes: torch.Tensor):
+    """K12, split mode: int32 [P, T] summary planes -> the split pair
+    (int16 [P, T] with the bits of (p << 8) | s, uint8 [P, T] cls), as
+    the JAX package's split_planes_from_packed; a threshold folded into
+    the summary words stays folded. CPU tensors run the plain version;
+    CUDA tensors launch kernels/csrc/repack_planes.cu or raise."""
+    return repack_planes(planes, "split_planes_from_packed")
+
+
+def key_planes_from_packed(planes: torch.Tensor,
+                           rank_lut: torch.Tensor) -> torch.Tensor:
+    """K12, key mode: int32 [P, T] summary planes (threshold folded) ->
+    int32 [P+1, T] rank-key planes with the zero sentinel row, as the JAX
+    package's key_planes_from_packed. CPU tensors run the plain version;
+    CUDA tensors launch kernels/csrc/repack_planes.cu or raise."""
+    return repack_planes(planes, "key_planes_from_packed", rank_lut)
 
 
 def scatter_key_planes_plain(pos: torch.Tensor, rgb: torch.Tensor,

@@ -1,5 +1,5 @@
 """Pixel-match scoring: host plan construction and the device kernels
-K2-K4, K9 and K10.
+K2-K4, K9-K11 and K13.
 
 The host side (classic query plans, interval tables bisected against the
 float64 oracle, union plans, the batch stackers) is carried over from
@@ -17,11 +17,16 @@ plain PyTorch version:
   * K9 ``score_query_batch``: the banded f32 predicate on summary planes
     with per-pair ambiguity flags (banded_score.cu),
   * K10 ``score_query_batch_keys``: the classic rank-key kernel, three
-    interval windows per query pixel (key_score.cu).
+    interval windows per query pixel (key_score.cu),
+  * K11 ``score_query_batch_split``: K9's predicate on the split planes
+    (banded_score.cu, its split loader),
+  * K13 ``score_query_batch_union_keys_splitk``: K3 on the split key
+    planes (union_score.cu, its split-key loader), which K12's
+    ``split_key_planes`` (ops/common.py, repack_planes.cu) makes.
 
 Tables that hold uint32 bits (interval lo/span, summary words) travel as
 int32 tensors with the same bits, because torch's uint32 lacks most
-operations.
+operations; uint16 planes travel as int16 with the same bits.
 """
 
 from __future__ import annotations
@@ -1303,20 +1308,16 @@ def _is_segmented(u2, n_slots: int, n_u: int) -> bool:
     return u2 is not None and n_slots == 2 and 0 <= u2 < n_u
 
 
-def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
-                                       lane_span, u2=None, *,
-                                       chunk: int = 4096):
-    """Plain PyTorch version of K3 (see score_query_batch_union_keys).
-    Walks the union in `chunk`-element slices so its int64 [chunk, T]
-    intermediates stay bounded at production shapes."""
+def _union_walk_plain(gather, n_cols: int, dev, u_pos, mu_pos, lane_lo,
+                      lane_span, u2, chunk: int):
+    """K3's and K13's plain walk: gather(rows) -> int64 [len(rows), T]
+    keys; the union is taken in `chunk`-element slices so that the
+    int64 [chunk, T] intermediates stay bounded at production shapes."""
     batch, _, n_u = u_pos.shape
     n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
     seg = _is_segmented(u2, n_slots, n_u)
-    n_cols = planes.shape[1]
-    best = torch.empty((batch, n_cols), dtype=torch.int32,
-                       device=planes.device)
-    mirrored = torch.empty((batch, n_cols), dtype=torch.bool,
-                           device=planes.device)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
     for b in range(batch):
         lo_b = lane_lo[b].long()
         sp_b = lane_span[b].long() & _U32
@@ -1325,10 +1326,10 @@ def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
             omax = None
             for pos in pos_sets:
                 cnt = torch.zeros((n_lanes, n_cols), dtype=torch.int64,
-                                  device=planes.device)
+                                  device=dev)
                 for c0 in range(0, n_u, chunk):
                     c1 = min(n_u, c0 + chunk)
-                    key = planes.index_select(0, pos[c0:c1].long()).long()
+                    key = gather(pos[c0:c1].long())
                     n2 = min(max((u2 or 0) - c0, 0), c1 - c0)
                     for j in range(n_lanes):
                         lo, sp = lo_b[j, :, c0:c1], sp_b[j, :, c0:c1]
@@ -1358,24 +1359,27 @@ def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
     return best, mirrored
 
 
-def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
-                                 u2: int | None = None):
-    """K3: batched union-lane key scoring with the variant reduction.
+def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
+                                       lane_span, u2=None, *,
+                                       chunk: int = 4096):
+    """Plain PyTorch version of K3 (see score_query_batch_union_keys)."""
+    return _union_walk_plain(
+        lambda rows: planes.index_select(0, rows).long(), planes.shape[1],
+        planes.device, u_pos, mu_pos, lane_lo, lane_span, u2, chunk)
 
-    planes int32 [P+1, T]; u_pos int32 [B, S, U]; mu_pos int32 [B, S or
-    0, U] (mirror sets, empty without mirror); lane_lo/lane_span int32
-    [B, L, n_slots <= 3, U] (uint32 bits); u2 the batch's slot-2
-    segmentation prefix (stack_union_plan_args) or None. Returns
-    (best int32 [B, T], mirrored bool [B, T]). CPU tensors run the plain
-    version; CUDA tensors launch kernels/csrc/union_score.cu or raise.
-    """
+
+def _check_union(planes: dict, u_pos, mu_pos, lane_lo, lane_span) -> None:
+    """Validation shared by the K3 and K13 wrappers; `planes` maps each
+    plane tensor's name to (tensor, dtype)."""
+    _check_planes(planes)
     batch, n_sets, n_u = u_pos.shape
-    kbuild.check_tensor(planes, "planes", torch.int32)
     kbuild.check_tensor(u_pos, "u_pos", torch.int32)
     kbuild.check_tensor(mu_pos, "mu_pos", torch.int32)
     kbuild.check_tensor(lane_lo, "lane_lo", torch.int32)
-    kbuild.check_tensor(lane_span, "lane_span", torch.int32, tuple(lane_lo.shape))
-    kbuild.same_device(planes, u_pos, mu_pos, lane_lo, lane_span)
+    kbuild.check_tensor(lane_span, "lane_span", torch.int32,
+                        tuple(lane_lo.shape))
+    kbuild.same_device(*(x for x, _ in planes.values()), u_pos, mu_pos,
+                       lane_lo, lane_span)
     n_msets = mu_pos.shape[1]
     if mu_pos.shape[0] != batch or mu_pos.shape[2] != n_u \
             or n_msets not in (0, n_sets):
@@ -1387,26 +1391,90 @@ def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
                          f"u_pos {tuple(u_pos.shape)}")
     if batch > 65535:
         raise ValueError(f"{batch} masks in one launch (at most 65,535)")
+
+
+def _launch_union(entry: str, name: str, plane_ptrs, n_cols: int, dev,
+                  u_pos, mu_pos, lane_lo, lane_span, u2):
+    """Launch K3 (entry cmst_union_score) or K13 (cmst_union_score_splitk)
+    on CUDA tensors; returns (best, mirrored)."""
+    batch, n_sets, n_u = u_pos.shape
+    n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    seg = _is_segmented(u2, n_slots, n_u)
+    lib = kbuild.load_library()
+    kbuild.check(getattr(lib, entry)(
+        *plane_ptrs, n_cols, u_pos.data_ptr(), mu_pos.data_ptr(), n_sets,
+        mu_pos.shape[1], lane_lo.data_ptr(), lane_span.data_ptr(), batch,
+        n_lanes, n_slots, n_u, u2 if seg else -1, int(seg),
+        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(u_pos)),
+        name)
+    kbuild.count_launch(name)
+    return best, mirrored
+
+
+def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
+                                 u2: int | None = None):
+    """K3: batched union-lane key scoring with the variant reduction.
+
+    planes int32 [P+1, T]; u_pos int32 [B, S, U]; mu_pos int32 [B, S or
+    0, U] (mirror sets, empty without mirror); lane_lo/lane_span int32
+    [B, L, n_slots <= 3, U] (uint32 bits); u2 the batch's slot-2
+    segmentation prefix (stack_union_plan_args) or None. Returns
+    (best int32 [B, T], mirrored bool [B, T]). CPU tensors run the plain
+    version; CUDA tensors launch kernels/csrc/union_score.cu or raise.
+    """
+    _check_union({"planes": (planes, torch.int32)}, u_pos, mu_pos, lane_lo,
+                 lane_span)
     if planes.device.type == "cpu":
         return score_query_batch_union_keys_plain(
             planes, u_pos, mu_pos, lane_lo, lane_span, u2)
     kbuild.require_cuda(planes)
-    n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
-    n_cols = planes.shape[1]
-    best = torch.empty((batch, n_cols), dtype=torch.int32,
-                       device=planes.device)
-    mirrored = torch.empty((batch, n_cols), dtype=torch.bool,
-                           device=planes.device)
-    seg = _is_segmented(u2, n_slots, n_u)
-    lib = kbuild.load_library()
-    kbuild.check(lib.cmst_union_score(
-        planes.data_ptr(), n_cols, u_pos.data_ptr(), mu_pos.data_ptr(),
-        n_sets, n_msets, lane_lo.data_ptr(), lane_span.data_ptr(), batch,
-        n_lanes, n_slots, n_u, u2 if seg else -1, int(seg),
-        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(planes)),
-        "score_query_batch_union_keys")
-    kbuild.count_launch("score_query_batch_union_keys")
-    return best, mirrored
+    return _launch_union("cmst_union_score", "score_query_batch_union_keys",
+                         (planes.data_ptr(),), planes.shape[1],
+                         planes.device, u_pos, mu_pos, lane_lo, lane_span,
+                         u2)
+
+
+def split_key_planes(keys: torch.Tensor):
+    """K12, split-key mode: int32 [P+1, T] key planes -> (int16 [P+1, T]
+    with the bits of the uint16 rank, uint8 [P+1, T] cls), as the JAX
+    package's split_key_planes. CPU tensors run the plain version; CUDA
+    tensors launch kernels/csrc/repack_planes.cu or raise."""
+    return common.repack_planes(keys, "split_key_planes")
+
+
+def score_query_batch_union_keys_splitk_plain(rank, cls, u_pos, mu_pos,
+                                              lane_lo, lane_span, u2=None,
+                                              *, chunk: int = 4096):
+    """Plain PyTorch version of K13 (see
+    score_query_batch_union_keys_splitk): the key of each gathered element
+    is (cls << 15) | rank."""
+    def gather(rows):
+        return (cls.index_select(0, rows).long() << common.KEY_RANK_BITS) \
+            | (rank.index_select(0, rows).long() & 0xFFFF)
+
+    return _union_walk_plain(gather, rank.shape[1], rank.device, u_pos,
+                             mu_pos, lane_lo, lane_span, u2, chunk)
+
+
+def score_query_batch_union_keys_splitk(rank, cls, u_pos, mu_pos, lane_lo,
+                                        lane_span, u2: int | None = None):
+    """K13: K3 over the split key planes of split_key_planes (rank int16
+    with the uint16 bits, cls uint8, both [P+1, T]); every other argument
+    and the result as score_query_batch_union_keys'. CPU tensors run the
+    plain version; CUDA tensors launch kernels/csrc/union_score.cu or
+    raise."""
+    _check_union({"rank": (rank, torch.int16), "cls": (cls, torch.uint8)},
+                 u_pos, mu_pos, lane_lo, lane_span)
+    if rank.device.type == "cpu":
+        return score_query_batch_union_keys_splitk_plain(
+            rank, cls, u_pos, mu_pos, lane_lo, lane_span, u2)
+    kbuild.require_cuda(rank)
+    return _launch_union("cmst_union_score_splitk",
+                         "score_query_batch_union_keys_splitk",
+                         (rank.data_ptr(), cls.data_ptr()), rank.shape[1],
+                         rank.device, u_pos, mu_pos, lane_lo, lane_span, u2)
 
 
 def union_keys_topk_plain(best, mirrored, k: int):
@@ -1477,17 +1545,30 @@ def _reduce_variants(scores: torch.Tensor, n_straight: int):
                                                       dtype=torch.bool)
 
 
-def _check_classic(planes, pos, n_straight: int, per_q: dict) -> None:
-    """Validation shared by the K9 and K10 wrappers."""
-    kbuild.check_tensor(planes, "planes", torch.int32)
+def _check_planes(planes: dict) -> None:
+    """{name: (tensor, dtype)}: each plane tensor 2-D, contiguous and of
+    its dtype, all of one shape."""
+    shape = None
+    for name, (x, dtype) in planes.items():
+        kbuild.check_tensor(x, name, dtype, shape)
+        if x.dim() != 2:
+            raise ValueError(f"{name}: expected [rows, T], got "
+                             f"{tuple(x.shape)}")
+        shape = tuple(x.shape)
+
+
+def _check_classic(planes: dict, pos, n_straight: int, per_q: dict) -> None:
+    """Validation shared by the K9, K10 and K11 wrappers; `planes` maps
+    each plane tensor's name to (tensor, dtype)."""
+    _check_planes(planes)
     kbuild.check_tensor(pos, "pos", torch.int32)
-    if planes.dim() != 2 or pos.dim() != 3:
-        raise ValueError(f"expected planes [rows, T] and pos [B, V, Q], got "
-                         f"{tuple(planes.shape)} and {tuple(pos.shape)}")
+    if pos.dim() != 3:
+        raise ValueError(f"expected pos [B, V, Q], got {tuple(pos.shape)}")
     batch, n_var, n_q = pos.shape
     for name, (x, shape) in per_q.items():
         kbuild.check_tensor(x, name, torch.int32, shape)
-    kbuild.same_device(planes, pos, *(x for x, _ in per_q.values()))
+    kbuild.same_device(*(x for x, _ in planes.values()), pos,
+                       *(x for x, _ in per_q.values()))
     if not 1 <= n_straight <= n_var:
         raise ValueError(f"n_straight {n_straight} outside [1, {n_var}]")
     if batch * n_var > 65535:
@@ -1495,19 +1576,17 @@ def _check_classic(planes, pos, n_straight: int, per_q: dict) -> None:
                          "(at most 65,535)")
 
 
-def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
-                            target_threshold: int, ztol_num: int,
-                            ztol_den: int, n_straight: int,
-                            rows: int = 8192):
-    """Plain PyTorch version of K9 (see score_query_batch). Walks each
-    mask's query in chunks of about `rows` / V pixels, so its [V, chunk,
-    T] intermediates stay bounded at production shapes."""
+def _banded_walk_plain(gather, n_cols: int, dev, pos, q_cls, q_s, q_p, *,
+                       target_threshold: int, ztol_num: int, ztol_den: int,
+                       n_straight: int, rows: int):
+    """K9's and K11's plain walk: gather(plane rows) -> (t_cls, t_s, t_p,
+    t_max) int32 [len(rows), T]. Each mask's query is taken in chunks of
+    about `rows` / V pixels, so the [V, chunk, T] intermediates stay
+    bounded at production shapes."""
     rules = query_side_rules(q_cls, q_s, q_p, ztol_num=ztol_num,
                              ztol_den=ztol_den)
     same_cls, bq_s, bq_p, a_qp, tc, bound, upper = rules
     batch, n_var, n_q = pos.shape
-    n_cols = planes.shape[1]
-    dev = planes.device
     chunk = max(1, rows // n_var)
     best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
     mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
@@ -1519,9 +1598,8 @@ def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
         for c0 in range(0, n_q, chunk):
             c1 = min(n_q, c0 + chunk)
             pos_c = pos[b, :, c0:c1]                              # [V, c]
-            words = planes.index_select(
-                0, pos_c.clamp(min=0).reshape(-1).long()).reshape(
-                    n_var, c1 - c0, n_cols)
+            fields = [x.reshape(n_var, c1 - c0, n_cols) for x in gather(
+                pos_c.clamp(min=0).reshape(-1).long())]
 
             def col(x):
                 return x[b, c0:c1][None, :, None]                 # [1, c, 1]
@@ -1532,7 +1610,7 @@ def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
             m, f = predicate_from_rules(
                 (col(same_cls), col(bq_s), col(bq_p), col(a_qp), pair(tc),
                  pair(bound), pair(upper)),
-                col(q_s), col(q_p), *common.unpack_summary(words),
+                col(q_s), col(q_p), *fields,
                 target_threshold=target_threshold, ztol_num=ztol_num,
                 ztol_den=ztol_den)
             ok = (pos_c >= 0)[:, :, None]
@@ -1540,6 +1618,50 @@ def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
             flag += (f & ok).sum(1)
         best[b], mirrored[b] = _reduce_variants(match, n_straight)
         pair_flags[b] = flag.sum(0).to(torch.int32)
+    return best, mirrored, pair_flags
+
+
+def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
+                            target_threshold: int, ztol_num: int,
+                            ztol_den: int, n_straight: int,
+                            rows: int = 8192):
+    """Plain PyTorch version of K9 (see score_query_batch)."""
+    return _banded_walk_plain(
+        lambda r: common.unpack_summary(planes.index_select(0, r)),
+        planes.shape[1], planes.device, pos, q_cls, q_s, q_p,
+        target_threshold=target_threshold, ztol_num=ztol_num,
+        ztol_den=ztol_den, n_straight=n_straight, rows=rows)
+
+
+def _launch_banded(entry: str, name: str, plane_ptrs, thr_arg: tuple,
+                   n_cols: int, dev, pos, q_cls, q_s, q_p, *, ztol_num: int,
+                   ztol_den: int, n_straight: int):
+    """Launch K9 (entry cmst_banded_score, thr_arg (threshold,)) or K11
+    (cmst_banded_score_split, thr_arg ()) on CUDA tensors: the
+    query-side rules computed here with torch, on the tensors' device;
+    returns (best, mirrored, pair_flags)."""
+    batch, n_var, n_q = pos.shape
+    same_cls, bq_s, bq_p, a_qp, tc, bound, upper = (
+        x.contiguous() for x in query_side_rules(
+            q_cls, q_s, q_p, ztol_num=ztol_num, ztol_den=ztol_den))
+    q_r = (q_s.to(torch.float32)
+           / q_p.clamp(min=1).to(torch.float32)).contiguous()
+    scratch = torch.zeros((2, batch, n_var, n_cols), dtype=torch.int32,
+                          device=dev)
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    pair_flags = torch.empty((batch, n_cols), dtype=torch.int32,
+                             device=dev)
+    lib = kbuild.load_library()
+    kbuild.check(getattr(lib, entry)(
+        *plane_ptrs, n_cols, pos.data_ptr(), batch, n_var, n_q, n_straight,
+        same_cls.data_ptr(), bq_s.data_ptr(), bq_p.data_ptr(),
+        a_qp.data_ptr(), q_r.data_ptr(), tc.data_ptr(), bound.data_ptr(),
+        upper.data_ptr(), int(ztol_den <= _MAX_INT_DENOM),
+        float(np.float32(ztol_num / ztol_den)), float(np.float32(ADJ_BAND)),
+        *thr_arg, scratch.data_ptr(), best.data_ptr(), mirrored.data_ptr(),
+        pair_flags.data_ptr(), kbuild.stream_of(pos)), name)
+    kbuild.count_launch(name)
     return best, mirrored, pair_flags
 
 
@@ -1561,39 +1683,63 @@ def score_query_batch(planes, pos, q_cls, q_s, q_p, *,
     launch kernels/csrc/banded_score.cu or raise.
     """
     batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
-    _check_classic(planes, pos, n_straight,
+    _check_classic({"planes": (planes, torch.int32)}, pos, n_straight,
                    {"q_cls": (q_cls, (batch, n_q)),
                     "q_s": (q_s, (batch, n_q)), "q_p": (q_p, (batch, n_q))})
-    kw = dict(target_threshold=target_threshold, ztol_num=ztol_num,
-              ztol_den=ztol_den, n_straight=n_straight)
+    kw = dict(ztol_num=ztol_num, ztol_den=ztol_den, n_straight=n_straight)
     if planes.device.type == "cpu":
-        return score_query_batch_plain(planes, pos, q_cls, q_s, q_p, **kw)
+        return score_query_batch_plain(planes, pos, q_cls, q_s, q_p,
+                                       target_threshold=target_threshold,
+                                       **kw)
     kbuild.require_cuda(planes)
-    dev = planes.device
-    n_cols = planes.shape[1]
-    same_cls, bq_s, bq_p, a_qp, tc, bound, upper = (
-        x.contiguous() for x in query_side_rules(
-            q_cls, q_s, q_p, ztol_num=ztol_num, ztol_den=ztol_den))
-    q_r = (q_s.to(torch.float32)
-           / q_p.clamp(min=1).to(torch.float32)).contiguous()
-    scratch = torch.zeros((2, batch, n_var, n_cols), dtype=torch.int32,
-                          device=dev)
-    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
-    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
-    pair_flags = torch.empty((batch, n_cols), dtype=torch.int32,
-                             device=dev)
-    lib = kbuild.load_library()
-    kbuild.check(lib.cmst_banded_score(
-        planes.data_ptr(), n_cols, pos.data_ptr(), batch, n_var, n_q,
-        n_straight, same_cls.data_ptr(), bq_s.data_ptr(), bq_p.data_ptr(),
-        a_qp.data_ptr(), q_r.data_ptr(), tc.data_ptr(), bound.data_ptr(),
-        upper.data_ptr(), int(ztol_den <= _MAX_INT_DENOM),
-        float(np.float32(ztol_num / ztol_den)), float(np.float32(ADJ_BAND)),
-        max(int(target_threshold), -1), scratch.data_ptr(), best.data_ptr(),
-        mirrored.data_ptr(), pair_flags.data_ptr(), kbuild.stream_of(planes)),
-        "score_query_batch")
-    kbuild.count_launch("score_query_batch")
-    return best, mirrored, pair_flags
+    return _launch_banded("cmst_banded_score", "score_query_batch",
+                          (planes.data_ptr(),),
+                          (max(int(target_threshold), -1),), planes.shape[1],
+                          planes.device, pos, q_cls, q_s, q_p, **kw)
+
+
+def score_query_batch_split_plain(sp, c8, pos, q_cls, q_s, q_p, *,
+                                  ztol_num: int, ztol_den: int,
+                                  n_straight: int, rows: int = 8192):
+    """Plain PyTorch version of K11 (see score_query_batch_split): K9's
+    walk on the split pair, t_p = sp >> 8 and t_s = sp & 0xFF of the
+    uint16 bits, the class byte as it is, the threshold folded."""
+    def gather(r):
+        w = sp.index_select(0, r).to(torch.int32) & 0xFFFF
+        t_cls = c8.index_select(0, r).to(torch.int32)
+        return t_cls, w & 0xFF, w >> 8, torch.zeros_like(w)
+
+    return _banded_walk_plain(
+        gather, sp.shape[1], sp.device, pos, q_cls, q_s, q_p,
+        target_threshold=-1, ztol_num=ztol_num, ztol_den=ztol_den,
+        n_straight=n_straight, rows=rows)
+
+
+def score_query_batch_split(sp, c8, pos, q_cls, q_s, q_p, *,
+                            ztol_num: int, ztol_den: int, n_straight: int):
+    """K11: a batch of classic query plans against the split planes.
+
+    sp int16 [P, T] (the bits of the uint16 (p << 8) | s) and c8 uint8
+    [P, T] (the class), the pair of ops/common.pack_target_planes_split
+    or split_planes_from_packed, the data threshold folded into them;
+    every other argument and the result as score_query_batch's (there is
+    no target_threshold). The counts and flags equal K9's on the summary
+    planes the pair was split from. CPU tensors run the plain version;
+    CUDA tensors launch kernels/csrc/banded_score.cu or raise.
+    """
+    batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
+    _check_classic({"sp": (sp, torch.int16), "c8": (c8, torch.uint8)}, pos,
+                   n_straight,
+                   {"q_cls": (q_cls, (batch, n_q)),
+                    "q_s": (q_s, (batch, n_q)), "q_p": (q_p, (batch, n_q))})
+    kw = dict(ztol_num=ztol_num, ztol_den=ztol_den, n_straight=n_straight)
+    if sp.device.type == "cpu":
+        return score_query_batch_split_plain(sp, c8, pos, q_cls, q_s, q_p,
+                                             **kw)
+    kbuild.require_cuda(sp)
+    return _launch_banded("cmst_banded_score_split", "score_query_batch_split",
+                          (sp.data_ptr(), c8.data_ptr()), (), sp.shape[1],
+                          sp.device, pos, q_cls, q_s, q_p, **kw)
 
 
 def score_query_batch_keys_plain(planes, pos, lo, span, *, n_straight: int,
@@ -1636,7 +1782,7 @@ def score_query_batch_keys(planes, pos, lo, span, *, n_straight: int):
     tensors launch kernels/csrc/key_score.cu or raise.
     """
     batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
-    _check_classic(planes, pos, n_straight,
+    _check_classic({"planes": (planes, torch.int32)}, pos, n_straight,
                    {"lo": (lo, (batch, 3, n_q)),
                     "span": (span, (batch, 3, n_q))})
     if planes.device.type == "cpu":

@@ -6,6 +6,9 @@
   as on the GPU hosts;
 * policy: ``--device cuda`` without a GPU is an error, and every
   configuration outside the slice raises NotImplementedError.
+
+The JAX engine reads CDS_SPLIT_PLANES when it is imported, so the tests
+that set it for the port patch the JAX engine's flag too.
 """
 
 import os
@@ -19,11 +22,14 @@ import pytest
 import torch
 
 from colormipsearch_tpu.cli import main as jax_main
+from colormipsearch_tpu.engine import cds as jcds
+from colormipsearch_tpu.model import neuron_from_json as jax_neuron
 from colormipsearch_tpu_torch import testing
 from colormipsearch_tpu_torch.cli import main as torch_main
 from colormipsearch_tpu_torch.dataio.json_io import write_neurons_json
 from colormipsearch_tpu_torch.engine.cds import CDSearchEngine, CDSParams
 from colormipsearch_tpu_torch.io.image import decode_png_rgb8, read_image
+from colormipsearch_tpu_torch.ops import pixel_match as tpm
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -53,6 +59,25 @@ def _tree(root: Path) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
+def _split_on(monkeypatch) -> dict:
+    """CDS_SPLIT_PLANES=1 for the port and the JAX engine; returns how
+    often each scored a batch on split planes, {"port": n, "jax": n}."""
+    monkeypatch.setenv("CDS_SPLIT_PLANES", "1")
+    monkeypatch.setattr(jcds, "_USE_SPLIT", True)
+    calls = {"port": 0, "jax": 0}
+    # the port's split-plane kernel, and the JAX engine's split-pair
+    # accessor, which its single-device and mesh paths both call per
+    # batch
+    for key, owner, attr in (
+            ("port", tpm, "score_query_batch_split"),
+            ("jax", jcds.CDSearchEngine, "_split_planes")):
+        def counted(*a, _fn=getattr(owner, attr), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(owner, attr, counted)
+    return calls
+
+
 @pytest.mark.parametrize("pct", ["1.0", "0.0"])
 def test_slice_result_files_identical_to_jax(tmp_path, pct):
     """Every per-mask and per-target result file and cdsParameters.json
@@ -74,13 +99,19 @@ def test_slice_result_files_identical_to_jax(tmp_path, pct):
 
 
 @pytest.mark.parametrize("form", [
-    ["--use-union-keys", "off"], ["--use-key-planes"],
-    ["--use-union-keys", "x"], ["--use-union-keys", "x", "--xyShift", "4"],
+    (["--use-union-keys", "off"], False), (["--use-key-planes"], False),
+    (["--use-union-keys", "x"], False),
+    (["--use-union-keys", "x", "--xyShift", "4"], False),
+    (["--use-union-keys", "off"], True),
 ])
-def test_kernel_forms_result_files_identical_to_jax(tmp_path, form):
-    """The packed path (banded kernel, flagged pairs rescored), the
-    classic key kernel and the x-union form (and its fallback at
-    xyShift 4) write the JAX CLI's result trees byte for byte."""
+def test_kernel_forms_result_files_identical_to_jax(tmp_path, form,
+                                                    monkeypatch):
+    """The packed path (banded kernel, flagged pairs rescored), the same
+    with CDS_SPLIT_PLANES=1 (the split-plane kernel), the classic key
+    kernel and the x-union form (and its fallback at xyShift 4) write the
+    JAX CLI's result trees byte for byte."""
+    form, split = form
+    calls = _split_on(monkeypatch) if split else None
     args = _inputs(tmp_path, seed=47, n_targets=16, n_masks=3)
     flags = FLAGS + ["--pctPositivePixels", "0.0", *form]
     assert torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
@@ -90,6 +121,8 @@ def test_kernel_forms_result_files_identical_to_jax(tmp_path, form):
     port, ref = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
     assert any(k.startswith("masks/") for k in port)
     assert port == ref
+    if split:
+        assert calls["port"] == calls["jax"] > 0
 
 
 def test_port_runs_without_jax_and_pil(tmp_path):
@@ -161,17 +194,48 @@ def test_device_cuda_without_gpu_is_an_error(tmp_path):
     dict(use_key_planes=False, env=("CDS_SPLIT_PLANES", "1")),
     dict(env=[("CDS_SPLIT_PLANES", "1"), ("CDS_UNION_KEYS", "0")]),
 ])
-def test_outside_the_slice_raises(setting, monkeypatch):
-    """Scoring over several devices, and the split-plane kernel the JAX
-    engine runs for CDS_SPLIT_PLANES=1 on the packed path without a
-    top-k, are not ported."""
+def test_outside_the_slice_raises(setting, tmp_path, monkeypatch):
+    """Scoring over several devices is outside the slice and raises.
+    CDS_SPLIT_PLANES=1 on the packed path without a top-k (chosen by
+    use_key_planes=False or by CDS_UNION_KEYS=0) is inside it: the engine
+    runs the split-plane kernel and finds the JAX engine's matches."""
     setting = dict(setting)
     env = setting.pop("env", [])
+    if setting.get("use_mesh"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            CDSearchEngine(CDSParams(), device="cpu",
+                           **setting).find_all_matches([], [])
+        return
+    calls = _split_on(monkeypatch)
     for name, value in [env] if isinstance(env, tuple) else env:
         monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CDSearchEngine(CDSParams(), device="cpu",
-                       **setting).find_all_matches([], [])
+    rng = np.random.default_rng(48)
+    lib = testing.synthetic_library(rng, 10, 2, 40, 56, target_fg=0.08,
+                                    mask_fg=0.03)
+    masks = testing.write_neuron_images(tmp_path, lib.masks, "m", threads=2)
+    targets = testing.write_neuron_images(tmp_path, lib.targets, "t",
+                                          threads=2)
+    params = dict(mask_threshold=20, data_threshold=20, xy_shift=2,
+                  pix_color_fluctuation=1.0, mirror_mask=True)
+
+    def tuples(matches):
+        return sorted((m.mask_image.mip_id, m.matched_image.mip_id,
+                       m.matching_pixels, m.mirrored,
+                       m.matching_pixels_ratio) for m in matches)
+
+    port = CDSearchEngine(CDSParams(**params), device="cpu", **setting)
+    # the JAX engine reads CDS_UNION_KEYS at import: the same choice as
+    # an argument
+    ref = jcds.CDSearchEngine(jcds.CDSParams(**params), use_mesh=False,
+                              use_key_planes=setting.get("use_key_planes"),
+                              use_union_keys=False)
+    got = tuples(port.find_all_matches(masks, targets))
+    want = tuples(ref.find_all_matches(
+        [jax_neuron(m.to_json()) for m in masks],
+        [jax_neuron(t.to_json()) for t in targets]))
+    assert got == want and got
+    assert not port.use_key_planes
+    assert calls["port"] == calls["jax"] > 0
 
 
 def test_split_planes_outside_the_packed_path_runs(tmp_path, monkeypatch):

@@ -305,6 +305,7 @@ def test_cuda_banded_kernel_band_edges(cuda_device):
              for x in (q_cls, q_s, q_p)]
     pos = convert.as_tensor(np.tile(np.arange(n_q, dtype=np.int32),
                                     (batch, 1, 1)), cuda_device)
+    sp, c8 = tcommon.split_planes_from_packed(planes)
     for num, den in ((1, 100), (37, 10000)):
         kw = dict(target_threshold=-1, ztol_num=num, ztol_den=den,
                   n_straight=1)
@@ -313,3 +314,126 @@ def test_cuda_banded_kernel_band_edges(cuda_device):
         for a, b in zip(got, want):
             assert torch.equal(a, b), (num, den)
         assert int(got[2].sum()) > 0
+        # K11 on the split pair of the same planes: K9's counts and flags
+        del kw["target_threshold"]
+        split = tpm.score_query_batch_split(sp, c8, pos, *per_q, **kw)
+        for a, b, c in zip(split, tpm.score_query_batch_split_plain(
+                sp, c8, pos, *per_q, **kw), got):
+            assert torch.equal(a, b) and torch.equal(a, c), (num, den)
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernels_equal_plain_versions(cuda_device):
+    """K8's split mode, K12 in its three modes (the quad-vector and the
+    one-element loops), K11 (exact and banded same-class branch, with and
+    without mirror) and K13 (segmented and OR forms) against their plain
+    versions on the card, and against the kernels they re-encode: K8's
+    other modes, K9 and K3 (small shapes; chip_smoke.py repeats this at
+    the production shapes)."""
+    rng = np.random.default_rng(10)
+    h, w, t, t_pad = 30, 40, 37, 64
+    stack = np.stack([testing.scattered_pixels(rng, h, w, 300)
+                      for _ in range(t)])
+    rgb = torch.from_numpy(stack).to(cuda_device)
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    for thr in (0, 20):
+        pair = tcommon.pack_target_planes_split(rgb, thr, t_pad=t_pad)
+        for a, b in zip(pair, tcommon.pack_target_planes_split_plain(
+                rgb, thr, t_pad=t_pad)):
+            assert torch.equal(a, b), thr
+    planes = tcommon.pack_target_planes(rgb, 20, t_pad=t_pad)
+    sp, c8 = tcommon.split_planes_from_packed(planes)
+    assert torch.equal(sp, pair[0]) and torch.equal(c8, pair[1])
+    keys = tcommon.key_planes_from_packed(planes, lut)
+    assert torch.equal(keys, tcommon.pack_target_planes_keys(
+        rgb, 20, lut, t_pad=t_pad))
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (37, 7),
+                                          dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    for src in (planes, keys, words.to(cuda_device)):  # 259 words: 1 a thread
+        for fn, plain in (
+                (tcommon.split_planes_from_packed,
+                 tcommon.split_planes_from_packed_plain),
+                (tpm.split_key_planes, tcommon.split_key_planes_plain),
+                (lambda x: tcommon.key_planes_from_packed(x, lut),
+                 lambda x: tcommon.key_planes_from_packed_plain(x, lut))):
+            got, want = fn(src), plain(src)
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(a, b), tuple(src.shape)
+
+    queries = [testing.scattered_pixels(rng, h, w, n) for n in (250, 90)]
+    queries.append(stack[5].copy())
+    for flu, xy, mirror in ((1.0, 2, True), (0.37, 2, True),
+                            (2.0, 4, False)):
+        plans = [tpm.build_query_plan(q, 20, mirror=mirror, xy_shift=xy,
+                                      pix_color_fluctuation=flu, pad_to=640)
+                 for q in queries]
+        args = [convert.as_tensor(np.stack([getattr(p, f) for p in plans]),
+                                  cuda_device)
+                for f in ("positions", "q_cls", "q_s", "q_p")]
+        kw = dict(ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
+                  n_straight=plans[0].n_straight)
+        got = tpm.score_query_batch_split(sp, c8, *args, **kw)
+        want = tpm.score_query_batch_split_plain(sp, c8, *args, **kw)
+        k9 = tpm.score_query_batch(planes, *args, target_threshold=-1, **kw)
+        for a, b, c in zip(got, want, k9):
+            assert torch.equal(a, b) and torch.equal(a, c), (flu, xy)
+        assert int(got[0].max()) > 0
+
+    uplans = [tpm.build_full_union_key_plan(
+        q, 20, mirror=True, xy_shift=2, pix_color_fluctuation=1.0)
+        for q in queries]
+    *arrs, u2 = convert.stacked_args(
+        tpm.stack_union_plan_args(uplans, h * w), cuda_device)
+    rank, cls = tpm.split_key_planes(keys)
+    for seg_u2 in (u2, None):
+        got = tpm.score_query_batch_union_keys_splitk(rank, cls, *arrs,
+                                                      seg_u2)
+        want = tpm.score_query_batch_union_keys_splitk_plain(
+            rank, cls, *arrs, seg_u2)
+        k3 = tpm.score_query_batch_union_keys(keys, *arrs, seg_u2)
+        for a, b, c in zip(got, want, k3):
+            assert torch.equal(a, b) and torch.equal(a, c), seg_u2
+        assert int(got[0].max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernels_count_and_refuse(cuda_device):
+    """One launch per wrapper call on CUDA tensors; wrong dtypes (int32
+    planes where int16 are due, and back), shapes and devices raise
+    before anything launches."""
+    kbuild.reset_launches()
+    rgb = torch.zeros((3, 10, 12, 3), dtype=torch.uint8, device=cuda_device)
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    sp, c8 = tcommon.pack_target_planes_split(rgb, 20, t_pad=32)
+    planes = tcommon.pack_target_planes(rgb, 20, t_pad=32)
+    tcommon.split_planes_from_packed(planes)
+    keys = tcommon.key_planes_from_packed(planes, lut)
+    rank, cls = tpm.split_key_planes(keys)
+    with pytest.raises(TypeError):
+        tcommon.split_planes_from_packed(sp)
+    with pytest.raises(TypeError):
+        tpm.split_key_planes(rank)
+    with pytest.raises(ValueError):
+        tcommon.key_planes_from_packed(planes, lut.cpu())
+    pos = torch.zeros((2, 3, 16), dtype=torch.int32, device=cuda_device)
+    q = torch.ones((2, 16), dtype=torch.int32, device=cuda_device)
+    kw = dict(ztol_num=1, ztol_den=100, n_straight=3)
+    tpm.score_query_batch_split(sp, c8, pos, q, q, q, **kw)
+    with pytest.raises(TypeError):
+        tpm.score_query_batch_split(planes, c8, pos, q, q, q, **kw)
+    with pytest.raises(ValueError):
+        tpm.score_query_batch_split(sp, c8, pos.cpu(), q, q, q, **kw)
+    lane = torch.zeros((2, 9, 2, 16), dtype=torch.int32, device=cuda_device)
+    tpm.score_query_batch_union_keys_splitk(rank, cls, pos[:, :1].contiguous(),
+                                            pos[:, :0].contiguous(), lane,
+                                            lane)
+    with pytest.raises(TypeError):
+        tpm.score_query_batch_union_keys_splitk(
+            keys, cls, pos[:, :1].contiguous(), pos[:, :0].contiguous(),
+            lane, lane)
+    names = ("pack_target_planes_split", "split_planes_from_packed",
+             "key_planes_from_packed", "split_key_planes",
+             "score_query_batch_split", "score_query_batch_union_keys_splitk")
+    assert {k: kbuild.launches[k] for k in names} == dict.fromkeys(names, 1)

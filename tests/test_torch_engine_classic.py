@@ -8,8 +8,9 @@ tests/test_ops_pixel_match.py:75-92): the banded kernel counts them as
 matches and flags them, and the float64 oracle, which the engine then
 consults, rejects them. So the packed path's rescore runs and changes
 scores. Other targets carry pairs inside the band of the 0.37%
-tolerance. The JAX engine reads CDS_KEY_PLANES and CDS_UNION_KEYS when it
-is imported; it is given the same choice as keyword arguments here.
+tolerance. The JAX engine reads CDS_KEY_PLANES, CDS_UNION_KEYS and
+CDS_SPLIT_PLANES when it is imported; it is given the same choice as
+keyword arguments, or its module flag is patched for the test, here.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from colormipsearch_tpu.engine import cds as jcds
 from colormipsearch_tpu.model import neuron_from_json as jax_neuron
 from colormipsearch_tpu_torch import testing
 from colormipsearch_tpu_torch.engine import cds as tcds
+from colormipsearch_tpu_torch.ops import pixel_match as tpm
 from colormipsearch_tpu_torch.oracle.pixel import PixelMatchOracle
 from colormipsearch_tpu_torch.utils.metrics import GLOBAL as TMETRICS
 
@@ -79,22 +81,46 @@ def _both(library, port_kw, jax_kw, *, pct=0.0, params=None, **find_kw):
 PACKED = dict(use_key_planes=False)
 
 
+def _split_on(monkeypatch) -> dict:
+    """CDS_SPLIT_PLANES=1 for both engines (the JAX engine's flag is read
+    at its import, so it is patched); returns how often each scored a
+    batch on split planes, {"port": n, "jax": n}."""
+    monkeypatch.setenv("CDS_SPLIT_PLANES", "1")
+    monkeypatch.setattr(jcds, "_USE_SPLIT", True)
+    calls = {"port": 0, "jax": 0}
+    # the port's split-plane kernel, and the JAX engine's split-pair
+    # accessor, which its single-device and mesh paths both call per
+    # batch
+    for key, owner, attr in (
+            ("port", tpm, "score_query_batch_split"),
+            ("jax", jcds.CDSearchEngine, "_split_planes")):
+        def counted(*a, _fn=getattr(owner, attr), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(owner, attr, counted)
+    return calls
+
+
 @pytest.mark.parametrize("case", [
     "packed", "packed_max_matches_2", "packed_pct_1", "packed_037",
     "packed_several_shards", "key_planes", "x_union", "x_union_xy4",
     "env_union_0", "env_key_planes", "dense_upload", "split_default_path",
+    "packed_split", "packed_split_037", "packed_split_several_shards",
 ])
 def test_engine_paths_equal_jax(library, case, monkeypatch):
     port_kw, jax_kw, kw = {}, {}, {}
+    split_calls = None
     if case.startswith("packed"):
         port_kw = jax_kw = PACKED
+    if case.startswith("packed_split"):
+        split_calls = _split_on(monkeypatch)
     if case == "packed_max_matches_2":
         kw = dict(max_matches_per_mask=2)
     elif case == "packed_pct_1":
         kw = dict(pct=1.0)
-    elif case == "packed_037":
+    elif case in ("packed_037", "packed_split_037"):
         kw = dict(params=dict(pix_color_fluctuation=0.37))
-    elif case == "packed_several_shards":
+    elif case in ("packed_several_shards", "packed_split_several_shards"):
         monkeypatch.setenv("CDS_TARGET_TILE", "16")
     elif case == "key_planes":
         port_kw = jax_kw = dict(use_key_planes=True)
@@ -128,6 +154,9 @@ def test_engine_paths_equal_jax(library, case, monkeypatch):
         assert port.use_union_keys == "x"
     if case in ("x_union_xy4", "env_key_planes", "key_planes"):
         assert port.use_union_keys is False
+    if split_calls is not None:
+        # both engines scored every batch on the split planes
+        assert split_calls["port"] == split_calls["jax"] > 0
     if case == "packed_max_matches_2":
         per_mask = {}
         for m in got:
@@ -154,19 +183,27 @@ def _oracle_tuples(library, neg, mirror_neg, mask_ids):
 
 
 @pytest.mark.parametrize("engine, mirror_neg", [
-    ("default", True), ("default", False), ("packed", True)])
-def test_negative_query_equals_jax_and_oracle(library, engine, mirror_neg):
-    """The negative query on the full-union engine (its pass on K10) and
-    on the packed engine (its pass on K9, flags rescored): the JAX
-    engine's matches, and the float64 oracle's for two masks."""
+    ("default", True), ("default", False), ("packed", True),
+    ("packed_split", True)])
+def test_negative_query_equals_jax_and_oracle(library, engine, mirror_neg,
+                                              monkeypatch):
+    """The negative query on the full-union engine (its pass on K10), on
+    the packed engine (its pass on K9, flags rescored) and on the packed
+    engine with CDS_SPLIT_PLANES=1 (positive pass K11, negative pass K9):
+    the JAX engine's matches, and the float64 oracle's for two masks."""
     lib, masks, _ = library
     neg = lib.masks[1]
     kw = dict(neg_query_rgb=neg, neg_query_threshold=20,
               mirror_neg_query=mirror_neg)
-    if engine == "packed":
+    split_calls = None
+    if engine.startswith("packed"):
         kw.update(PACKED)
+    if engine == "packed_split":
+        split_calls = _split_on(monkeypatch)
     got, want, _ = _both(library, kw, kw)
     assert got == want and got
+    if split_calls is not None:
+        assert split_calls["port"] == split_calls["jax"] > 0
     two = {masks[0].mip_id, masks[2].mip_id}
     assert [g for g in got if g[0] in two] == \
         _oracle_tuples(library, neg, mirror_neg, [0, 2])

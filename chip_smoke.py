@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
   0. the card (nvidia-smi name and power limit), torch / CUDA versions
      and the repo commit; exits 1 when CUDA is not available;
-  1. builds the thirteen CUDA kernels from kernels/csrc (one nvcc per
+  1. builds the seventeen CUDA kernels from kernels/csrc (one nvcc per
      source, all at once, sm_90a);
   2. checks each kernel against its plain PyTorch version on the card at
      the main paths' shapes (production image 566 x 1210; for the
@@ -18,12 +18,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and K11 at --pixColorFluctuation 1.0 and 0.37, K10, K13 on the K3
      batch; for the shape kernels the support of the first cut mask,
      both orientations, 2,048 targets and a device store of those 2,048
-     targets): exact equality (K9's and K11's ambiguity flags included),
+     targets; rows 13 and 14, the qkey wire form, on K3's batch; row 18b
+     in both modes on the dense packs of the first cut mask's support,
+     both orientations and 2,048 targets; row 15 on the 2,048-target
+     stack; K4's flag gather on K9's batch): exact equality (K9's and
+     K11's ambiguity flags included),
      the median time of each kernel, of its plain version and of the one
      PyTorch call that computes the same function where there is one,
      and each kernel's bound; and each re-encoding against what it
      re-encodes: K12's key planes equal K8's and K1's, K12's split pair
-     K8's split mode, K11's counts and flags K9's, K13's scores K3's;
+     K8's split mode, K11's counts and flags K9's, K13's scores K3's; row
+     13's lane tables K2's, row 14's scores K3's, row 18b's scores after
+     the mirror selection K5's, row 15's slice numbers the float64 slice
+     table's everywhere but at exact ties (counted);
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -56,7 +63,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
      CDS_SPLIT_PLANES=1 and CDS_UNION_KEYS=0 K11 for its positive pass
      and K9 for its negative one; both must find the same matches, and
      16 sampled matches must equal the float64 PixelMatchOracle's with
-     the negative query.
+     the negative query;
+  7. the device mesh (parallel/mesh.py) at 4 target shards of one card:
+     (a) every mesh step on phase 2's shapes, as the JAX package's
+     dryrun_multichip drives them (the search, packed, split, key,
+     union-key and qkey steps, dense and with a per-shard top-k of 256;
+     the dense shape step in both modes; the split shape step): each
+     equals the single-device kernels, the top-k steps a per-shard top-k
+     of the single-device scores, the qkey step the union-key step fed
+     with row 13's expansion; each step's time beside the single-device
+     kernel's; (b) CDSearchEngine(use_mesh=create_mesh(["cuda:0"] * 4))
+     on the phase-3 library five ways (default, packed and split on 8
+     masks, --use-key-planes, default with max_matches_per_mask): every
+     match equal to the single-device engine's, every run through its
+     mesh step; (c) a negative query on the mesh (8 masks); (d)
+     GradScoreEngine over the mesh with the device store on 4 masks of
+     phase 4's candidates: every shape score equal to the single-device
+     run's. The new kernels' launches in the kernels line are phase 7's.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -141,7 +164,27 @@ SPLIT_KERNELS = {
         f"{_CSRC}/union_score.cu",
         "colormipsearch_tpu/ops/pixel_match.py:1612"),
 }
-KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS, **SPLIT_KERNELS}
+# rows 13, 14, 18b (the mesh path's) and 15 (on no path)
+MESH_KERNELS = {
+    "expand_union_tables": (
+        f"{_CSRC}/expand_tables.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:1633"),
+    "score_query_batch_union_qkeys": (
+        f"{_CSRC}/union_score.cu",
+        "colormipsearch_tpu/ops/pixel_match.py:1806"),
+    "shape_score_pairs": (
+        f"{_CSRC}/shape_dense.cu",
+        "colormipsearch_tpu/ops/shape_score.py:764"),
+    "slice_numbers_device": (
+        f"{_CSRC}/slice_numbers.cu",
+        "colormipsearch_tpu/ops/shape_score.py:96"),
+}
+KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS, **SPLIT_KERNELS,
+           **MESH_KERNELS}
+MESH_SHARDS = 4         # phase 7: target shards of the mesh, one card
+MESH_MASKS = 16         # phase 7 (b): masks of the engine runs
+MESH_RESCORE_MASKS = 8  # phase 7 (b): the packed and split runs (rescore)
+MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
 # operations over the peak rate of the CUDA cores (NVIDIA H100 SXM data
 # sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, also
@@ -392,7 +435,57 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
     sync()
     kbuild.reset_launches()
     return out, {"planes": planes, "args3": args3, "best": best,
-                 "mirrored": mirrored, "rows": rows.size, "ops": k3_ops}
+                 "mirrored": mirrored, "rows": rows.size, "ops": k3_ops,
+                 "plans": plans}
+
+
+def check_qkey_kernels(device, k1: dict) -> dict:
+    """Phase 2, rows 13 and 14: K3's batch (`k1`, from check_kernels) in
+    its qkey wire form; row 13's lane tables must equal K2's, row 14's
+    scores K3's. Returns {kernel: entry(...)}."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.ops import pixel_match as pm
+
+    out = {}
+    u_pos, mu_pos, qidx, key_list, u2 = pm.stack_union_qkey_args(
+        k1["plans"], H * W)
+    planes, u_t, mu_t, lo2, sp2, u2_pos = k1["args3"]
+    if u2 != u2_pos or not np.array_equal(u_pos, u_t.cpu().numpy()):
+        raise AssertionError("the qkey and positional stacks differ")
+    qargs = (convert.qidx(qidx, device), convert.as_tensor(key_list, device),
+             *convert.interval_tables(pm.interval_table_arrays(0.01),
+                                      device))
+    lo, sp = pm.expand_union_tables(*qargs)
+    n_lanes, n_u = lo.shape[1], lo.shape[3]
+    # ~10 operations per (mask, lane, element): two clamped index
+    # gathers and four table reads
+    out["expand_union_tables"] = entry(
+        max_abs_err((lo, sp), pm.expand_union_tables_plain(*qargs)),
+        timed(lambda: pm.expand_union_tables(*qargs), 10),
+        timed(lambda: pm.expand_union_tables_plain(*qargs), 3),
+        bound(nbytes(*qargs, lo, sp), BATCH * n_lanes * n_u * 10))
+    require_equal("row 13 lane tables vs K2's (positional form)", (lo, sp),
+                  (lo2, sp2))
+    args14 = (planes, u_t, mu_t, *qargs, u2)
+    got = pm.score_query_batch_union_qkeys(*args14)
+    # K3's work: the same rows gathered, the same range tests
+    out["score_query_batch_union_qkeys"] = entry(
+        max_abs_err(got, pm.score_query_batch_union_qkeys_plain(*args14)),
+        timed(lambda: pm.score_query_batch_union_qkeys(*args14), 5),
+        timed(lambda: pm.score_query_batch_union_qkeys_plain(*args14), 1),
+        bound(k1["rows"] * T_PAD * 4 + nbytes(*args14[1:7], *got),
+              k1["ops"]))
+    require_equal("row 14 vs K3 (best, mirrored)", got,
+                  (k1["best"], k1["mirrored"]))
+    print(f"rows 13-14 qkey form: qidx {tuple(qidx.shape)}, key lists "
+          f"{tuple(key_list.shape)}, u2 {u2}", flush=True)
+    report(out)
+    sync()
+    kbuild.reset_launches()
+    return out
 
 
 def torch_from(arr, device):
@@ -553,11 +646,157 @@ def check_shape_kernels(lib, variants, device) -> dict:
           f" max gap {int((hi.long() * 1024 + lo.long()).max())}, max "
           f"high-expression {int(he.max())}", flush=True)
     report(out)
-    del fields, t_gap, t_he, args
+    del fields
+    sync()
+    free_cached()
+    kbuild.reset_launches()
+    # K5's planes (~0.3 GB) stay for phase 7's split shape step
+    return out, {"q_pack": q_pack, "region": region, "k5_args": args,
+                 "k5": tuple(x.cpu().numpy() for x in (hi, lo, he))}
+
+
+def check_dense_shape_kernels(lib, variants, device, ref: dict):
+    """Phase 2, row 18b: the dense packs (pack_target_rows, both
+    orientations) of the first cut mask's support over 2,048 targets, in
+    both modes against the plain versions; after the mirror selection
+    they must equal K5's gap, high-expression and mirrored (`ref`, from
+    check_shape_kernels). Returns ({kernel: entry(...)}, the host packs
+    for phase 7)."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    q_pack = ref["q_pack"]
+    pos = ss.support_positions(q_pack)
+    n_pad = ss.support_bucket(pos.size)
+    t0 = time.time()
+
+    def pack(start):
+        idx = range(start, min(start + 128, T_PAD))
+        return ss.pack_target_rows(
+            [lib.targets[i] for i in idx], [variants[i][0] for i in idx],
+            [variants[i][1] for i in idx], pos, n_pad, mask_threshold=20,
+            excluded=ref["region"], mirror=True)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        rows = np.concatenate(list(pool.map(pack, range(0, T_PAD, 128))),
+                              axis=2)
+    q2 = np.stack([ss.sparse_query(q_pack, pos, n_pad)] * 2)
+    print(f"row 18b dense packs: support {pos.size} rows (padded "
+          f"{n_pad}), planes {tuple(rows.shape)} "
+          f"({rows.nbytes / 2**30:.2f} GiB) packed on the host in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    t_rows = convert.shape_planes(rows, device)
+    q_t = convert.as_tensor(q2, device)
+    got = ss.shape_score_pairs_both(t_rows, q_t)
+    err = max_abs_err(got, ss.shape_score_pairs_both_plain(t_rows, q_t))
+    one = (t_rows[0], q_t[0])
+    single = ss.shape_score_pairs(*one)
+    err = max(err, max_abs_err(single, ss.shape_score_pairs_plain(*one)))
+    require_equal("row 18b one orientation vs the straight half of both",
+                  single, [x[0] for x in got])
+    # the plane rows a query word selects (the kernel skips the others),
+    # read once each; ~15 operations a word read
+    n_live = int((q_t != 0).sum())
+    out = {"shape_score_pairs": entry(
+        err, timed(lambda: ss.shape_score_pairs_both(t_rows, q_t), 10),
+        timed(lambda: ss.shape_score_pairs_both_plain(t_rows, q_t), 1),
+        bound(n_live * T_PAD * 4 + nbytes(q_t, *got),
+              15 * n_live * T_PAD))}
+    print(f"row 18b one orientation: kernel "
+          f"{timed(lambda: ss.shape_score_pairs(*one), 10):.3f} ms",
+          flush=True)
+    dense = ss._select_orientation(*(x.cpu().numpy() for x in got))
+    split = ss._select_orientation(*ref["k5"])
+    for name, a, b in zip(("gap", "high-expression", "mirrored"), dense,
+                          split):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"row 18b's {name} differs from K5's")
+    print(f"row 18b after the mirror selection equals K5's gap, "
+          f"high-expression and mirrored on {T_PAD} targets "
+          f"({int(dense[2].sum())} mirrored)", flush=True)
+    report(out)
+    del t_rows, q_t, got, single
+    sync()
+    free_cached()
+    kbuild.reset_launches()
+    return out, {"rows": rows, "q2": q2}
+
+
+def check_slice_numbers(lib, device) -> dict:
+    """Phase 2, row 15: slice numbers of the 2,048-target stack against the
+    plain version, and against the float64 slice table everywhere but at
+    exact ties of two LUT distances (counted). Returns {kernel:
+    entry(...)}."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+    from colormipsearch_tpu_torch.ops.slice_lut import get_slice_lut
+
+    rgb = torch_from(np.stack(lib.targets[:T_PAD]), device)
+    got = ss.slice_numbers_device(rgb)
+    err = max_abs_err([got], [ss.slice_numbers_device_plain(rgb)])
+    table = torch.from_numpy(get_slice_lut().view(np.int16)).to(device)
+    flat, got_f = rgb.reshape(-1, 3), got.reshape(-1)
+    bad_rgb, bad_got, bad_ref = [], [], []
+    for c0 in range(0, got_f.numel(), 1 << 26):
+        c = flat[c0:c0 + (1 << 26)].long()
+        ref = table[(c[:, 0] << 16) | (c[:, 1] << 8) | c[:, 2]].int() \
+            & 0xFFFF
+        bad = ref != got_f[c0:c0 + (1 << 26)]
+        bad_rgb.append(c[bad].cpu().numpy())
+        bad_got.append(got_f[c0:c0 + (1 << 26)][bad].cpu().numpy())
+        bad_ref.append(ref[bad].cpu().numpy())
+    ties = _exact_ties(np.concatenate(bad_rgb), np.concatenate(bad_got),
+                       np.concatenate(bad_ref))
+    non_black = int((flat.amax(1) > 0).sum())
+    # 7 bytes a pixel; ~10 operations a pixel and ~4 per LUT entry scanned
+    # (56 at most) for each non-black one
+    out = {"slice_numbers_device": entry(
+        err, timed(lambda: ss.slice_numbers_device(rgb), 5),
+        timed(lambda: ss.slice_numbers_device_plain(rgb), 1),
+        bound(nbytes(rgb, got), 10 * got.numel() + 224 * non_black))}
+    print(f"row 15 slice_numbers_device: {got.numel()} pixels "
+          f"({non_black} not black); {ties} differ from the float64 slice "
+          "table, every one an exact tie of two LUT distances", flush=True)
+    report(out)
+    del rgb, got, table, flat, got_f
     sync()
     free_cached()
     kbuild.reset_launches()
     return out
+
+
+def _exact_ties(rgb, got, ref) -> int:
+    """The pixels where the integer scan and the float64 table differ:
+    raise unless each is an exact tie (equal |255*s - S_i*p| at both
+    slices of the pixel's class row); returns their count."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    rows, starts = ss._lut_tables()
+    for (r, g, b), a, w in zip(rgb.astype(np.int64), got, ref):
+        r_dom = r >= g and r >= b
+        g_dom = not r_dom and g >= r and g >= b
+        if r_dom:
+            cls, p, sec = (5 if g >= b else 6), r, max(g, b)
+        elif g_dom:
+            cls, p, sec = (4 if r >= b else 3), g, max(r, b)
+        else:
+            cls, p, sec = (1 if r >= g else 2), b, max(r, g)
+        ia, iw = a - starts[cls - 1] - 1, w - starts[cls - 1] - 1
+        ok = 0 <= iw < rows.shape[1] and abs(255 * sec - rows[cls - 1, ia]
+                                            * p) == abs(
+            255 * sec - rows[cls - 1, iw] * p)
+        if not ok:
+            raise AssertionError(f"slice number of {(r, g, b)}: {a}, the "
+                                 f"float64 table's {w}, and not a tie")
+    return len(got)
 
 
 def check_classic_kernels(lib, device, k1: dict) -> dict:
@@ -707,6 +946,13 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
               f"{plain11_ms:.3f} ms", flush=True)
         require_equal(f"K11 vs K9 at {flu}% (best, mirrored, flags)", got11,
                       got)
+        if flu == 1.0:
+            # K4's flag gather, the per-shard tail of the packed mesh
+            # step, on this batch's flags
+            require_equal(
+                "K4 with the flag gather (K9's batch at 1.0%) vs its plain "
+                "version", pm.union_keys_topk(*got[:2], TOP_K, got[2]),
+                pm.union_keys_topk_plain(*got[:2], TOP_K, got[2]))
         # the rows the batch gathers, once each; ~30 operations per
         # valid (mask, variant, query pixel, column) element
         n_rows = np.unique(valid).size
@@ -1213,6 +1459,383 @@ def check_negative_query(lib, work: str, n_masks: int, rng) -> None:
           "sampled equal the float64 oracle's", flush=True)
 
 
+def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
+    """Phase 7 (a): every step of parallel/mesh.py at MESH_SHARDS shards of
+    one card on phase 2's shapes (2,048 targets, 8 masks at 1.0%; the
+    first cut mask's dense and split shape planes), each checked against
+    the single-device kernels; then each step's time beside theirs.
+    Returns ({kernel: launches}, {step: calls}, {step: (mesh ms, single
+    ms)}); the launches and calls are those of the steps' own runs (every
+    count set to 0 just before each and added up just after)."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.oracle.pixel import (
+        label_regions_mask,
+        shift_offsets,
+    )
+    from colormipsearch_tpu_torch.ops import common, pixel_match as pm
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+    from colormipsearch_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.create_mesh([device] * MESH_SHARDS)
+    w = T_PAD // MESH_SHARDS
+    n_px = H * W
+    launches = dict.fromkeys(kbuild.launches, 0)
+    calls = dict.fromkeys(pmesh.step_calls, 0)
+    times = {}
+
+    def driven(fn):
+        sync()
+        kbuild.reset_launches()
+        pmesh.reset_step_calls()
+        result = fn()
+        sync()
+        for k, v in kbuild.launches.items():
+            launches[k] += v
+        for k, v in pmesh.step_calls.items():
+            calls[k] += v
+        return result
+
+    def per_shard_topk(best, mirrored, flags):
+        parts = []
+        for sh in range(MESH_SHARDS):
+            cols = slice(sh * w, (sh + 1) * w)
+            sk, ik, mk, fk = pm.union_keys_topk_plain(
+                best[:, cols].contiguous(), mirrored[:, cols].contiguous(),
+                min(TOP_K, w), flags[:, cols].contiguous())
+            parts.append((sk, ik + sh * w, mk, fk))
+        return tuple(torch.cat([p[i] for p in parts], 1) for i in range(4))
+
+    def check(name, got, single, top_k):
+        best, mirrored, flags = single
+        if top_k:
+            require_equal(f"phase 7 {name} step, top-k {TOP_K}, vs a "
+                          "per-shard top-k of the single-device scores",
+                          got[:4], per_shard_topk(best, mirrored, flags))
+            require_equal(f"phase 7 {name} step, top-k: global max and "
+                          "flagged-pair count", got[4:],
+                          (best.max(1).values,
+                           (flags > 0).sum(1, dtype=torch.int32)))
+        else:
+            require_equal(f"phase 7 {name} step vs the single-device "
+                          "kernel", got, (best, mirrored, flags,
+                                          best.max(1).values))
+
+    rgb = torch_from(np.stack(lib.targets[:T_PAD]), device)
+    keys = common.pack_target_planes_keys(
+        rgb, 20, common.rank_lut_tensor(device), t_pad=T_PAD)
+    planes = common.pack_target_planes(rgb, 20, t_pad=T_PAD)
+    del rgb
+    kw = dict(mirror=True, xy_shift=2, pix_color_fluctuation=1.0,
+              excluded_region=label_regions_mask(W, H))
+    plans = [pm.build_query_plan(m, 20, **kw) for m in lib.masks[:BATCH]]
+    q_pad = max(p.positions.shape[1] for p in plans)
+    plans = [pm.build_query_plan(m, 20, pad_to=q_pad, **kw)
+             for m in lib.masks[:BATCH]]
+    pargs = tuple(convert.as_tensor(np.stack([getattr(p, f) for p in plans]),
+                                    device)
+                  for f in ("positions", "q_cls", "q_s", "q_p"))
+    zkw = dict(ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
+               n_straight=plans[0].n_straight)
+    n_straight = plans[0].n_straight
+    kargs = tuple(convert.as_tensor(np.stack([
+        getattr(pm.key_plan_from_query_plan(p, n_px, 1.0), f)
+        for p in plans]), device) for f in ("positions", "lo", "span"))
+    fplans = [pm.build_full_union_key_plan(m, 20, light=True, **kw)
+              for m in lib.masks[:BATCH]]
+    u_pos, mu_pos, q_pos, key_list, u2 = pm.stack_union_pos_args(fplans, n_px)
+    qidx = pm.stack_union_qkey_args(fplans, n_px)[2]
+    tabs = convert.interval_tables(pm.interval_table_arrays(0.01), device)
+    u_t, mu_t, kl_t = (convert.as_tensor(a, device)
+                       for a in (u_pos, mu_pos, key_list))
+    lo2, sp2 = pm.expand_union_tables_from_pos(
+        u_t, convert.as_tensor(q_pos, device), kl_t, *tabs,
+        offsets=tuple(shift_offsets(2)), w=W, h=H)
+    qargs = (u_t, mu_t, convert.qidx(qidx, device), kl_t, *tabs)
+
+    # rank-key planes: the K10, K3 and row 14 steps
+    k10 = pm.score_query_batch_keys(keys, *kargs, n_straight=n_straight)
+    k3 = pm.score_query_batch_union_keys(keys, u_t, mu_t, lo2, sp2, u2)
+    zeros = torch.zeros_like(k3[0])
+    key_shards = pmesh.shard_target_planes(mesh, keys)
+    key_steps = {(name, top_k): make(top_k) for top_k in (0, TOP_K)
+                 for name, make in (
+                     ("keys", lambda k: pmesh.make_sharded_batch_step_keys(
+                         mesh, n_straight=n_straight, top_k=k)),
+                     ("union_keys",
+                      lambda k: pmesh.make_sharded_batch_step_union_keys(
+                          mesh, top_k=k, u2=u2)),
+                     ("union_qkeys",
+                      lambda k: pmesh.make_sharded_batch_step_union_qkeys(
+                          mesh, top_k=k, u2=u2)))}
+
+    def run_key_steps():
+        # row 13's expansion feeds the union-key step
+        lo, sp = pm.expand_union_tables(*qargs[2:])
+        out = {}
+        for top_k in (0, TOP_K):
+            out["keys", top_k] = key_steps["keys", top_k](key_shards, *kargs)
+            out["union_keys", top_k] = key_steps["union_keys", top_k](
+                key_shards, u_t, mu_t, lo, sp)
+            out["union_qkeys", top_k] = key_steps["union_qkeys", top_k](
+                key_shards, *qargs)
+        return out
+
+    got = driven(run_key_steps)
+    for top_k in (0, TOP_K):
+        check("keys (K10)", got["keys", top_k], (*k10, zeros), top_k)
+        check("union_keys (K3)", got["union_keys", top_k], (*k3, zeros),
+              top_k)
+        require_equal(f"phase 7 union_qkeys step (top-k {top_k}) vs the "
+                      "union_keys step fed with row 13's expansion",
+                      got["union_qkeys", top_k], got["union_keys", top_k])
+    times["batch_keys (K10)"] = (
+        timed(lambda: key_steps["keys", 0](key_shards, *kargs), 3),
+        timed(lambda: pm.score_query_batch_keys(
+            keys, *kargs, n_straight=n_straight), 3))
+    times["batch_union_keys (K3)"] = (
+        timed(lambda: key_steps["union_keys", 0](key_shards, u_t, mu_t,
+                                                 lo2, sp2), 3),
+        timed(lambda: pm.score_query_batch_union_keys(keys, u_t, mu_t, lo2,
+                                                      sp2, u2), 3))
+    times["batch_union_qkeys (row 14)"] = (
+        timed(lambda: key_steps["union_qkeys", 0](key_shards, *qargs), 3),
+        timed(lambda: pm.score_query_batch_union_qkeys(keys, *qargs, u2), 3))
+    del keys, key_shards, got, k3, k10, lo2, sp2
+    sync()
+    free_cached()
+
+    # summary planes: the search and packed steps (K9), the split step
+    # (K11)
+    k9 = pm.score_query_batch(planes, *pargs, target_threshold=-1, **zkw)
+    one = tuple(a[:1].contiguous() for a in pargs)
+    k9_one = pm.score_query_batch(planes, *one, target_threshold=-1, **zkw)
+    sp, c8 = common.split_planes_from_packed(planes)
+    k11 = pm.score_query_batch_split(sp, c8, *pargs, **zkw)
+    packed_shards = pmesh.shard_target_planes(mesh, planes)
+    sp_shards, c8_shards = (pmesh.shard_target_planes(mesh, x)
+                            for x in (sp, c8))
+    del sp, c8
+    q1 = tuple(a[0] for a in pargs)
+    packed_steps = {(name, top_k): make(top_k) for top_k in (0, TOP_K)
+                    for name, make in (
+                        ("search", lambda k: pmesh.make_sharded_search_step(
+                            mesh, target_threshold=-1, top_k=k, **zkw)),
+                        ("batch", lambda k: pmesh.make_sharded_batch_step(
+                            mesh, target_threshold=-1, top_k=k, **zkw)))}
+    split_step = pmesh.make_sharded_batch_step_split(mesh, **zkw)
+
+    def run_packed_steps():
+        out = {key: step(packed_shards, *(q1 if key[0] == "search"
+                                          else pargs))
+               for key, step in packed_steps.items()}
+        out["split"] = split_step(sp_shards, c8_shards, *pargs)
+        return out
+
+    got = driven(run_packed_steps)
+    for top_k in (0, TOP_K):
+        check("packed (K9)", got["batch", top_k], k9, top_k)
+    check("split (K11)", got["split"], k11, 0)
+    require_equal("phase 7 split step vs the single-device K9", got["split"],
+                  (*k9, k9[0].max(1).values))
+    require_equal("phase 7 search step vs the single-device K9 (one mask)",
+                  got["search", 0],
+                  (*(x[0] for x in k9_one), k9_one[0].max()))
+    ref_k = per_shard_topk(*k9_one)
+    require_equal("phase 7 search step, top-k, vs a per-shard top-k",
+                  got["search", TOP_K], (*(x[0] for x in k9_one),
+                                         k9_one[0].max(), ref_k[0][0],
+                                         ref_k[1][0]))
+    flagged = int((k9[2] > 0).sum())
+    print(f"phase 7 packed top-k step: {flagged} flagged pairs in the "
+          f"batch, {int(((got['batch', TOP_K][3] > 0)).sum())} of them "
+          "among the per-shard top-k", flush=True)
+    times["search (K9, one mask)"] = (
+        timed(lambda: packed_steps["search", 0](packed_shards, *q1), 3),
+        timed(lambda: pm.score_query_batch(planes, *one, target_threshold=-1,
+                                           **zkw), 3))
+    times["batch (K9)"] = (
+        timed(lambda: packed_steps["batch", 0](packed_shards, *pargs), 3),
+        timed(lambda: pm.score_query_batch(planes, *pargs,
+                                           target_threshold=-1, **zkw), 3))
+    k11_args = (*common.split_planes_from_packed(planes), *pargs)
+    times["batch_split (K11)"] = (
+        timed(lambda: split_step(sp_shards, c8_shards, *pargs), 3),
+        timed(lambda: pm.score_query_batch_split(*k11_args, **zkw), 3))
+    del planes, packed_shards, sp_shards, c8_shards, got, k9, k11, k11_args
+    sync()
+    free_cached()
+
+    # the shape steps: row 18b in both modes, K5
+    rows = convert.shape_planes(dense_ref["rows"], device)
+    q2 = convert.as_tensor(dense_ref["q2"], device)
+    both = ss.shape_score_pairs_both(rows, q2)
+    single = ss.shape_score_pairs(rows[0], q2[0])
+    t_gap, q_gap, t_he, q_he = shape_ref["k5_args"]
+    k5 = ss.shape_score_pairs_split(t_gap, q_gap, t_he, q_he)
+    rows_shards = pmesh.shard_target_planes(mesh, rows)
+    rows0_shards = pmesh.shard_target_planes(mesh, rows[0])
+    gap_shards, he_shards = (pmesh.shard_target_planes(mesh, x)
+                             for x in (t_gap, t_he))
+    shape_step = pmesh.make_sharded_shape_step(mesh)
+    both_step = pmesh.make_sharded_shape_step(mesh, both=True)
+    split_shape_step = pmesh.make_sharded_shape_split_step(mesh)
+    got = driven(lambda: (
+        shape_step(rows0_shards, q2[0]), both_step(rows_shards, q2),
+        split_shape_step(gap_shards, q_gap, he_shards, q_he)))
+    require_equal("phase 7 shape step (row 18b) vs the single-device "
+                  "kernel", got[0], single)
+    require_equal("phase 7 shape step, both orientations, vs the "
+                  "single-device kernel", got[1], both)
+    require_equal("phase 7 split shape step (K5) vs the single-device "
+                  "kernel", got[2], k5)
+    times["shape (row 18b)"] = (
+        timed(lambda: shape_step(rows0_shards, q2[0]), 5),
+        timed(lambda: ss.shape_score_pairs(rows[0], q2[0]), 5))
+    times["shape_both (row 18b)"] = (
+        timed(lambda: both_step(rows_shards, q2), 5),
+        timed(lambda: ss.shape_score_pairs_both(rows, q2), 5))
+    times["shape_split (K5)"] = (
+        timed(lambda: split_shape_step(gap_shards, q_gap, he_shards, q_he),
+              5),
+        timed(lambda: ss.shape_score_pairs_split(t_gap, q_gap, t_he, q_he),
+              5))
+    del rows, q2, rows_shards, rows0_shards, gap_shards, he_shards, got
+    sync()
+    free_cached()
+    missing = [k for k, v in calls.items() if v == 0]
+    if missing:
+        raise AssertionError(f"phase 7 (a) never ran the steps {missing}")
+    print(f"phase 7 (a): every mesh step at {MESH_SHARDS} shards equals "
+          f"the single-device kernels; step calls {calls}", flush=True)
+    return launches, calls, times
+
+
+def run_mesh_engines(lib, work: str) -> dict:
+    """Phase 7 (b)-(d): the engines over a mesh of MESH_SHARDS shards of
+    cuda:0 against the single-device engines on the same inputs; every
+    match (all fields) or shape score must be equal, and each mesh run
+    must go through its mesh step. Returns the mesh runs' launches, each
+    run's counts set to 0 just before it and added up just after."""
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.dataio.json_io import (
+        JSONMatchesReader,
+        read_neurons_json,
+    )
+    from colormipsearch_tpu_torch.engine.cds import CDSearchEngine, CDSParams
+    from colormipsearch_tpu_torch.engine.gradscore import GradScoreEngine
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.parallel import mesh as pmesh
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    mesh = pmesh.create_mesh([f"{DEVICE}:0"] * MESH_SHARDS)
+    launches = dict.fromkeys(kbuild.launches, 0)
+    masks = read_neurons_json(os.path.join(work, "masks.json"))
+    targets = read_neurons_json(os.path.join(work, "targets.json"))
+    params = CDSParams(mask_threshold=20, data_threshold=20,
+                       pix_color_fluctuation=1.0, xy_shift=2,
+                       mirror_mask=True, pct_positive_pixels=1.0,
+                       with_name_label_region=True,
+                       with_color_scale_region=True)
+
+    def run(use_mesh, fn, stage):
+        GLOBAL.reset()
+        reset_peak()
+        kbuild.reset_launches()
+        pmesh.reset_step_calls()
+        t0 = time.time()
+        result = fn(use_mesh)
+        sync()
+        out = {"result": result, "seconds": time.time() - t0,
+               "launches": dict(kbuild.launches),
+               "calls": dict(pmesh.step_calls), "peak": peak_gib(),
+               "stages": stage_seconds(stage)}
+        if use_mesh is not False:
+            for k, v in out["launches"].items():
+                launches[k] += v
+        return out
+
+    def both_ways(label, fn, steps, stage="cds"):
+        single = run(False, fn, stage)
+        meshed = run(mesh, fn, stage)
+        if meshed["result"] != single["result"]:
+            diff = sorted(set(meshed["result"]) ^ set(single["result"]))
+            raise AssertionError(f"phase 7 {label}: the mesh run differs "
+                                 f"from the single-device run: {diff[:5]}")
+        missing = [s for s in steps if meshed["calls"][s] == 0]
+        if missing or any(single["calls"].values()):
+            raise AssertionError(f"phase 7 {label}: mesh steps {missing} "
+                                 "never ran (or the single-device run "
+                                 "used the mesh)")
+        print(f"phase 7 {label}: {len(meshed['result'])} results, identical"
+              f"; single-device {single['seconds']:.2f}s (peak "
+              f"{single['peak']:.2f} GiB), mesh {meshed['seconds']:.2f}s "
+              f"(peak {meshed['peak']:.2f} GiB); mesh stage seconds "
+              f"{json.dumps(meshed['stages'])}; mesh step calls "
+              f"{ {k: v for k, v in meshed['calls'].items() if v} }",
+              flush=True)
+
+    def cds(n_masks, engine_kw=None, **find_kw):
+        def fn(use_mesh):
+            engine = CDSearchEngine(params, device=DEVICE, use_mesh=use_mesh,
+                                    **(engine_kw or {}))
+            return sorted((m.mask_image.mip_id, m.matched_image.mip_id,
+                           m.matching_pixels, m.mirrored,
+                           m.matching_pixels_ratio, m.normalized_score)
+                          for m in engine.find_all_matches(
+                              masks[:n_masks], targets, **find_kw))
+        return fn
+
+    # (b) the engine's configurations, (c) the negative query
+    both_ways(f"(b) default, {MESH_MASKS} masks", cds(MESH_MASKS),
+              ["batch_union_keys"])
+    both_ways(f"(b) packed, {MESH_RESCORE_MASKS} masks",
+              cds(MESH_RESCORE_MASKS, dict(use_key_planes=False)), ["batch"])
+    both_ways(f"(b) --use-key-planes, {MESH_MASKS} masks",
+              cds(MESH_MASKS, dict(use_key_planes=True)), ["batch_keys"])
+    os.environ["CDS_SPLIT_PLANES"] = "1"
+    try:
+        both_ways(f"(b) split (CDS_SPLIT_PLANES=1), {MESH_RESCORE_MASKS} "
+                  "masks", cds(MESH_RESCORE_MASKS,
+                               dict(use_key_planes=False)), ["batch_split"])
+    finally:
+        del os.environ["CDS_SPLIT_PLANES"]
+    both_ways(f"(b) default with max_matches_per_mask 20, {MESH_MASKS} "
+              "masks", cds(MESH_MASKS, max_matches_per_mask=20),
+              ["batch_union_keys"])
+    both_ways(f"(c) negative query (mask 1, mirrored), {BATCH} masks",
+              cds(BATCH, dict(neg_query_rgb=lib.masks[1],
+                              neg_query_threshold=20,
+                              mirror_neg_query=True)),
+              ["batch_union_keys", "batch_keys"])
+
+    # (d) gradScores through the device store
+    locs = JSONMatchesReader.list_matches_locations(
+        [os.path.join(work, "cds", "masks")], 0, MESH_GS_MASKS)
+    gs_params = CDSParams(mask_threshold=20, mirror_mask=True,
+                          with_name_label_region=True,
+                          with_color_scale_region=True)
+
+    def gs(use_mesh):
+        engine = GradScoreEngine(gs_params, device=DEVICE, use_mesh=use_mesh,
+                                 pack_store=os.path.join(work, "store"),
+                                 device_store=True)
+        scored = []
+        for loc in locs:
+            scored.extend(engine.score_matches(
+                JSONMatchesReader.read_matches(loc)))
+        return sorted((m.mask_image.mip_id, m.matched_image.mip_id,
+                       m.gradient_area_gap, m.high_expression_area,
+                       m.normalized_score) for m in scored)
+
+    both_ways(f"(d) gradScores, device store, {len(locs)} masks", gs,
+              ["shape_split"], "gs")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -1273,7 +1896,13 @@ def main() -> int:
     # phase 2
     t0 = time.time()
     checks, k1 = check_kernels(lib, device)
-    checks.update(check_shape_kernels(lib, variants, device))
+    checks.update(check_qkey_kernels(device, k1))
+    shape_out, shape_ref = check_shape_kernels(lib, variants, device)
+    checks.update(shape_out)
+    dense_out, dense_ref = check_dense_shape_kernels(lib, variants, device,
+                                                     shape_ref)
+    checks.update(dense_out)
+    checks.update(check_slice_numbers(lib, device))
     checks.update(check_classic_kernels(lib, device, k1))
     phases["2 kernel checks"] = time.time() - t0
     work = os.path.join(REPO, "build", "chip_smoke_data")
@@ -1303,6 +1932,15 @@ def main() -> int:
                          for k, run in CLASSIC_MAIN_RUN.items()})
         check_negative_query(lib, work, BATCH, rng)
         phases["6 classic paths"] = time.time() - t0
+        # phase 7
+        t0 = time.time()
+        step_launches, _calls, mesh_times = run_mesh_steps(
+            lib, device, shape_ref, dense_ref)
+        del shape_ref, dense_ref
+        engine_launches = run_mesh_engines(lib, work)
+        launches.update({k: step_launches[k] + engine_launches[k]
+                         for k in MESH_KERNELS})
+        phases["7 mesh"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1315,6 +1953,8 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, replaces) in KERNELS.items()]
+    print("mesh steps at %d shards of one card, ms (mesh, single-device): "
+          "%s" % (MESH_SHARDS, json.dumps(mesh_times)), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

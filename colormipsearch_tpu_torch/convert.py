@@ -6,10 +6,14 @@ turn the JAX package's arrays (device arrays or numpy outputs; anything
 ``np.asarray`` accepts, so jax is never imported here) into the port's
 tensors on a given device, bit-exact: uint32 tables become int32 tensors
 holding the same bits (torch's uint32 lacks most operations), uint16
-index arrays widen to int32, everything else keeps its dtype. The uint16
+index arrays widen to int32 (the qkey form's qidx among them: the
+kernels read it as int32), everything else keeps its dtype. The uint16
 planes of the split encodings are the exception: the kernels read them
 as 16-bit words, so :func:`split_planes` and :func:`split_key_planes`
-keep them as int16 tensors with the same bits.
+keep them as int16 tensors with the same bits. A target-sharded JAX
+array (the JAX package's mesh steps) is read in its global layout
+(``np.asarray`` gathers it in one process), so :func:`as_tensor` makes
+it one tensor.
 """
 
 from __future__ import annotations
@@ -85,3 +89,23 @@ def split_key_planes(rank, cls, device: torch.device) -> tuple:
     [P+1, T] cls; split_key_planes) -> (int16 tensor with the same bits,
     uint8 tensor)."""
     return _split_pair(rank, cls, ("rank", "cls"), device)
+
+
+def qidx(arr, device: torch.device) -> torch.Tensor:
+    """The qkey form's uint16 [B, L, U] lane indices (stack_union_qkey_args)
+    -> an int32 tensor with the same values."""
+    a = np.asarray(arr)
+    if a.dtype != np.uint16 or a.ndim != 3:
+        raise ValueError(f"expected uint16 [B, L, U] indices, got {a.dtype} "
+                         f"{a.shape}")
+    return as_tensor(a, device)
+
+
+def shape_planes(arr, device: torch.device) -> torch.Tensor:
+    """Dense shape packs (pack_targets' uint32 [P, T], pack_target_rows'
+    uint32 [n_or, S, T]) -> int32 tensors with the same bits."""
+    a = np.asarray(arr)
+    if a.dtype != np.uint32 or a.ndim not in (2, 3):
+        raise ValueError(f"expected uint32 [P, T] or [n_or, S, T] planes, "
+                         f"got {a.dtype} {a.shape}")
+    return as_tensor(a, device)

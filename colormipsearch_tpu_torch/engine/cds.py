@@ -1,7 +1,7 @@
-"""Color depth search engine (pixel-match pass) on one PyTorch device.
+"""Color depth search engine (pixel-match pass) on PyTorch devices.
 
-The port of the JAX package's engine/cds.py on one device, replacing the
-reference's per-pair threaded loop
+The port of the JAX package's engine/cds.py, replacing the reference's
+per-pair threaded loop
 (cmd/cdsprocess/LocalColorMIPSearchProcessor.java:51-124):
 
   * targets are decoded once per shard and packed into pixel-major
@@ -25,6 +25,10 @@ reference's per-pair threaded loop
   * with a positive pctPositivePixels the union paths pull only a
     per-mask top-k (K4), with a lossless dense fallback when a dropped
     pair could still emit,
+  * with a device mesh (``use_mesh``, parallel/mesh.py) each target shard's
+    planes are cut into D contiguous column shards, one a mesh device,
+    and the sharded steps score every mask batch against all of them; a
+    per-mask top-k is then taken per column shard and merged,
   * matches are assembled into CDMatch entities with the semantics of
     AbstractColorMIPSearchProcessor.findPixelMatch:59-90 (matchingPixels,
     matchingPixelsRatio == initial normalizedScore, mirrored, isMatch
@@ -62,6 +66,7 @@ from colormipsearch_tpu_torch.oracle.pixel import (
     shift_offsets,
 )
 from colormipsearch_tpu_torch.ops import common, pixel_match
+from colormipsearch_tpu_torch.parallel import mesh as pmesh
 from colormipsearch_tpu_torch.utils.metrics import GLOBAL as _METRICS
 
 LOG = logging.getLogger(__name__)
@@ -159,7 +164,11 @@ class TargetShard:
     t_pad: int = 0
     host_stack: np.ndarray | None = None
     # lazy split-plane pair (CDS_SPLIT_PLANES=1), made from `planes`
+    # (its column shards under a mesh)
     split_planes: tuple | None = None
+    # the column shards of `planes` over the engine's mesh (lazy; the
+    # unsharded planes are released once they exist)
+    device_planes: tuple | None = None
 
     def __post_init__(self):
         if not self.t_pad and self.planes is not None:
@@ -192,10 +201,11 @@ class TargetShard:
         return self.split_planes
 
     def release(self) -> None:
-        """Drop this shard's device planes (and their split pair) so the
-        next shard's pack has the memory."""
+        """Drop this shard's device planes (their column shards and their
+        split pair) so the next shard's pack has the memory."""
         self.planes = None
         self.split_planes = None
+        self.device_planes = None
         self.host_stack = None
 
     def host_rgb(self, t_idx: int) -> np.ndarray:
@@ -378,11 +388,16 @@ def iter_target_shards(targets: Sequence[Neuron], *, device: torch.device,
 
 
 class CDSearchEngine:
-    """All-pairs masked CDS scoring (pixel-match pass) on one device.
+    """All-pairs masked CDS scoring (pixel-match pass).
 
     ``device`` is explicit: a CUDA device runs the hand-written kernels,
     the CPU runs their plain PyTorch versions. A CUDA device without a
-    GPU is an error, never a silent CPU run.
+    GPU is an error, never a silent CPU run. ``use_mesh`` (None, True,
+    False or a parallel.mesh.Mesh; see parallel.mesh.resolve_mesh)
+    distributes each target shard's columns over a device mesh, as the
+    JAX engine does whenever JAX sees several devices; a shard whose
+    padded width does not divide over the mesh runs on ``device`` alone.
+    Both give identical matches.
     """
 
     def __init__(self, params: CDSParams, *, device: torch.device | str,
@@ -399,8 +414,10 @@ class CDSearchEngine:
                 f"device {self.device} requested but CUDA is not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if use_mesh:
-            raise not_ported("scoring over several devices", "multi-GPU")
+        self._mesh = pmesh.resolve_mesh(use_mesh, self.device)
+        self._sharded_steps: dict = {}
+        if self._mesh is not None:
+            LOG.info("scoring over a %d-device mesh", self._mesh.size)
         self.params = params
         # the kernel choice of the JAX engine (its engine/cds.py:470-506);
         # the port reads the variables per engine, not at import
@@ -447,6 +464,66 @@ class CDSearchEngine:
             self._key_plans.pop(next(iter(self._key_plans)))
         self._key_plans[key] = (plan, kp)
         return kp
+
+    def _step(self, key, make):
+        """A sharded step of the mesh, built once per configuration."""
+        if key not in self._sharded_steps:
+            self._sharded_steps[key] = make()
+        return self._sharded_steps[key]
+
+    def _sharded_step(self, n_straight: int, ztol, top_k: int = 0,
+                      target_threshold: int = -1):
+        return self._step(
+            ("packed", n_straight, ztol, top_k, target_threshold),
+            lambda: pmesh.make_sharded_batch_step(
+                self._mesh, target_threshold=target_threshold,
+                ztol_num=ztol[0], ztol_den=ztol[1], n_straight=n_straight,
+                top_k=top_k))
+
+    def _split_step(self, n_straight: int, ztol):
+        return self._step(
+            ("split", n_straight, ztol),
+            lambda: pmesh.make_sharded_batch_step_split(
+                self._mesh, ztol_num=ztol[0], ztol_den=ztol[1],
+                n_straight=n_straight))
+
+    def _keys_step(self, n_straight: int, top_k: int = 0):
+        return self._step(
+            ("keys", n_straight, top_k),
+            lambda: pmesh.make_sharded_batch_step_keys(
+                self._mesh, n_straight=n_straight, top_k=top_k))
+
+    def _union_keys_step(self, top_k: int = 0, u2: int | None = None):
+        return self._step(
+            ("ukeys", top_k, u2),
+            lambda: pmesh.make_sharded_batch_step_union_keys(
+                self._mesh, top_k=top_k, u2=u2))
+
+    def _mesh_planes(self, shard: TargetShard) -> tuple:
+        """The shard's planes cut over the mesh, made at first use; the
+        unsharded planes are released once the column shards exist, so the
+        full stack and its shards coexist only for that moment."""
+        if shard.device_planes is None:
+            shard.device_planes = pmesh.shard_target_planes(self._mesh,
+                                                            shard.planes)
+            shard.planes = None
+        return shard.device_planes
+
+    def _split_planes(self, shard: TargetShard, on_mesh: bool) -> tuple:
+        """The split pair of the shard's summary planes (K12 at first use),
+        cut over the mesh when the batch scores there; the unsharded
+        summary planes are then released unless a negative query still
+        scores on them (JAX engine/cds.py _split_planes)."""
+        if not on_mesh:
+            return shard.split_pair()
+        if shard.split_planes is None:
+            pair = common.split_planes_from_packed(shard.planes)
+            shard.split_planes = tuple(
+                pmesh.shard_target_planes(self._mesh, x) for x in pair)
+            del pair
+            if self.neg_query_rgb is None:
+                shard.planes = None
+        return shard.split_planes
 
     def _stacked_key_args(self, plans, n_pixels: int):
         """(pos, lo, span) tensors of a batch of classic key plans."""
@@ -894,15 +971,84 @@ class CDSearchEngine:
             kargs = self._stacked_key_args(plans, n_pixels)
         _METRICS.add("cds.planArgs.seconds", time.time() - t_args0)
         t_disp0 = time.time()
+        # the classic plans' tolerance and variant split (the union
+        # path's light plans carry neither and need neither)
+        ztol = (getattr(plans[0], "ztol_num", None),
+                getattr(plans[0], "ztol_den", None))
+        n_straight = getattr(plans[0], "n_straight", None)
+        # the mesh steps need the padded width to divide over the mesh;
+        # otherwise the batch runs on the engine's device alone
+        on_mesh = self._mesh is not None \
+            and shard.t_pad % self._mesh.size == 0
         if use_split:
-            best, mirrored, pair_flags = pixel_match.score_query_batch_split(
-                *shard.split_pair(), *args, ztol_num=plans[0].ztol_num,
-                ztol_den=plans[0].ztol_den, n_straight=plans[0].n_straight)
+            t_sp, t_c8 = self._split_planes(shard, on_mesh)
+            if on_mesh:
+                best, mirrored, pair_flags, _gmax = self._split_step(
+                    n_straight, ztol)(t_sp, t_c8, *args)
+            else:
+                best, mirrored, pair_flags = \
+                    pixel_match.score_query_batch_split(
+                        t_sp, t_c8, *args, ztol_num=ztol[0],
+                        ztol_den=ztol[1], n_straight=n_straight)
+        elif not use_keys and on_mesh:
+            planes = self._mesh_planes(shard)
+            if top_k > 0:
+                # per-shard top-k: only D*k candidates a mask reach the
+                # host, unless flagged pairs fell outside the selection
+                # (their exact score could beat a selected fast score)
+                scores_k, idx_k, mirr_k, flags_k, _gmax, n_flagged = \
+                    self._sharded_step(n_straight, ztol, top_k, thr)(
+                        planes, *args)
+                flags_k = flags_k.cpu().numpy()
+                idx_k = idx_k.cpu().numpy()
+                valid = (idx_k >= 0) & (idx_k < shard.count)
+                selected = ((flags_k > 0) & valid).sum(axis=1)
+                if not (n_flagged.cpu().numpy() > selected).any():
+                    _METRICS.add("cds.dispatch.seconds",
+                                 time.time() - t_disp0)
+                    return self._emit_from_topk(
+                        batch, shard, scores_k.cpu().numpy(), idx_k,
+                        mirr_k.cpu().numpy(), flags_k, tags,
+                        session_ref_id)
+                _METRICS.add("cds.topkFlagDense.count", 1)
+            best, mirrored, pair_flags, _gmax = self._sharded_step(
+                n_straight, ztol, target_threshold=thr)(planes, *args)
         elif not use_keys:
             best, mirrored, pair_flags = pixel_match.score_query_batch(
                 shard.planes, *args, target_threshold=thr,
-                ztol_num=plans[0].ztol_num, ztol_den=plans[0].ztol_den,
-                n_straight=plans[0].n_straight)
+                ztol_num=ztol[0], ztol_den=ztol[1], n_straight=n_straight)
+        elif on_mesh:
+            planes = self._mesh_planes(shard)
+            if top_k > 0:
+                step = (self._union_keys_step(top_k, u2)
+                        if self.use_union_keys
+                        else self._keys_step(n_straight, top_k))
+                scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = step(
+                    planes, *kargs)
+                _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
+                return self._emit_from_topk(
+                    batch, shard, *(x.cpu().numpy() for x in (
+                        scores_k, idx_k, mirr_k, flags_k)), tags,
+                    session_ref_id)
+            sel_k = self._emit_select_k(top_k) if self.use_union_keys \
+                else 0
+            if sel_k and sel_k < shard.t_pad // self._mesh.size:
+                # threshold-emit selection, per column shard: [B, D*k]
+                scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = \
+                    self._union_keys_step(sel_k, u2)(planes, *kargs)
+                sk = scores_k.cpu().numpy()
+                kth = sk.reshape(sk.shape[0], -1, sel_k)[:, :, -1]
+                if not self._topk_kth_emittable(kth, batch):
+                    _METRICS.add("cds.emitSelect.count", 1)
+                    _METRICS.add("cds.dispatch.seconds",
+                                 time.time() - t_disp0)
+                    return self._emit_from_topk(
+                        batch, shard, sk, *(x.cpu().numpy() for x in (
+                            idx_k, mirr_k, flags_k)), tags, session_ref_id)
+                _METRICS.add("cds.emitSelectFallback.count", 1)
+            step = (self._union_keys_step(u2=u2) if self.use_union_keys
+                    else self._keys_step(n_straight))
+            best, mirrored, _flags, _gmax = step(planes, *kargs)
         elif self.use_union_keys:
             sel_k = self._emit_select_k(top_k)
             if sel_k and sel_k < shard.t_pad:
@@ -928,27 +1074,40 @@ class CDSearchEngine:
                     shard.planes, *kargs, u2=u2)
         else:
             best, mirrored = pixel_match.score_query_batch_keys(
-                shard.planes, *kargs, n_straight=plans[0].n_straight)
+                shard.planes, *kargs, n_straight=n_straight)
 
         # optional negative-query pass: the same kind of kernel over the
         # per-mask negative plans; the overall max (straight vs mirrored)
         # is the negative score to subtract. The group key pins the
         # padded negative width, so a batch has negative plans for every
-        # mask or for none.
+        # mask or for none. On the mesh it scores the column shards; the
+        # split path keeps the summary planes for it.
         neg_plans = [e[4] for e in batch]
         neg_best = neg_flags = None
         if neg_plans[0] is not None:
             ref = neg_plans[0]
+            neg_on_mesh = on_mesh and shard.device_planes is not None
             if use_keys:
-                nb, _nm = pixel_match.score_query_batch_keys(
-                    shard.planes, *self._stacked_key_args(neg_plans,
-                                                          n_pixels),
-                    n_straight=ref.n_straight)
+                neg_kargs = self._stacked_key_args(neg_plans, n_pixels)
+                if neg_on_mesh:
+                    nb, _nm, _nf, _g = self._keys_step(ref.n_straight)(
+                        shard.device_planes, *neg_kargs)
+                else:
+                    nb, _nm = pixel_match.score_query_batch_keys(
+                        shard.planes, *neg_kargs,
+                        n_straight=ref.n_straight)
             else:
-                nb, _nm, nf = pixel_match.score_query_batch(
-                    shard.planes, *self._stacked_plan_args(neg_plans),
-                    target_threshold=thr, ztol_num=ref.ztol_num,
-                    ztol_den=ref.ztol_den, n_straight=ref.n_straight)
+                neg_args = self._stacked_plan_args(neg_plans)
+                neg_ztol = (ref.ztol_num, ref.ztol_den)
+                if neg_on_mesh:
+                    nb, _nm, nf, _g = self._sharded_step(
+                        ref.n_straight, neg_ztol, target_threshold=thr)(
+                            shard.device_planes, *neg_args)
+                else:
+                    nb, _nm, nf = pixel_match.score_query_batch(
+                        shard.planes, *neg_args, target_threshold=thr,
+                        ztol_num=neg_ztol[0], ztol_den=neg_ztol[1],
+                        n_straight=ref.n_straight)
                 neg_flags = nf[:, :shard.count].cpu().numpy()
             neg_best = np.maximum(nb[:, :shard.count].cpu().numpy(), 0)
 

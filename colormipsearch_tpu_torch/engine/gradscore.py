@@ -1,4 +1,4 @@
-"""Gradient (shape) score engine on one PyTorch device.
+"""Gradient (shape) score engine on PyTorch devices.
 
 The port of the JAX package's engine/gradscore.py. Computes the
 gradient-area-gap negative scores for selected matches of a mask,
@@ -20,7 +20,10 @@ three places:
     pixel-major (K7), and each dispatch's planes built on the device
     (K6) from the mask's support positions.
 
-The float64 oracle (oracle/shape.py) is the exact reference; with
+With a device mesh (``use_mesh``) each dispatch's target columns are
+padded to a multiple of the mesh size and scored by the sharded split-row
+step (parallel/mesh.make_sharded_shape_split_step), K5 on every column
+shard. The float64 oracle (oracle/shape.py) is the exact reference; with
 ``use_device=False`` it scores every pair.
 """
 
@@ -35,7 +38,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from colormipsearch_tpu_torch.engine.cds import CDSParams, not_ported
+from colormipsearch_tpu_torch.engine.cds import CDSParams
 from colormipsearch_tpu_torch.io import mips as mips_io
 from colormipsearch_tpu_torch.model import CDMatch, ComputeFileType
 from colormipsearch_tpu_torch.oracle.shape import (
@@ -64,12 +67,14 @@ def _shared_decode_pool(n_workers: int):
 
 
 class GradScoreEngine:
-    """Shape scoring of CDS matches on one device.
+    """Shape scoring of CDS matches.
 
     ``device`` is explicit: a CUDA device runs the hand-written kernels,
     the CPU runs their plain PyTorch versions. A CUDA device without a
     GPU is an error, never a silent CPU run. ``use_device=False`` scores
     every pair with the float64 oracle whatever the device is.
+    ``use_mesh`` follows CDSearchEngine's rule (parallel.mesh.resolve_mesh)
+    and applies to the device path only.
     """
 
     def __init__(self, params: CDSParams, *, device: torch.device | str,
@@ -83,9 +88,15 @@ class GradScoreEngine:
                 f"device {self.device} requested but CUDA is not available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if use_mesh:
-            raise not_ported("shape scoring over several devices",
-                             "multi-GPU")
+        from colormipsearch_tpu_torch.parallel import mesh as pmesh
+
+        self._mesh = (pmesh.resolve_mesh(use_mesh, self.device)
+                      if use_device else None)
+        self._shape_split_step = None
+        if self._mesh is not None:
+            self._shape_split_step = pmesh.make_sharded_shape_split_step(
+                self._mesh)
+            LOG.info("shape scoring over a %d-device mesh", self._mesh.size)
         self.params = params
         self.use_device = use_device
         # device-resident shape store: None = off unless the
@@ -627,14 +638,41 @@ class GradScoreEngine:
         flush()
         return n
 
+    def _pairs_split_fn(self, n_targets: int):
+        """The mesh's sharded split-row step over column shards of the
+        planes, or None (no mesh, or n_targets does not divide)."""
+        if self._mesh is None or n_targets % self._mesh.size:
+            return None
+        from colormipsearch_tpu_torch.parallel.mesh import (
+            shard_target_planes,
+        )
+
+        def fn(t_gap, q_gap, t_he, q_he):
+            return self._shape_split_step(
+                shard_target_planes(self._mesh, t_gap), q_gap,
+                shard_target_planes(self._mesh, t_he), q_he)
+
+        return fn
+
     def _score_group_tile(self, q_gap, q_he, matches, planes) -> int:
         from colormipsearch_tpu_torch.ops import shape_score
 
         t_gap, t_he = planes
         n_real = len(matches)
+        if self._mesh is not None:
+            # pad T to the mesh size so the mesh path always applies
+            # (zero columns are neutral: no foreground, zero gaps)
+            pad = (-t_gap.shape[2]) % self._mesh.size
+            if pad and isinstance(t_gap, torch.Tensor):
+                t_gap = torch.nn.functional.pad(t_gap, (0, pad))
+                t_he = torch.nn.functional.pad(t_he, (0, pad))
+            elif pad:
+                t_gap = np.pad(t_gap, ((0, 0), (0, 0), (0, pad)))
+                t_he = np.pad(t_he, ((0, 0), (0, 0), (0, pad)))
         t_disp = time.time()
         gap, he, _ = shape_score.score_shape_batch_split(
-            t_gap, t_he, q_gap, q_he, device=self.device)
+            t_gap, t_he, q_gap, q_he, device=self.device,
+            pairs_split_fn=self._pairs_split_fn(t_gap.shape[2]))
         GLOBAL.add("gs.dispatch.seconds", time.time() - t_disp)
         gap, he = gap[:n_real], he[:n_real]
         for i, m in enumerate(matches):

@@ -59,7 +59,14 @@ _SIGNATURES = {
     "cmst_union_score_splitk": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P,
                                 _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
                                 _P],
-    "cmst_topk": [_P, _P, _I32, _I64, _I32, _P, _P, _P, _P],
+    "cmst_expand_qkeys": [_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I64, _P,
+                          _P, _P],
+    "cmst_union_score_qkeys": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I64,
+                               _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P,
+                               _P],
+    "cmst_topk": [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
+    "cmst_shape_dense": [_P, _P, _I32, _I64, _I64, _P, _P],
+    "cmst_slice_numbers": [_P, _I64, _P, _P, _I32, _P, _P],
     "cmst_shape_split": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _P, _P],
     "cmst_shape_tile": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
                         _I32, _I32, _I32, _I32, _P, _P, _P],
@@ -220,7 +227,9 @@ KERNELS = ("scatter_key_planes", "expand_union_tables_from_pos",
            "score_query_batch_keys", "pack_target_planes_split",
            "split_planes_from_packed", "key_planes_from_packed",
            "split_key_planes", "score_query_batch_split",
-           "score_query_batch_union_keys_splitk")
+           "score_query_batch_union_keys_splitk", "expand_union_tables",
+           "score_query_batch_union_qkeys", "shape_score_pairs",
+           "slice_numbers_device")
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 

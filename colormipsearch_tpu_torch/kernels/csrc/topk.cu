@@ -2,7 +2,10 @@
 //
 // Replaces colormipsearch_tpu/ops/pixel_match.py
 // `score_query_batch_union_keys_topk` (its `jax.lax.top_k(best, k)` and
-// the mirrored gather at the chosen columns). Order: score descending,
+// the mirrored gather at the chosen columns) and the per-shard tail of
+// colormipsearch_tpu/parallel/mesh.py `_finish_batched_step`, which also
+// gathers the int32 pair flags at the chosen columns (pass a null
+// `pair_flags` to skip that gather). Order: score descending,
 // lower column first on ties — jax.lax.top_k's order, so the kernel,
 // its plain version and the JAX package agree index for index.
 //
@@ -26,7 +29,9 @@ __global__ void topk_kernel(const int32_t* __restrict__ best,
                             int64_t n_cols, int n_pow2, int k,
                             int32_t* __restrict__ scores_k,
                             int32_t* __restrict__ idx_k,
-                            uint8_t* __restrict__ mirr_k) {
+                            uint8_t* __restrict__ mirr_k,
+                            const int32_t* __restrict__ pair_flags,
+                            int32_t* __restrict__ flags_k) {
     extern __shared__ unsigned long long s_keys[];
     const int64_t b = blockIdx.x;
     const int32_t* row = best + b * n_cols;
@@ -62,6 +67,8 @@ __global__ void topk_kernel(const int32_t* __restrict__ best,
         scores_k[b * k + i] = row[col];
         idx_k[b * k + i] = col;
         mirr_k[b * k + i] = mirrored[b * n_cols + col];
+        if (pair_flags != nullptr)
+            flags_k[b * k + i] = pair_flags[b * n_cols + col];
     }
 }
 
@@ -69,10 +76,14 @@ __global__ void topk_kernel(const int32_t* __restrict__ best,
 
 extern "C" int64_t cmst_topk_max_cols() { return MAX_COLS; }
 
+// pair_flags int32 [batch, n_cols] and flags_k int32 [batch, k] are
+// optional: both null, or both set.
 extern "C" int cmst_topk(const void* best, const void* mirrored,
-                         int batch, int64_t n_cols, int k, void* scores_k,
-                         void* idx_k, void* mirr_k, void* stream) {
-    if (n_cols < 1 || n_cols > MAX_COLS || k < 1 || k > n_cols)
+                         const void* pair_flags, int batch, int64_t n_cols,
+                         int k, void* scores_k, void* idx_k, void* mirr_k,
+                         void* flags_k, void* stream) {
+    if (n_cols < 1 || n_cols > MAX_COLS || k < 1 || k > n_cols
+        || (pair_flags == nullptr) != (flags_k == nullptr))
         return cudaErrorInvalidValue;
     if (batch == 0) return cudaGetLastError();
     int n_pow2 = 1;
@@ -88,6 +99,8 @@ extern "C" int cmst_topk(const void* best, const void* mirrored,
         static_cast<const int32_t*>(best),
         static_cast<const uint8_t*>(mirrored), n_cols, n_pow2, k,
         static_cast<int32_t*>(scores_k), static_cast<int32_t*>(idx_k),
-        static_cast<uint8_t*>(mirr_k));
+        static_cast<uint8_t*>(mirr_k),
+        static_cast<const int32_t*>(pair_flags),
+        static_cast<int32_t*>(flags_k));
     return cudaGetLastError();
 }

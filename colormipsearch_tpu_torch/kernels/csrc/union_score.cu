@@ -1,5 +1,6 @@
-// K3 and K13: full-union rank-key scoring with the variant reduction
-// fused in, on int32 key planes (K3) or on split key planes (K13).
+// K3, K13 and the qkey kernel: full-union rank-key scoring with the
+// variant reduction fused in, on int32 key planes (K3, qkey) or on split
+// key planes (K13).
 //
 // K3 replaces colormipsearch_tpu/ops/pixel_match.py
 // `score_query_union_keys_raw` + `score_query_batch_union_keys` +
@@ -8,7 +9,14 @@
 // splitk` (row 12 of the kernel table), which gathers the key as
 // (cls << 15) | rank from a uint16 rank plane and a uint8 class plane
 // (ops/pixel_match.split_key_planes). The two differ only in the key
-// loader, a template argument. For mask b and target column t, every
+// loader, a template argument. The qkey kernel (row 14) replaces
+// `score_query_union_qkeys_raw` + `score_query_batch_union_qkeys`
+// (:1806, :1850): K3's walk whose lane tables are not read from expanded
+// [B, L, 2, U] arrays but gathered while they are staged, from the
+// factored wire form (qk = key_list[b, qidx[b, l, u]], then the shared
+// per-tolerance tables at qk), the table source being a second template
+// argument; it is always the segmented form (two slots, slot 2 added on
+// the prefix u < u2, which may be U). For mask b and target column t, every
 // union element u gathers key = planes[pos[u], t]; lane j counts the u whose
 // key lies in one of its interval windows, (key - lo) mod 2^32 <= span.
 // Segmented tables (two slots, 0 <= u2 < U) ADD the slot-2 hits on the
@@ -58,15 +66,52 @@ struct SplitKeyPlanes {
     }
 };
 
-template <bool SEG, class Planes>
+// Table sources: the (lo, span) window of (mask b, lane j, slot s,
+// element u).
+
+// K3's and K13's: expanded uint32 [B, L, n_slots, U] arrays
+struct ExpandedTables {
+    const uint32_t* lo;
+    const uint32_t* span;
+    int n_lanes, n_slots, n_u;
+    __device__ __forceinline__ void load(int b, int j, int s, int u,
+                                         uint32_t& l, uint32_t& w) const {
+        const int64_t i = ((static_cast<int64_t>(b) * n_lanes + j) * n_slots
+                           + s) * n_u + u;
+        l = lo[i];
+        w = span[i];
+    }
+};
+
+// the qkey kernel's: qidx int32 [B, L, U] into key_list int32 [B, KL],
+// then the shared uint32 [2, n_keys] tables (indices and keys clamped)
+struct QkeyTables {
+    const int32_t* qidx;
+    const int32_t* key_list;
+    const uint32_t* tab_lo;
+    const uint32_t* tab_span;
+    int64_t n_kl, n_keys;
+    int n_lanes, n_u;
+    __device__ __forceinline__ void load(int b, int j, int s, int u,
+                                         uint32_t& l, uint32_t& w) const {
+        int64_t row = qidx[(static_cast<int64_t>(b) * n_lanes + j) * n_u
+                           + u];
+        row = row < 0 ? 0 : (row >= n_kl ? n_kl - 1 : row);
+        int64_t key = key_list[b * n_kl + row];
+        key = key < 0 ? 0 : (key >= n_keys ? n_keys - 1 : key);
+        l = tab_lo[s * n_keys + key];
+        w = tab_span[s * n_keys + key];
+    }
+};
+
+template <bool SEG, class Planes, class Tables>
 __global__ void union_score_kernel(const Planes planes, int64_t n_cols,
                                    const int32_t* __restrict__ u_pos,
                                    const int32_t* __restrict__ mu_pos,
                                    int n_sets, int n_msets,
-                                   const uint32_t* __restrict__ lane_lo,
-                                   const uint32_t* __restrict__ lane_span,
-                                   int n_lanes, int n_slots, int n_u,
-                                   int u2, int32_t* __restrict__ best,
+                                   const Tables tables, int n_lanes,
+                                   int n_slots, int n_u, int u2,
+                                   int32_t* __restrict__ best,
                                    uint8_t* __restrict__ mirrored) {
     __shared__ int32_t s_pos[TILE_U];
     __shared__ uint32_t s_lo[LANE_GROUP * MAX_SLOTS * TILE_U];
@@ -77,10 +122,6 @@ __global__ void union_score_kernel(const Planes planes, int64_t n_cols,
         + threadIdx.x;
     const bool active = t < n_cols;
     const int64_t tc = active ? t : 0;
-    const uint32_t* lo_b = lane_lo
-        + static_cast<int64_t>(b) * n_lanes * n_slots * n_u;
-    const uint32_t* sp_b = lane_span
-        + static_cast<int64_t>(b) * n_lanes * n_slots * n_u;
 
     int orient_max[2] = {0, 0};
     for (int o = 0; o < 2; ++o) {
@@ -105,11 +146,9 @@ __global__ void union_score_kernel(const Planes planes, int64_t n_cols,
                         const int js = e / n;  // (lane in group, slot)
                         const int j = js / n_slots;
                         const int s = js - j * n_slots;
-                        const int64_t src =
-                            (static_cast<int64_t>(g0 + j) * n_slots + s)
-                            * n_u + u0 + k;
-                        s_lo[(j * MAX_SLOTS + s) * TILE_U + k] = lo_b[src];
-                        s_span[(j * MAX_SLOTS + s) * TILE_U + k] = sp_b[src];
+                        const int d = (j * MAX_SLOTS + s) * TILE_U + k;
+                        tables.load(b, g0 + j, s, u0 + k, s_lo[d],
+                                    s_span[d]);
                     }
                     __syncthreads();
                     if (!active) continue;
@@ -154,30 +193,35 @@ __global__ void union_score_kernel(const Planes planes, int64_t n_cols,
     }
 }
 
-template <class Planes>
+template <class Planes, class Tables>
 int run(const Planes& planes, int64_t n_cols, const void* u_pos,
-        const void* mu_pos, int n_sets, int n_msets, const void* lane_lo,
-        const void* lane_span, int batch, int n_lanes, int n_slots, int n_u,
-        int u2, int segmented, void* best, void* mirrored, void* stream) {
+        const void* mu_pos, int n_sets, int n_msets, const Tables& tables,
+        int batch, int n_lanes, int n_slots, int n_u, int u2, int segmented,
+        void* best, void* mirrored, void* stream) {
     if (n_slots < 1 || n_slots > MAX_SLOTS) return cudaErrorInvalidValue;
     if (batch == 0 || n_cols == 0) return cudaGetLastError();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const dim3 grid(cmst::blocks_for(n_cols, THREADS), batch);
     const int32_t* up = static_cast<const int32_t*>(u_pos);
     const int32_t* mp = static_cast<const int32_t*>(mu_pos);
-    const uint32_t* lo = static_cast<const uint32_t*>(lane_lo);
-    const uint32_t* sp = static_cast<const uint32_t*>(lane_span);
     int32_t* b = static_cast<int32_t*>(best);
     uint8_t* m = static_cast<uint8_t*>(mirrored);
     if (segmented)
-        union_score_kernel<true, Planes><<<grid, THREADS, 0, st>>>(
-            planes, n_cols, up, mp, n_sets, n_msets, lo, sp, n_lanes,
+        union_score_kernel<true, Planes, Tables><<<grid, THREADS, 0, st>>>(
+            planes, n_cols, up, mp, n_sets, n_msets, tables, n_lanes,
             n_slots, n_u, u2, b, m);
     else
-        union_score_kernel<false, Planes><<<grid, THREADS, 0, st>>>(
-            planes, n_cols, up, mp, n_sets, n_msets, lo, sp, n_lanes,
+        union_score_kernel<false, Planes, Tables><<<grid, THREADS, 0, st>>>(
+            planes, n_cols, up, mp, n_sets, n_msets, tables, n_lanes,
             n_slots, n_u, u2, b, m);
     return cudaGetLastError();
+}
+
+ExpandedTables expanded(const void* lane_lo, const void* lane_span,
+                        int n_lanes, int n_slots, int n_u) {
+    return ExpandedTables{static_cast<const uint32_t*>(lane_lo),
+                          static_cast<const uint32_t*>(lane_span), n_lanes,
+                          n_slots, n_u};
 }
 
 }  // namespace
@@ -193,7 +237,8 @@ extern "C" int cmst_union_score(const void* planes, int64_t n_cols,
                                 int n_u, int u2, int segmented,
                                 void* best, void* mirrored, void* stream) {
     return run(KeyPlanes{static_cast<const int32_t*>(planes)}, n_cols,
-               u_pos, mu_pos, n_sets, n_msets, lane_lo, lane_span, batch,
+               u_pos, mu_pos, n_sets, n_msets,
+               expanded(lane_lo, lane_span, n_lanes, n_slots, n_u), batch,
                n_lanes, n_slots, n_u, u2, segmented, best, mirrored, stream);
 }
 
@@ -209,7 +254,32 @@ extern "C" int cmst_union_score_splitk(const void* rank, const void* cls,
                                        void* mirrored, void* stream) {
     return run(SplitKeyPlanes{static_cast<const uint16_t*>(rank),
                               static_cast<const uint8_t*>(cls)},
-               n_cols, u_pos, mu_pos, n_sets, n_msets, lane_lo, lane_span,
-               batch, n_lanes, n_slots, n_u, u2, segmented, best, mirrored,
-               stream);
+               n_cols, u_pos, mu_pos, n_sets, n_msets,
+               expanded(lane_lo, lane_span, n_lanes, n_slots, n_u), batch,
+               n_lanes, n_slots, n_u, u2, segmented, best, mirrored, stream);
+}
+
+// Row 14: planes int32 [rows, n_cols]; u_pos / mu_pos as cmst_union_score's;
+// qidx int32 [batch, n_lanes, n_u], key_list int32 [batch, n_kl], tab_lo /
+// tab_span uint32 [2, n_keys]; slot 2 counts on the prefix u < u2
+// (0 <= u2 <= n_u).
+extern "C" int cmst_union_score_qkeys(const void* planes, int64_t n_cols,
+                                      const void* u_pos, const void* mu_pos,
+                                      int n_sets, int n_msets,
+                                      const void* qidx, const void* key_list,
+                                      int64_t n_kl, const void* tab_lo,
+                                      const void* tab_span, int64_t n_keys,
+                                      int batch, int n_lanes, int n_u,
+                                      int u2, void* best, void* mirrored,
+                                      void* stream) {
+    if (n_kl < 1 || n_keys < 1 || u2 < 0 || u2 > n_u)
+        return cudaErrorInvalidValue;
+    const QkeyTables tables{static_cast<const int32_t*>(qidx),
+                            static_cast<const int32_t*>(key_list),
+                            static_cast<const uint32_t*>(tab_lo),
+                            static_cast<const uint32_t*>(tab_span), n_kl,
+                            n_keys, n_lanes, n_u};
+    return run(KeyPlanes{static_cast<const int32_t*>(planes)}, n_cols,
+               u_pos, mu_pos, n_sets, n_msets, tables, batch, n_lanes, 2,
+               n_u, u2, 1, best, mirrored, stream);
 }

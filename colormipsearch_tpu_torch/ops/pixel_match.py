@@ -1185,6 +1185,23 @@ def stack_union_pos_args(plans: list, n_pixels: int):
             qp, kl, u2_pad)
 
 
+def stack_union_qkey_args(plans: list, n_pixels: int):
+    """[B, ...] stacks of (u_pos, mu_pos, qidx, key_list) + static u2 for
+    the factored qkey wire form, or None when any plan lacks it (3-slot
+    tolerance, disjointness unproven, or a >= 65,535-pixel query). qidx
+    stays uint16 [B, L, U] here (convert.as_tensor widens it to int32);
+    index query_size of a mask points at its trailing 0 key."""
+    if any(p.qidx is None or p.key_list is None for p in plans):
+        return None
+    plans, _u_pad, u2_pad, kl = _stack_union_common(
+        plans, n_pixels, with_key_list=True)
+    return (np.stack([p.u_pos for p in plans]),
+            np.stack([p.mu_pos for p in plans]),
+            np.stack([p.qidx for p in plans]),
+            kl,
+            u2_pad)
+
+
 def interval_table_arrays(z_tol: float):
     """The shared (lo, span) uint32 [2, 7 << KEY_RANK_BITS] per-key
     interval tables the qkey kernel gathers from, or None when the
@@ -1309,13 +1326,16 @@ def _is_segmented(u2, n_slots: int, n_u: int) -> bool:
 
 
 def _union_walk_plain(gather, n_cols: int, dev, u_pos, mu_pos, lane_lo,
-                      lane_span, u2, chunk: int):
-    """K3's and K13's plain walk: gather(rows) -> int64 [len(rows), T]
-    keys; the union is taken in `chunk`-element slices so that the
-    int64 [chunk, T] intermediates stay bounded at production shapes."""
+                      lane_span, u2, chunk: int, seg: bool | None = None):
+    """K3's, K13's and the qkey kernel's plain walk: gather(rows) -> int64
+    [len(rows), T] keys; the union is taken in `chunk`-element slices so
+    that the int64 [chunk, T] intermediates stay bounded at production
+    shapes. `seg` forces the segmented form with prefix u2 (the qkey
+    kernel, where u2 may equal U); None derives it as K3 does."""
     batch, _, n_u = u_pos.shape
     n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
-    seg = _is_segmented(u2, n_slots, n_u)
+    if seg is None:
+        seg = _is_segmented(u2, n_slots, n_u)
     best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
     mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
     for b in range(batch):
@@ -1477,28 +1497,38 @@ def score_query_batch_union_keys_splitk(rank, cls, u_pos, mu_pos, lane_lo,
                          rank.device, u_pos, mu_pos, lane_lo, lane_span, u2)
 
 
-def union_keys_topk_plain(best, mirrored, k: int):
+def union_keys_topk_plain(best, mirrored, k: int, pair_flags=None):
     """Plain PyTorch version of K4: a stable descending sort gives
     jax.lax.top_k's order (score descending, lower column first)."""
     scores, idx = torch.sort(best, dim=1, descending=True, stable=True)
     idx = idx[:, :k]
-    return (scores[:, :k].contiguous(), idx.to(torch.int32),
-            torch.gather(mirrored, 1, idx))
+    out = (scores[:, :k].contiguous(), idx.to(torch.int32),
+           torch.gather(mirrored, 1, idx))
+    if pair_flags is None:
+        return out
+    return out + (torch.gather(pair_flags, 1, idx),)
 
 
-def union_keys_topk(best, mirrored, k: int):
+def union_keys_topk(best, mirrored, k: int, pair_flags=None):
     """K4: per-mask top-k of best int32 [B, T] -> (scores_k int32 [B, k],
-    idx_k int32 [B, k], mirr_k bool [B, k]) in jax.lax.top_k's order.
-    CPU tensors run the plain version; CUDA tensors launch
-    kernels/csrc/topk.cu (T <= 16,384) or raise."""
+    idx_k int32 [B, k], mirr_k bool [B, k]) in jax.lax.top_k's order, and
+    with pair_flags int32 [B, T] also flags_k int32 [B, k] gathered at the
+    same columns (the per-shard tail of the mesh steps). CPU tensors run
+    the plain version; CUDA tensors launch kernels/csrc/topk.cu
+    (T <= 16,384) or raise."""
     batch, n_cols = best.shape
     kbuild.check_tensor(best, "best", torch.int32)
     kbuild.check_tensor(mirrored, "mirrored", torch.bool, (batch, n_cols))
-    kbuild.same_device(best, mirrored)
+    extra = ()
+    if pair_flags is not None:
+        kbuild.check_tensor(pair_flags, "pair_flags", torch.int32,
+                            (batch, n_cols))
+        extra = (pair_flags,)
+    kbuild.same_device(best, mirrored, *extra)
     if not 1 <= k <= n_cols:
         raise ValueError(f"k={k} outside [1, {n_cols}]")
     if best.device.type == "cpu":
-        return union_keys_topk_plain(best, mirrored, k)
+        return union_keys_topk_plain(best, mirrored, k, pair_flags)
     kbuild.require_cuda(best)
     lib = kbuild.load_library()
     if n_cols > lib.cmst_topk_max_cols():
@@ -1508,12 +1538,17 @@ def union_keys_topk(best, mirrored, k: int):
     scores_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
     idx_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
     mirr_k = torch.empty((batch, k), dtype=torch.bool, device=dev)
+    flags_k = (torch.empty((batch, k), dtype=torch.int32, device=dev)
+               if extra else None)
     kbuild.check(lib.cmst_topk(
-        best.data_ptr(), mirrored.data_ptr(), batch, n_cols, k,
+        best.data_ptr(), mirrored.data_ptr(),
+        pair_flags.data_ptr() if extra else None, batch, n_cols, k,
         scores_k.data_ptr(), idx_k.data_ptr(), mirr_k.data_ptr(),
-        kbuild.stream_of(best)), "union_keys_topk")
+        flags_k.data_ptr() if extra else None, kbuild.stream_of(best)),
+        "union_keys_topk")
     kbuild.count_launch("union_keys_topk")
-    return scores_k, idx_k, mirr_k
+    out = (scores_k, idx_k, mirr_k)
+    return out + (flags_k,) if extra else out
 
 
 def score_query_batch_union_keys_topk(planes, u_pos, mu_pos, lane_lo,
@@ -1527,6 +1562,136 @@ def score_query_batch_union_keys_topk(planes, u_pos, mu_pos, lane_lo,
         planes, u_pos, mu_pos, lane_lo, lane_span, u2)
     scores_k, idx_k, mirr_k = union_keys_topk(best, mirrored, k)
     return scores_k, idx_k, mirr_k, best, mirrored
+
+
+# --- the qkey wire form: row 13 (table expansion) and row 14 (scoring) ---
+
+
+def _check_qkeys(qidx, key_list, tab_lo, tab_span) -> None:
+    """Validation shared by the row 13 and row 14 wrappers."""
+    kbuild.check_tensor(qidx, "qidx", torch.int32)
+    if qidx.dim() != 3:
+        raise ValueError(f"expected qidx [B, L, U], got {tuple(qidx.shape)}")
+    kbuild.check_tensor(key_list, "key_list", torch.int32)
+    if key_list.dim() != 2 or key_list.shape[0] != qidx.shape[0] \
+            or key_list.shape[1] < 1:
+        raise ValueError(f"key_list {tuple(key_list.shape)} does not fit "
+                         f"qidx {tuple(qidx.shape)}")
+    kbuild.check_tensor(tab_lo, "tab_lo", torch.int32)
+    kbuild.check_tensor(tab_span, "tab_span", torch.int32,
+                        tuple(tab_lo.shape))
+    if tab_lo.dim() != 2 or tab_lo.shape[0] != 2 or tab_lo.shape[1] < 1:
+        raise ValueError(f"expected tab_lo [2, n_keys], got "
+                         f"{tuple(tab_lo.shape)}")
+    kbuild.same_device(qidx, key_list, tab_lo, tab_span)
+
+
+def expand_union_tables_plain(qidx, key_list, tab_lo, tab_span):
+    """Plain PyTorch version of row 13 (see expand_union_tables)."""
+    batch, n_lanes, n_u = qidx.shape
+    rows = qidx.long().clamp(0, key_list.shape[1] - 1)
+    qk = torch.gather(key_list.long(), 1, rows.reshape(batch, -1)) \
+        .reshape(rows.shape).clamp(0, tab_lo.shape[1] - 1)
+    lane_lo = torch.stack([tab_lo[0][qk], tab_lo[1][qk]], 2)
+    lane_span = torch.stack([tab_span[0][qk], tab_span[1][qk]], 2)
+    return lane_lo.contiguous(), lane_span.contiguous()
+
+
+def expand_union_tables(qidx, key_list, tab_lo, tab_span):
+    """Row 13: the factored qkey wire form -> expanded lane tables.
+
+    qidx int32 [B, L, U] (the uint16 indices widened; index query_size
+    points at the mask's trailing 0 key), key_list int32 [B, KL],
+    tab_lo/tab_span int32 [2, n_keys] (uint32 bits of the shared
+    per-tolerance tables, interval_table_arrays) -> (lane_lo, lane_span)
+    int32 [B, L, 2, U] with qk = key_list[b, qidx[b, l, u]] and slot s of
+    each table at qk. Equal to K2's expansion of the same batch's
+    positional form. CPU tensors run the plain version; CUDA tensors
+    launch kernels/csrc/expand_tables.cu (its qkey mode) or raise."""
+    _check_qkeys(qidx, key_list, tab_lo, tab_span)
+    if qidx.device.type == "cpu":
+        return expand_union_tables_plain(qidx, key_list, tab_lo, tab_span)
+    kbuild.require_cuda(qidx)
+    batch, n_lanes, n_u = qidx.shape
+    lane_lo = torch.empty((batch, n_lanes, 2, n_u), dtype=torch.int32,
+                          device=qidx.device)
+    lane_span = torch.empty_like(lane_lo)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_expand_qkeys(
+        qidx.data_ptr(), key_list.data_ptr(), key_list.shape[1],
+        tab_lo.data_ptr(), tab_span.data_ptr(), tab_lo.shape[1], batch,
+        n_lanes, n_u, lane_lo.data_ptr(), lane_span.data_ptr(),
+        kbuild.stream_of(qidx)), "expand_union_tables")
+    kbuild.count_launch("expand_union_tables")
+    return lane_lo, lane_span
+
+
+def _qkey_prefix(u2, n_u: int) -> int:
+    """The slot-2 prefix of the qkey form: u2 when 0 <= u2 <= U, else the
+    whole union (JAX score_query_union_qkeys_raw's u2e)."""
+    return u2 if u2 is not None and 0 <= u2 <= n_u else n_u
+
+
+def score_query_batch_union_qkeys_plain(planes, u_pos, mu_pos, qidx,
+                                        key_list, tab_lo, tab_span,
+                                        u2=None, *, chunk: int = 4096):
+    """Plain PyTorch version of row 14: the plain row 13 expansion, then
+    K3's plain walk in its segmented form."""
+    lane_lo, lane_span = expand_union_tables_plain(qidx, key_list, tab_lo,
+                                                   tab_span)
+    return _union_walk_plain(
+        lambda rows: planes.index_select(0, rows).long(), planes.shape[1],
+        planes.device, u_pos, mu_pos, lane_lo, lane_span,
+        _qkey_prefix(u2, u_pos.shape[2]), chunk, seg=True)
+
+
+def score_query_batch_union_qkeys(planes, u_pos, mu_pos, qidx, key_list,
+                                  tab_lo, tab_span, u2: int | None = None):
+    """Row 14: K3 on the factored qkey wire form.
+
+    planes int32 [P+1, T]; u_pos int32 [B, S, U], mu_pos int32 [B, S or
+    0, U]; qidx, key_list, tab_lo, tab_span as expand_union_tables';
+    u2 the batch's slot-2 prefix (stack_union_qkey_args; None or out of
+    [0, U] = the whole union). The two windows of a key are disjoint
+    (the wire form exists only under that proof), so slot 2's hits are
+    always ADDED, never ORed. Returns (best int32 [B, T], mirrored bool
+    [B, T]), equal to K3's on the same batch's expanded tables. CPU
+    tensors run the plain version; CUDA tensors launch
+    kernels/csrc/union_score.cu (its qkey table source) or raise."""
+    _check_planes({"planes": (planes, torch.int32)})
+    _check_qkeys(qidx, key_list, tab_lo, tab_span)
+    kbuild.check_tensor(u_pos, "u_pos", torch.int32)
+    kbuild.check_tensor(mu_pos, "mu_pos", torch.int32)
+    kbuild.same_device(planes, u_pos, mu_pos, qidx)
+    batch, n_sets, n_u = u_pos.shape
+    n_msets = mu_pos.shape[1]
+    if mu_pos.shape[0] != batch or mu_pos.shape[2] != n_u \
+            or n_msets not in (0, n_sets):
+        raise ValueError(f"mu_pos {tuple(mu_pos.shape)} does not fit "
+                         f"u_pos {tuple(u_pos.shape)}")
+    if qidx.shape[0] != batch or qidx.shape[2] != n_u:
+        raise ValueError(f"qidx {tuple(qidx.shape)} does not fit u_pos "
+                         f"{tuple(u_pos.shape)}")
+    if batch > 65535:
+        raise ValueError(f"{batch} masks in one launch (at most 65,535)")
+    if planes.device.type == "cpu":
+        return score_query_batch_union_qkeys_plain(
+            planes, u_pos, mu_pos, qidx, key_list, tab_lo, tab_span, u2)
+    kbuild.require_cuda(planes)
+    dev = planes.device
+    n_cols = planes.shape[1]
+    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
+    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_union_score_qkeys(
+        planes.data_ptr(), n_cols, u_pos.data_ptr(), mu_pos.data_ptr(),
+        n_sets, n_msets, qidx.data_ptr(), key_list.data_ptr(),
+        key_list.shape[1], tab_lo.data_ptr(), tab_span.data_ptr(),
+        tab_lo.shape[1], batch, qidx.shape[1], n_u, _qkey_prefix(u2, n_u),
+        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(planes)),
+        "score_query_batch_union_qkeys")
+    kbuild.count_launch("score_query_batch_union_qkeys")
+    return best, mirrored
 
 
 # --- the classic kernels: K9 (banded, packed planes) and K10 (keys) -------

@@ -1,5 +1,5 @@
 """Shape (gradient-area-gap) scoring: host packers and the device kernels
-K5-K7.
+K5-K7, the dense-row kernel and the slice-number scan.
 
 The host side (query pack, support split, per-target column selection,
 the packed-store gathers, the mirror selection) is carried over from the
@@ -14,7 +14,14 @@ plain PyTorch version:
     device-resident store fields (shape_tile.cu),
   * K7 ``upload_pixel_major_chunk``: one [R, n] row slice of a store
     field transposed into the pixel-major [n_px, R] device buffer
-    (pixel_major.cu), driven chunk by chunk by ``upload_pixel_major``.
+    (pixel_major.cu), driven chunk by chunk by ``upload_pixel_major``,
+  * row 18b ``shape_score_pairs`` / ``shape_score_pairs_both``: the dense
+    row form of the pair scoring, one orientation or both, on the packs
+    of ``pack_targets`` / ``pack_target_rows`` (shape_dense.cu); only the
+    mesh's shape step (parallel/mesh.make_sharded_shape_step) runs it,
+  * row 15 ``slice_numbers_device``: z-slice numbers of RGB pixels by the
+    exact integer LUT scan (slice_numbers.cu); no engine path runs it
+    (both engines read the slice table, ops/slice_lut.py).
 
 Planes that hold uint32 bits travel as int32 tensors with the same bits,
 and store fields that hold uint16 values as int16 tensors with the same
@@ -34,17 +41,118 @@ import torch
 from colormipsearch_tpu_torch.constants import (
     DEFAULT_COLOR_FLUX,
     GAP_THRESHOLD,
+    RAINBOW_LUT,
+    SLICE_LUT_RANGES,
 )
 from colormipsearch_tpu_torch.kernels import build as kbuild
 from colormipsearch_tpu_torch.oracle import shape as shape_oracle
 
-# field layout (keep in sync with pack_query and the gap planes below)
+# field layout (keep in sync with pack_query, pack_targets and the gap
+# planes below)
 _SL_SHIFT = 16
+_ZNZ_SHIFT = 25
+_TFG_SHIFT = 26
 
 _Q_SL_MASK = 0x1FF
 _Q_NZ_SHIFT = 9
 _Q_SIG_SHIFT = 10
 _Q_HE_SHIFT = 11
+
+
+# -------------------------------------------------------------------------
+# row 15: slice numbers by the exact integer LUT scan
+# -------------------------------------------------------------------------
+
+
+def _lut_tables():
+    """Per-class padded integer LUT tables for the exact argmin.
+
+    Every in-range LUT entry has a dominant channel value of 255
+    (asserted below), so the nearest-ratio comparison
+        |s/p - S_i/255|  ->  argmin_i |255*s - S_i*p|
+    is EXACT in int32 (max magnitude 255*255*255 ~ 1.66e7), reproducing
+    the float64 oracle's first-minimum tie-breaks except at exact
+    rational ties. Returns (secondaries int32 [6, L] padded with 2^20,
+    starts int32 [6])."""
+    lut = RAINBOW_LUT
+    r, g, b = lut[:, 0], lut[:, 1], lut[:, 2]
+    r_dom = (r >= g) & (r >= b)
+    g_dom = ~r_dom & (g >= r) & (g >= b)
+    prim = np.where(r_dom, r, np.where(g_dom, g, b))
+    sec = np.where(r_dom, np.maximum(g, b),
+                   np.where(g_dom, np.maximum(r, b), np.maximum(r, g)))
+    rows, starts = [], []
+    max_len = max(hi - lo + 1 for lo, hi in SLICE_LUT_RANGES.values())
+    for cid in range(1, 7):
+        lo, hi = SLICE_LUT_RANGES[cid]
+        assert (prim[lo:hi + 1] == 255).all(), \
+            "LUT dominant channel must be 255 for the exact integer scan"
+        s_row = sec[lo:hi + 1].astype(np.int64)
+        pad = np.full(max_len - s_row.size, 1 << 20, np.int64)
+        rows.append(np.concatenate([s_row, pad]))
+        starts.append(lo)
+    return (np.asarray(rows, np.int32), np.asarray(starts, np.int32))
+
+
+def slice_numbers_device_plain(rgb: torch.Tensor, *,
+                               chunk: int = 1 << 22) -> torch.Tensor:
+    """Plain PyTorch version of row 15 (see slice_numbers_device), in
+    `chunk`-pixel slices so the [chunk, L] scan stays bounded."""
+    rows, starts = (torch.from_numpy(a).to(rgb.device)
+                    for a in _lut_tables())
+    flat = rgb.reshape(-1, 3)
+    out = torch.empty(flat.shape[0], dtype=torch.int32, device=rgb.device)
+    idx = torch.arange(rows.shape[1], dtype=torch.int32, device=rgb.device)
+    for c0 in range(0, flat.shape[0], chunk):
+        r, g, b = (flat[c0:c0 + chunk, c].to(torch.int32) for c in range(3))
+        r_dom = (r >= g) & (r >= b)
+        g_dom = ~r_dom & (g >= r) & (g >= b)
+        cls = torch.where(
+            r_dom, torch.where(g >= b, 5, 6),
+            torch.where(g_dom, torch.where(r >= b, 4, 3),
+                        torch.where(r >= g, 1, 2))).to(torch.int64)
+        p = torch.where(r_dom, r, torch.where(g_dom, g, b))
+        s = torch.where(r_dom, torch.maximum(g, b),
+                        torch.where(g_dom, torch.maximum(r, b),
+                                    torch.maximum(r, g)))
+        keys = (255 * s[:, None] - rows[cls - 1] * p[:, None]).abs()
+        # the first minimum: the smallest index among the minima
+        first = torch.where(keys == keys.min(-1, keepdim=True).values, idx,
+                            rows.shape[1]).min(-1).values
+        black = (r == 0) & (g == 0) & (b == 0)
+        out[c0:c0 + chunk] = torch.where(black, 0,
+                                         starts[cls - 1] + first + 1)
+    return out.reshape(rgb.shape[:-1])
+
+
+def slice_numbers_device(rgb: torch.Tensor) -> torch.Tensor:
+    """Row 15: int32 z-slice numbers (1..256; 0 for black) of uint8
+    [..., 3] pixels: >=-tie classification (R, G, B priority), the
+    nearest-ratio scan with first-minimum tie-breaking, in exact integer
+    arithmetic (_lut_tables).
+
+    At EXACT rational ties between two LUT distances this takes the
+    first minimum, whereas the reference's float64 arithmetic lets
+    rounding pick a side; ops.slice_lut.slice_numbers_lut (the table
+    built from the float64 oracle) is the bit-exact form, and what both
+    engines use. CPU tensors run the plain version; CUDA tensors launch
+    kernels/csrc/slice_numbers.cu or raise."""
+    kbuild.check_tensor(rgb, "rgb", torch.uint8)
+    if rgb.dim() < 1 or rgb.shape[-1] != 3:
+        raise ValueError(f"expected [..., 3] pixels, got {tuple(rgb.shape)}")
+    if rgb.device.type == "cpu":
+        return slice_numbers_device_plain(rgb)
+    kbuild.require_cuda(rgb)
+    rows, starts = (torch.from_numpy(a).to(rgb.device)
+                    for a in _lut_tables())
+    out = torch.empty(rgb.shape[:-1], dtype=torch.int32, device=rgb.device)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_slice_numbers(
+        rgb.data_ptr(), out.numel(), rows.data_ptr(), starts.data_ptr(),
+        rows.shape[1], out.data_ptr(), kbuild.stream_of(rgb)),
+        "slice_numbers_device")
+    kbuild.count_launch("slice_numbers_device")
+    return out
 
 
 # -------------------------------------------------------------------------
@@ -133,6 +241,103 @@ def pack_query(q_rgb: np.ndarray, *, excluded_region=None,
         he &= roi_keep
     word |= he.reshape(-1).astype(np.int32) << _Q_HE_SHIFT
     return word
+
+
+# -------------------------------------------------------------------------
+# dense (one word a row) target packing: row 18b's inputs
+# -------------------------------------------------------------------------
+#
+# Target words (uint32): bits 0..15 gradient (pre-thresholded), 16..24
+# z-gap slice number, 25 z-gap nonzero, 26 target foreground. The mirror
+# pack flips the gradient and foreground fields horizontally and keeps the
+# z-gap fields in place: flipping the query and the target z-gap plane
+# (the reference's quirk, ShapeMatchColorDepthSearchAlgorithm:214-221) is
+# equivalent.
+
+
+def pack_targets(t_rgb: np.ndarray, grad: np.ndarray,
+                 zgap_rgb: np.ndarray, *, mask_threshold: int):
+    """uint8 [T,H,W,3] x uint16 [T,H,W] x uint8 [T,H,W,3] -> (straight,
+    mirror) packed uint32 [P, T] host planes. Slice numbers come from the
+    exact full-RGB table (ops/slice_lut.py)."""
+    from colormipsearch_tpu_torch.ops.slice_lut import slice_numbers_lut
+
+    t = t_rgb.shape[0]
+    sl = slice_numbers_lut(zgap_rgb).astype(np.uint32)
+    znz = (zgap_rgb.astype(np.int32).sum(axis=-1) > 0).astype(np.uint32)
+    tfg = (t_rgb > mask_threshold).any(axis=-1).astype(np.uint32)
+    # pre-threshold the gradient (ShapeMatch zeroes values <= GAP_THRESHOLD
+    # :219): the slice-gap branch can never fall below it (sg - 40 >= 40)
+    grad_thr = np.where(grad > GAP_THRESHOLD, grad, 0)
+    word = (grad_thr.astype(np.uint32)
+            | (sl << _SL_SHIFT) | (znz << _ZNZ_SHIFT) | (tfg << _TFG_SHIFT))
+    grad_fg = word & np.uint32(0xFFFF | (1 << _TFG_SHIFT))
+    z_part = word & np.uint32((0x1FF << _SL_SHIFT) | (1 << _ZNZ_SHIFT))
+    mirror = z_part | grad_fg[:, :, ::-1]
+    flat = np.ascontiguousarray(word.reshape(t, -1).T)
+    flat_m = np.ascontiguousarray(mirror.reshape(t, -1).T)
+    return flat, flat_m
+
+
+def support_positions(q_pack: np.ndarray,
+                      q_pack_mirror: np.ndarray | None = None) -> np.ndarray:
+    """int32 flat pixel indices whose query word is nonzero (union with
+    the mirror-ROI pack when given) — the only rows that can contribute
+    to any score term."""
+    word = q_pack if q_pack_mirror is None else (q_pack | q_pack_mirror)
+    return np.flatnonzero(word).astype(np.int32)
+
+
+def sparse_query(q_pack: np.ndarray, pos: np.ndarray,
+                 n_pad: int) -> np.ndarray:
+    """Query plane sliced to the padded support rows (pad word = 0, which
+    zeroes every contribution of the pad rows)."""
+    out = np.zeros(n_pad, np.int32)
+    out[:pos.size] = q_pack[pos]
+    return out
+
+
+def pack_target_rows(t_rgbs, grads, zgap_rgbs, pos: np.ndarray,
+                     n_pad: int, *, mask_threshold: int,
+                     excluded: np.ndarray | None = None,
+                     mirror: bool = True):
+    """Column-sliced pack_targets: ONE uint32 [2, S_pad, T] host plane
+    (index 0 straight, 1 mirror; [1, S_pad, T] when mirror=False) holding
+    only the query-support rows `pos`, so both orientations score in one
+    call (shape_score_pairs_both).
+
+    Accepts sequences (or stacks) of per-target [H, W(, 3)] images and
+    slices the support columns per image. The mirror plane keeps z-gap
+    fields in place and takes gradient/foreground from the horizontally
+    mirrored pixel. `excluded`: optional bool [H, W] ignored region; it
+    only clears the foreground bit (grad/zgap are packed uncleaned)."""
+    from colormipsearch_tpu_torch.ops.slice_lut import slice_numbers_lut
+
+    t = len(t_rgbs)
+    w = t_rgbs[0].shape[1]
+    both = np.concatenate([pos, _mirror_of(pos, w)]) if mirror else pos
+
+    zsel = np.stack([z.reshape(-1, 3)[pos] for z in zgap_rgbs])
+    sl = slice_numbers_lut(zsel).astype(np.uint32)
+    znz = (zsel.astype(np.int32).sum(axis=-1) > 0).astype(np.uint32)
+    z_part = (sl << _SL_SHIFT) | (znz << _ZNZ_SHIFT)   # [T, S]
+
+    # straight + mirrored gradient/foreground columns in one slice pass
+    tsel = np.stack([i.reshape(-1, 3)[both] for i in t_rgbs])
+    gsel = np.stack([g.reshape(-1)[both] for g in grads])
+    tfg = (tsel > mask_threshold).any(axis=-1).astype(np.uint32)
+    if excluded is not None:
+        tfg &= (~excluded.reshape(-1)[both]).astype(np.uint32)
+    g_thr = np.where(gsel > GAP_THRESHOLD, gsel, 0).astype(np.uint32)
+    grad_fg = g_thr | (tfg << _TFG_SHIFT)              # [T, (1|2)S]
+
+    n = pos.size
+    n_or = 2 if mirror else 1
+    out = np.zeros((n_or, n_pad, t), np.uint32)
+    out[0, :n] = (z_part | grad_fg[:, :n]).T
+    if mirror:
+        out[1, :n] = (z_part | grad_fg[:, n:]).T
+    return out
 
 
 # -------------------------------------------------------------------------
@@ -464,6 +669,103 @@ def shape_score_pairs_split(t_gap, q_gap, t_he, q_he):
     return out[0], out[1], out[2]
 
 
+# -------------------------------------------------------------------------
+# row 18b: dense-row pair scoring
+# -------------------------------------------------------------------------
+
+
+def _shape_dense_plain(t_pack, q_pack, *, chunk: int = 2048):
+    """[n_or, S, T] x [n_or, S] -> 3 x int32 [n_or, T], in `chunk`-row
+    slices so the int64 intermediates stay bounded."""
+    n_or, n_rows, t = t_pack.shape
+    dev = t_pack.device
+    hi = torch.zeros((n_or, t), dtype=torch.int64, device=dev)
+    lo = torch.zeros_like(hi)
+    he = torch.zeros_like(hi)
+    for o in range(n_or):
+        for r0 in range(0, n_rows, chunk):
+            w = t_pack[o, r0:r0 + chunk].long()      # sign-extended int32
+            grad = w & 0xFFFF
+            z_sl = (w >> _SL_SHIFT) & 0x1FF
+            z_nz = (w >> _ZNZ_SHIFT) & 1
+            t_fg = (w >> _TFG_SHIFT) & 1
+            q = q_pack[o, r0:r0 + chunk, None].long()
+            q_sl = q & _Q_SL_MASK
+            q_nz = (q >> _Q_NZ_SHIFT) & 1
+            q_sig = (q >> _Q_SIG_SHIFT) & 1
+            q_he = (q >> _Q_HE_SHIFT) & 1
+            sg = torch.where((q_sl == 0) | (z_sl == 0), z_sl,
+                             (q_sl - z_sl).abs())
+            overlap = (q_nz & z_nz) == 1
+            grad_term = torch.where(q_sig == 1, grad, torch.zeros_like(grad))
+            val = torch.where(overlap & (sg >= 2 * DEFAULT_COLOR_FLUX),
+                              sg - DEFAULT_COLOR_FLUX, grad_term)
+            lo[o] += (val & 0x3FF).sum(0)
+            hi[o] += (val >> 10).sum(0)
+            he[o] += (q_he & t_fg).sum(0)
+    return _wrap_int32(hi), _wrap_int32(lo), _wrap_int32(he)
+
+
+def _shape_dense(t_pack, q_pack, name: str):
+    """Validate and run row 18b on [n_or, S, T] planes."""
+    n_or, n_rows, t = t_pack.shape
+    kbuild.check_tensor(t_pack, "t_pack", torch.int32)
+    kbuild.check_tensor(q_pack, "q_pack", torch.int32, (n_or, n_rows))
+    kbuild.same_device(t_pack, q_pack)
+    if n_or not in (1, 2):
+        raise ValueError(f"n_or={n_or}: expected 1 or 2 orientations")
+    if t_pack.device.type == "cpu":
+        return _shape_dense_plain(t_pack, q_pack)
+    kbuild.require_cuda(t_pack)
+    out = torch.empty((3, n_or, t), dtype=torch.int32, device=t_pack.device)
+    lib = kbuild.load_library()
+    kbuild.check(lib.cmst_shape_dense(
+        t_pack.data_ptr(), q_pack.data_ptr(), n_or, n_rows, t,
+        out.data_ptr(), kbuild.stream_of(t_pack)), name)
+    kbuild.count_launch("shape_score_pairs")
+    return out[0], out[1], out[2]
+
+
+def _dims(x, n: int, name: str) -> None:
+    if x.dim() != n:
+        raise ValueError(f"{name}: expected {n} dimensions, got "
+                         f"{tuple(x.shape)}")
+
+
+def shape_score_pairs_plain(t_pack, q_pack):
+    """Plain PyTorch version of row 18b (see shape_score_pairs)."""
+    return tuple(x[0] for x in _shape_dense_plain(t_pack[None],
+                                                  q_pack[None]))
+
+
+def shape_score_pairs(t_pack, q_pack):
+    """Row 18b: one query against T targets on dense packs.
+
+    t_pack int32 [S, T] (uint32 bits of pack_targets' words, or the
+    support rows of pack_target_rows), q_pack int32 [S] (pack_query's
+    words at the same rows). Returns (gap_hi, gap_lo, high_expr) int32
+    [T]; the gradient area gap is gap_hi * 1024 + gap_lo (combine_gap).
+    CPU tensors run the plain version; CUDA tensors launch
+    kernels/csrc/shape_dense.cu or raise."""
+    _dims(t_pack, 2, "t_pack")
+    return tuple(x[0] for x in _shape_dense(t_pack[None], q_pack[None],
+                                            "shape_score_pairs"))
+
+
+def shape_score_pairs_both_plain(t_pack2, q_pack2):
+    """Plain PyTorch version of row 18b's two-orientation form."""
+    return _shape_dense_plain(t_pack2, q_pack2)
+
+
+def shape_score_pairs_both(t_pack2, q_pack2):
+    """Row 18b, both orientations in one launch: int32 [2, S, T] stacked
+    (straight, mirror) planes x int32 [2, S] query planes -> (gap_hi,
+    gap_lo, high_expr) int32 [2, T] each. CPU tensors run the plain
+    version; CUDA tensors launch kernels/csrc/shape_dense.cu or raise."""
+    _dims(t_pack2, 3, "t_pack2")
+    return _shape_dense(t_pack2, q_pack2, "shape_score_pairs_both")
+
+
 def combine_gap(gap_hi: np.ndarray, gap_lo: np.ndarray) -> np.ndarray:
     return gap_hi.astype(np.int64) * 1024 + gap_lo.astype(np.int64)
 
@@ -482,21 +784,91 @@ def _select_orientation(hi, lo, he):
             np.where(use_m, he[1], he[0]), use_m)
 
 
+def _on_device(arrays, device: torch.device) -> list:
+    """Host (numpy) arrays uploaded to `device`; tensors as they are."""
+    from colormipsearch_tpu_torch import convert
+
+    return [a if isinstance(a, torch.Tensor) else convert.as_tensor(a, device)
+            for a in arrays]
+
+
+def _pull(outs) -> list:
+    return [a.cpu().numpy() for a in outs]
+
+
+def score_shape_batch(t_pack, t_pack_mirror, q_pack, *, mirror: bool,
+                      device: torch.device, q_pack_mirror=None,
+                      pairs_fn=None):
+    """Dense-row scoring of one query vs T targets, both orientations, with
+    the reference's mirror selection: the orientation with the LOWER
+    negative score wins, straight on ties
+    (ShapeMatchColorDepthSearchAlgorithm:172-179). Returns
+    (gradient_area_gap int64 [T], high_expression_area int64 [T],
+    mirrored bool [T]).
+
+    q_pack_mirror: only needed with an ROI mask (the query packed with a
+    flipped ROI); without ROI both orientations share q_pack. pairs_fn:
+    the (t_pack, q_pack) -> (hi, lo, he) step, given the target planes
+    as they are and the query on `device` (the mesh's
+    make_sharded_shape_step plugs in here after cutting the planes);
+    default shape_score_pairs on the planes uploaded to `device`."""
+    if pairs_fn is None:
+        def pairs_fn(t, q):
+            return shape_score_pairs(*_on_device((t,), device), q)
+
+    def run(t, q):
+        hi, lo, he = _pull(pairs_fn(t, *_on_device((q,), device)))
+        return combine_gap(hi, lo), he.astype(np.int64)
+
+    gap_s, he_s = run(t_pack, q_pack)
+    if not mirror:
+        return gap_s, he_s, np.zeros(gap_s.shape, bool)
+    gap_m, he_m = run(t_pack_mirror,
+                      q_pack if q_pack_mirror is None else q_pack_mirror)
+    neg_s = gap_s + he_s // 2
+    neg_m = gap_m + he_m // 2
+    use_m = neg_m < neg_s
+    return (np.where(use_m, gap_m, gap_s), np.where(use_m, he_m, he_s),
+            use_m)
+
+
+def score_shape_batch_stacked(t_rows, q_pack, *, mirror: bool,
+                              device: torch.device, q_pack_mirror=None,
+                              pairs_both_fn=None, pairs_fn=None):
+    """Stacked-plane form of score_shape_batch: t_rows is the [2, S, T]
+    (or [1, S, T] when mirror=False) output of pack_target_rows; both
+    orientations score in ONE call (shape_score_pairs_both). Same mirror
+    selection semantics."""
+    if not mirror:
+        return score_shape_batch(t_rows[0], None, q_pack, mirror=False,
+                                 device=device, pairs_fn=pairs_fn)
+    if pairs_both_fn is None:
+        def pairs_both_fn(t, q):
+            return shape_score_pairs_both(*_on_device((t,), device), q)
+    q2 = np.stack([q_pack, q_pack if q_pack_mirror is None
+                   else q_pack_mirror])
+    return _select_orientation(*_pull(pairs_both_fn(
+        t_rows, *_on_device((q2,), device))))
+
+
 def score_shape_batch_split(t_gap, t_he, q_gap, q_he, *,
-                            device: torch.device):
+                            device: torch.device, pairs_split_fn=None):
     """Split-row scoring of one query vs T targets with the reference's
     mirror selection.  Host (numpy) planes upload to `device`; tensors
     already there (the device-store path) are used as they are.  q_gap /
-    q_he are the stacked [n_or, ...] query planes.  Returns
+    q_he are the stacked [n_or, ...] query planes.  pairs_split_fn: the
+    (t_gap, q_gap, t_he, q_he) -> (hi, lo, he) step (the mesh's
+    make_sharded_shape_split_step plugs in here, and takes the target
+    planes as they are); default shape_score_pairs_split.  Returns
     (gradient_area_gap int64 [T], high_expression_area int64 [T],
     mirrored bool [T])."""
-    from colormipsearch_tpu_torch import convert
-
-    args = [a if isinstance(a, torch.Tensor) else convert.as_tensor(a, device)
-            for a in (t_gap, q_gap, t_he, q_he)]
-    hi, lo, he = (a.cpu().numpy()
-                  for a in shape_score_pairs_split(*args))
-    return _select_orientation(hi, lo, he)
+    if pairs_split_fn is None:
+        def pairs_split_fn(t_g, q_g, t_h, q_h):
+            t_g, t_h = _on_device((t_g, t_h), device)
+            return shape_score_pairs_split(t_g, q_g, t_h, q_h)
+    q_gap, q_he = _on_device((q_gap, q_he), device)
+    return _select_orientation(*_pull(pairs_split_fn(t_gap, q_gap, t_he,
+                                                     q_he)))
 
 
 # -------------------------------------------------------------------------

@@ -195,13 +195,19 @@ def test_device_cuda_without_gpu_is_an_error(tmp_path):
     dict(env=[("CDS_SPLIT_PLANES", "1"), ("CDS_UNION_KEYS", "0")]),
 ])
 def test_outside_the_slice_raises(setting, tmp_path, monkeypatch):
-    """Scoring over several devices is outside the slice and raises.
-    CDS_SPLIT_PLANES=1 on the packed path without a top-k (chosen by
-    use_key_planes=False or by CDS_UNION_KEYS=0) is inside it: the engine
-    runs the split-plane kernel and finds the JAX engine's matches."""
+    """A mesh across processes (torch.distributed with more than one
+    rank) is outside the slice and raises; the single-process mesh is
+    inside it (tests/test_torch_engine_mesh.py). CDS_SPLIT_PLANES=1 on
+    the packed path without a top-k (chosen by use_key_planes=False or by
+    CDS_UNION_KEYS=0) is inside it too: the engine runs the split-plane
+    kernel and finds the JAX engine's matches."""
     setting = dict(setting)
     env = setting.pop("env", [])
     if setting.get("use_mesh"):
+        import torch.distributed as dist
+
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             CDSearchEngine(CDSParams(), device="cpu",
                            **setting).find_all_matches([], [])

@@ -437,3 +437,166 @@ def test_cuda_split_kernels_count_and_refuse(cuda_device):
              "key_planes_from_packed", "split_key_planes",
              "score_query_batch_split", "score_query_batch_union_keys_splitk")
     assert {k: kbuild.launches[k] for k in names} == dict.fromkeys(names, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_qkey_kernels_and_topk_flags_equal_plain_versions(cuda_device):
+    """Rows 13 and 14 and K4's flag gather against their plain versions
+    on the card, and against the kernels they stand beside: row 13 equals
+    K2 on the same batch's positional form, row 14 equals K3 on the
+    expanded tables, at every slot-2 prefix (small shapes; chip_smoke.py
+    repeats this at the production shapes)."""
+    rng = np.random.default_rng(11)
+    h, w, t_pad = 30, 40, 64
+    stack = np.stack([testing.scattered_pixels(rng, h, w, 250)
+                      for _ in range(37)])
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    keys = tcommon.pack_target_planes_keys(
+        torch.from_numpy(stack).to(cuda_device), 20, lut, t_pad=t_pad)
+    queries = [testing.scattered_pixels(rng, h, w, n) for n in (250, 90)]
+    queries.append(stack[4].copy())
+    for xy in (2, 4):
+        plans = [tpm.build_full_union_key_plan(
+            q, 20, mirror=True, xy_shift=xy, pix_color_fluctuation=1.0,
+            light=True) for q in queries]
+        u_pos, mu_pos, qidx, key_list, u2 = tpm.stack_union_qkey_args(
+            plans, h * w)
+        tabs = convert.interval_tables(tpm.interval_table_arrays(0.01),
+                                       cuda_device)
+        qargs = (convert.qidx(qidx, cuda_device),
+                 convert.as_tensor(key_list, cuda_device), *tabs)
+        lo, sp = tpm.expand_union_tables(*qargs)
+        for a, b in zip((lo, sp), tpm.expand_union_tables_plain(*qargs)):
+            assert torch.equal(a, b), xy
+        _u, _m, q_pos, kl, _ = tpm.stack_union_pos_args(plans, h * w)
+        pos_form = tpm.expand_union_tables_from_pos(
+            *[convert.as_tensor(a, cuda_device) for a in (u_pos, q_pos, kl)],
+            *tabs, offsets=tuple(shift_offsets(xy)), w=w, h=h)
+        assert torch.equal(lo, pos_form[0]) and torch.equal(sp, pos_form[1])
+        ups = [convert.as_tensor(a, cuda_device) for a in (u_pos, mu_pos)]
+        for prefix in (u2, None, 0, u_pos.shape[2]):
+            got = tpm.score_query_batch_union_qkeys(keys, *ups, *qargs,
+                                                    prefix)
+            want = tpm.score_query_batch_union_qkeys_plain(keys, *ups,
+                                                           *qargs, prefix)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (xy, prefix)
+        k3 = tpm.score_query_batch_union_keys(keys, *ups, lo, sp, u2)
+        got = tpm.score_query_batch_union_qkeys(keys, *ups, *qargs, u2)
+        assert torch.equal(got[0], k3[0]) and torch.equal(got[1], k3[1])
+        assert int(got[0].max()) > 0
+    best = torch.randint(0, 4, (3, 300), dtype=torch.int32,
+                         device=cuda_device)
+    flags = torch.randint(0, 9, (3, 300), dtype=torch.int32,
+                          device=cuda_device)
+    for a, b in zip(tpm.union_keys_topk(best, best > 1, 40, flags),
+                    tpm.union_keys_topk_plain(best, best > 1, 40, flags)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_shape_dense_and_slice_kernels_equal_plain_versions(
+        cuda_device):
+    """Row 18b in both modes and row 15 against their plain versions on
+    the card (small shapes; chip_smoke.py repeats this at the production
+    shapes)."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+
+    rng = np.random.default_rng(12)
+    t_pack = convert.as_tensor(rng.integers(0, 1 << 32, (2, 700, 300),
+                                            dtype=np.uint64)
+                               .astype(np.uint32), cuda_device)
+    q = rng.integers(0, 1 << 12, (2, 700)).astype(np.int32)
+    q[:, ::3] = 0
+    q_pack = convert.as_tensor(q, cuda_device)
+    for a, b in zip(tss.shape_score_pairs_both(t_pack, q_pack),
+                    tss.shape_score_pairs_both_plain(t_pack, q_pack)):
+        assert torch.equal(a, b)
+    for a, b in zip(tss.shape_score_pairs(t_pack[1], q_pack[1]),
+                    tss.shape_score_pairs_plain(t_pack[1], q_pack[1])):
+        assert torch.equal(a, b)
+    rgb = torch.from_numpy(rng.integers(0, 256, (97, 131, 3))
+                           .astype(np.uint8)).to(cuda_device)
+    rgb[0, :3] = 0
+    got = tss.slice_numbers_device(rgb)
+    assert torch.equal(got, tss.slice_numbers_device_plain(rgb))
+    assert int(got[0, 0]) == 0 and tuple(got.shape) == (97, 131)
+
+
+@pytest.mark.cuda
+def test_cuda_slice_kernels_count_and_refuse(cuda_device):
+    """One launch per wrapper call on CUDA tensors (both modes of row 18b
+    count as shape_score_pairs); wrong inputs raise before anything
+    launches."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+
+    kbuild.reset_launches()
+    t = torch.zeros((2, 5, 7), dtype=torch.int32, device=cuda_device)
+    q = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
+    tss.shape_score_pairs_both(t, q)
+    tss.shape_score_pairs(t[0], q[0])
+    with pytest.raises(ValueError):
+        tss.shape_score_pairs_both(t, q.cpu())
+    tss.slice_numbers_device(torch.zeros((4, 3), dtype=torch.uint8,
+                                         device=cuda_device))
+    with pytest.raises(ValueError):
+        tss.slice_numbers_device(torch.zeros((4, 2), dtype=torch.uint8,
+                                             device=cuda_device))
+    qidx = torch.zeros((1, 9, 16), dtype=torch.int32, device=cuda_device)
+    kl = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
+    tab = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    tpm.expand_union_tables(qidx, kl, tab, tab)
+    with pytest.raises(TypeError):
+        tpm.expand_union_tables(qidx.long(), kl, tab, tab)
+    assert {k: kbuild.launches[k] for k in (
+        "shape_score_pairs", "slice_numbers_device",
+        "expand_union_tables")} == {"shape_score_pairs": 2,
+                                    "slice_numbers_device": 1,
+                                    "expand_union_tables": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_steps_equal_single_device(cuda_device):
+    """The mesh steps at 4 shards of one card equal the single-device
+    kernels, and launch their kernels once a shard."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+    from colormipsearch_tpu_torch.parallel import mesh as tmesh
+
+    rng = np.random.default_rng(13)
+    h, w, t_pad = 30, 40, 64
+    stack = np.stack([testing.scattered_pixels(rng, h, w, 250)
+                      for _ in range(t_pad)])
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    keys = tcommon.pack_target_planes_keys(
+        torch.from_numpy(stack).to(cuda_device), 20, lut, t_pad=t_pad)
+    mesh = tmesh.create_mesh([cuda_device] * 4)
+    shards = tmesh.shard_target_planes(mesh, keys)
+    plans = [tpm.build_full_union_key_plan(
+        q, 20, mirror=True, xy_shift=2, pix_color_fluctuation=1.0,
+        light=True) for q in (stack[3], stack[40])]
+    u_pos, mu_pos, qidx, key_list, u2 = tpm.stack_union_qkey_args(plans,
+                                                                  h * w)
+    qargs = (convert.as_tensor(u_pos, cuda_device),
+             convert.as_tensor(mu_pos, cuda_device),
+             convert.qidx(qidx, cuda_device),
+             convert.as_tensor(key_list, cuda_device),
+             *convert.interval_tables(tpm.interval_table_arrays(0.01),
+                                      cuda_device))
+    kbuild.reset_launches()
+    got = tmesh.make_sharded_batch_step_union_qkeys(mesh, u2=u2)(shards,
+                                                                 *qargs)
+    assert kbuild.launches["score_query_batch_union_qkeys"] == 4
+    want = tpm.score_query_batch_union_qkeys(keys, *qargs, u2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    top = tmesh.make_sharded_batch_step_union_qkeys(mesh, top_k=5, u2=u2)(
+        shards, *qargs)
+    assert kbuild.launches["union_keys_topk"] == 4
+    assert tuple(top[0].shape) == (2, 20) and int(top[1].max()) < t_pad
+    t_pack = convert.as_tensor(rng.integers(0, 1 << 27, (2, 500, t_pad))
+                               .astype(np.uint32), cuda_device)
+    q_pack = convert.as_tensor(rng.integers(0, 1 << 12, (2, 500))
+                               .astype(np.int32), cuda_device)
+    both = tmesh.make_sharded_shape_step(mesh, both=True)(
+        tmesh.shard_target_planes(mesh, t_pack), q_pack)
+    for a, b in zip(both, tss.shape_score_pairs_both(t_pack, q_pack)):
+        assert torch.equal(a, b)

@@ -514,7 +514,13 @@ def test_engine_equals_jax(shape_library, tmp_path, monkeypatch, mode):
         assert port._pack_store.hits > 0
 
 
-def test_engine_refuses_what_is_not_ported():
+def test_engine_refuses_what_is_not_ported(monkeypatch):
+    """A mesh across processes (torch.distributed with more than one rank)
+    is not ported; a CUDA engine without a GPU is an error."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tgs.GradScoreEngine(tcds.CDSParams(), device="cpu", use_mesh=True)
     if not torch.cuda.is_available():

@@ -30,7 +30,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      K8's split mode, K11's counts and flags K9's, K13's scores K3's; row
      13's lane tables K2's, row 14's scores K3's, row 18b's scores after
      the mirror selection K5's, row 15's slice numbers the float64 slice
-     table's everywhere but at exact ties (counted);
+     table's everywhere but at exact ties (counted); K4's yardstick,
+     torch.topk of its own int64 sort keys, with equal indices; and the
+     redesigned walks at their edge shapes (K3, K13 and row 14 at every
+     testing.UNION_EDGE_CASES batch, at the case's union chunk and the
+     kernel's own; K9 and K11 at 301 and 300 columns and a query that is
+     not a multiple of the chunk), each equal to its plain version;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -186,11 +191,15 @@ MESH_MASKS = 16         # phase 7 (b): masks of the engine runs
 MESH_RESCORE_MASKS = 8  # phase 7 (b): the packed and split runs (rescore)
 MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
-# operations over the peak rate of the CUDA cores (NVIDIA H100 SXM data
-# sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, also
-# taken as the rate of the int32 operations these kernels do)
+# operations over their issue rate (NVIDIA H100 SXM: 3.35 TB/s; 132 SMs at
+# up to 1.98 GHz, each issuing 128 f32 and 64 int32 lane operations a
+# clock: 33.5e12 f32 operations a second, the data sheet's 67 TFLOP/s with
+# an FMA counted as one operation rather than two, and 16.7e12 integer
+# and compare operations a second). The two pipes run side by side, so
+# the operations take the larger of their two times.
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
+F32_OPS_PER_S = 128 * 132 * 1.98e9
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 # phase-6 runs of colorDepthSearch on the first CLASSIC_MASKS masks:
 # (name, extra CLI flags, environment, the kernels the run must launch)
 CLASSIC_RUNS = (
@@ -297,11 +306,13 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, int_ops: float, f32_ops: float = 0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the CUDA cores' peak rate."""
+    the HBM rate and the operations' time, itself the larger of the
+    integer operations over their issue rate and the f32 ones over
+    theirs."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CORE_OPS_PER_S * 1e3
+    t_ops = max(int_ops / INT_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -422,15 +433,24 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
     # a bitonic sort of T 64-bit keys a mask: ~log2(T)^2 / 2 steps of
     # two operations per column
     log_t = T_PAD.bit_length() - 1
+    k4 = pm.union_keys_topk(best, mirrored, TOP_K)
+    # the yardstick: torch.topk, smallest first, of K4's own sort keys
+    # ~(score ^ 2^31) << 32 | column (distinct, so the order is lax.top_k's
+    # exactly; composed outside the timed call); timed only, used nowhere
+    if int(best.min()) < 0:
+        raise AssertionError("negative scores: the int64 keys would wrap")
+    cols = torch.arange(T_PAD, dtype=torch.int64, device=device)
+    keys4 = ((~(best.long() ^ (1 << 31)) & 0xFFFFFFFF) << 32) | cols
+    lib_idx = torch.topk(keys4, TOP_K, largest=False).indices
+    require_equal("K4 vs torch.topk of its int64 keys (indices)",
+                  [k4[1].long()], [lib_idx])
     out["union_keys_topk"] = entry(
-        max_abs_err(pm.union_keys_topk(best, mirrored, TOP_K),
-                    pm.union_keys_topk_plain(best, mirrored, TOP_K)),
+        max_abs_err(k4, pm.union_keys_topk_plain(best, mirrored, TOP_K)),
         timed(lambda: pm.union_keys_topk(best, mirrored, TOP_K), 20),
         timed(lambda: pm.union_keys_topk_plain(best, mirrored, TOP_K), 20),
         bound(nbytes(best, mirrored) + BATCH * TOP_K * 9,
               BATCH * T_PAD * log_t * (log_t + 1)),
-        # torch.topk orders ties differently: timed only, used nowhere
-        timed(lambda: torch.topk(best, TOP_K), 20))
+        timed(lambda: torch.topk(keys4, TOP_K, largest=False), 20))
     report(out)
     sync()
     kbuild.reset_launches()
@@ -953,18 +973,22 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
                 "K4 with the flag gather (K9's batch at 1.0%) vs its plain "
                 "version", pm.union_keys_topk(*got[:2], TOP_K, got[2]),
                 pm.union_keys_topk_plain(*got[:2], TOP_K, got[2]))
-        # the rows the batch gathers, once each; ~30 operations per
-        # valid (mask, variant, query pixel, column) element
+        # the rows the batch gathers, once each; per valid (mask,
+        # variant, query pixel, column) element ~20 integer operations
+        # (unpack, class tests, selects, counts) and ~13 f32 ones (two
+        # conversions, the exact same-class test's products and compares,
+        # the adjacent-class product, FMA and compares)
         n_rows = np.unique(valid).size
         if flu == 1.0:
+            n_el = valid.size * T_PAD
             out["score_query_batch"] = entry(
                 err, ms, plain_ms,
-                bound(n_rows * T_PAD * 4 + nbytes(*args, *got),
-                      30 * valid.size * T_PAD))
+                bound(n_rows * T_PAD * 4 + nbytes(*args, *got), 20 * n_el,
+                      13 * n_el))
             out["score_query_batch_split"] = entry(
                 err11, ms11, plain11_ms,
-                bound(n_rows * T_PAD * 3 + nbytes(*args, *got11),
-                      30 * valid.size * T_PAD))
+                bound(n_rows * T_PAD * 3 + nbytes(*args, *got11), 20 * n_el,
+                      13 * n_el))
             kplans = [pm.key_plan_from_query_plan(p, n_px, flu)
                       for p in plans]
         else:
@@ -996,6 +1020,103 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
     free_cached()
     kbuild.reset_launches()
     return out
+
+
+def check_edge_shapes(lib, device) -> None:
+    """Phase 2, the redesigned walks at their edge shapes, each against
+    its plain version exactly: K3, K13 and row 14 on every
+    testing.UNION_EDGE_CASES batch (random masks at the production image
+    size against 300 targets, not a multiple of a block's 256 columns), at
+    the case's chunk and at the kernel's own; K9 and K11 at 301 and 300
+    target columns (not and a multiple of the four columns a thread; the
+    two masks are the last two) with a query padded 37 past the batch's
+    largest (not a multiple of the 256-pixel chunk), at
+    --pixColorFluctuation 1.0 and 0.37."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import convert, testing
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.oracle.pixel import label_regions_mask
+    from colormipsearch_tpu_torch.ops import common, pixel_match as pm
+
+    rng = np.random.default_rng(7)
+    n_px = H * W
+    pos, rgb, cum = common.coo_foreground(np.stack(lib.targets[:300]), 20,
+                                          300)
+    planes = common.scatter_key_planes_plain(
+        torch_from(pos, device), torch_from(rgb, device),
+        torch_from(cum, device), common.rank_lut_tensor(device),
+        n_px=n_px, t_pad=300)
+    del pos, rgb, cum
+    rank, cls = common.split_key_planes_plain(planes)
+    for case in testing.UNION_EDGE_CASES:
+        batch = testing.union_edge_batch(rng, case, H, W, device)
+        args, qargs = batch["union"], batch["qkeys"]
+        want = pm.score_query_batch_union_keys_plain(planes, *args)
+        want13 = pm.score_query_batch_union_keys_splitk_plain(rank, cls,
+                                                              *args)
+        want14 = pm.score_query_batch_union_qkeys_plain(planes, *qargs)
+        for chunk in sorted({batch["chunk"], 0}):
+            for name, got, ref in (
+                    ("K3", pm.score_query_batch_union_keys(
+                        planes, *args, chunk=chunk), want),
+                    ("K13", pm.score_query_batch_union_keys_splitk(
+                        rank, cls, *args, chunk=chunk), want13),
+                    ("row 14", pm.score_query_batch_union_qkeys(
+                        planes, *qargs, chunk=chunk), want14)):
+                if max_abs_err(got, ref):
+                    raise AssertionError(f"{name} at edge shape {case[0]} "
+                                         f"(chunk {chunk}) differs from "
+                                         "its plain version")
+        print(f"edge shape {case[0]}: K3, K13 and row 14 equal their plain "
+              f"versions (union {tuple(args[0].shape)}, lanes "
+              f"{args[2].shape[1]}, u2 {args[4]}, chunk "
+              f"{batch['chunk'] or 'auto'} and auto; max score "
+              f"{int(want[0].max())})", flush=True)
+    del planes, rank, cls
+    sync()
+    free_cached()
+
+    region = label_regions_mask(W, H)
+    for n_cols in (301, 300):
+        # the two masks themselves are the last two columns: strong
+        # matches and flagged pairs
+        planes = common.pack_target_planes_plain(
+            torch_from(np.stack(lib.targets[:n_cols - 2] + lib.masks[:2]),
+                       device), 20, t_pad=n_cols)
+        sp, c8 = common.split_planes_from_packed_plain(planes)
+        for flu in (1.0, 0.37):
+            kw = dict(mirror=True, xy_shift=2, pix_color_fluctuation=flu,
+                      excluded_region=region)
+            plans = [pm.build_query_plan(m, 20, **kw) for m in lib.masks[:2]]
+            q_pad = max(p.positions.shape[1] for p in plans) + 37
+            plans = [pm.build_query_plan(m, 20, pad_to=q_pad, **kw)
+                     for m in lib.masks[:2]]
+            args = tuple(convert.as_tensor(np.stack([getattr(p, f)
+                                                     for p in plans]),
+                                           device)
+                         for f in ("positions", "q_cls", "q_s", "q_p"))
+            kw11 = dict(ztol_num=plans[0].ztol_num,
+                        ztol_den=plans[0].ztol_den,
+                        n_straight=plans[0].n_straight)
+            want = pm.score_query_batch_plain(planes, *args,
+                                              target_threshold=-1, **kw11)
+            want11 = pm.score_query_batch_split_plain(sp, c8, *args, **kw11)
+            got = pm.score_query_batch(planes, *args, target_threshold=-1,
+                                       **kw11)
+            got11 = pm.score_query_batch_split(sp, c8, *args, **kw11)
+            if max_abs_err(got, want) or max_abs_err(got11, want11):
+                raise AssertionError(
+                    f"K9/K11 at {n_cols} columns and query {q_pad}, {flu}%: "
+                    "differs from the plain version")
+            print(f"edge shape {n_cols} columns, query {q_pad}, {flu}%: K9 "
+                  f"and K11 equal their plain versions, flags included (max "
+                  f"score {int(want[0].max())}, flagged pairs "
+                  f"{int((want[2] > 0).sum())})", flush=True)
+        del planes, sp, c8
+        sync()
+        free_cached()
+    kbuild.reset_launches()
 
 
 def make_variants(lib, seed: int) -> list:
@@ -1904,6 +2025,7 @@ def main() -> int:
     checks.update(dense_out)
     checks.update(check_slice_numbers(lib, device))
     checks.update(check_classic_kernels(lib, device, k1))
+    check_edge_shapes(lib, device)
     phases["2 kernel checks"] = time.time() - t0
     work = os.path.join(REPO, "build", "chip_smoke_data")
     shutil.rmtree(work, ignore_errors=True)

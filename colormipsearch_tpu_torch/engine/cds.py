@@ -47,6 +47,7 @@ import logging
 import os
 import threading
 import time
+import zipfile
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -237,32 +238,38 @@ def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
     pending: dict[tuple[int, int], tuple[list[Neuron], list[bytes]]] = {}
     skipped = 0
     t_decode0 = time.time()
+
+    def skip(n: Neuron, where: str, reason) -> None:
+        nonlocal skipped
+        skipped += 1
+        LOG.warning("skipped target %s (%s): %s", n.mip_id, where, reason)
+
+    def add(n: Neuron, img) -> None:
+        rgb = img.as_rgb()
+        by_shape.setdefault(rgb.shape[:2], ([], []))[0].append(n)
+        by_shape[rgb.shape[:2]][1].append(rgb)
+
     for n in targets:
         fd = n.compute_file(file_type)
         if fd is None:
-            skipped += 1
+            skip(n, "no file", f"no {file_type.value}")
             continue
-        blob = None
-        if native_ok:
-            try:
-                blob = mips_io.read_bytes(fd)
-            except (OSError, FileNotFoundError):
-                skipped += 1
-                continue
-            info = native_decoder.img_info(blob)
-            if info is not None and info[2] == 3 and info[3] == 8:
-                w, h = info[0], info[1]
-                pending.setdefault((h, w), ([], []))[0].append(n)
-                pending[(h, w)][1].append(blob)
-                continue
-        mip = mips_io.load_compute_file(n, file_type) if blob is None \
-            else mips_io.NeuronMIP(n, fd, _decode_or_none(blob))
-        if not mip.has_image:
-            skipped += 1
+        where = _file_name(fd)
+        try:
+            blob = mips_io.read_bytes(fd)
+        except (OSError, zipfile.BadZipFile) as e:
+            skip(n, where, e)
             continue
-        rgb = mip.image.as_rgb()
-        by_shape.setdefault(rgb.shape[:2], ([], []))[0].append(n)
-        by_shape[rgb.shape[:2]][1].append(rgb)
+        info = native_decoder.img_info(blob) if native_ok else None
+        if info is not None and info[2] == 3 and info[3] == 8:
+            pending.setdefault((info[1], info[0]), ([], []))[0].append(n)
+            pending[(info[1], info[0])][1].append(blob)
+            continue
+        img, reason = _decode(blob)
+        if img is None:
+            skip(n, where, reason)
+        else:
+            add(n, img)
 
     # batch-decode the native-eligible groups
     for (h, w), (neurons, blobs) in pending.items():
@@ -270,18 +277,17 @@ def load_target_shards(targets: Sequence[Neuron], *, device: torch.device,
             blobs, width=w, height=h, channels=3)
         dst = by_shape.setdefault((h, w), ([], []))
         for i, n in enumerate(neurons):
-            if not ok[i]:
-                # per-image fallback: the native decoder rejects some
-                # valid encodings (e.g. interlaced PNG)
-                img = _decode_or_none(blobs[i])
-                if img is None:
-                    skipped += 1
-                    continue
+            if ok[i]:
                 dst[0].append(n)
-                dst[1].append(img.as_rgb())
+                dst[1].append(arena[i])
                 continue
-            dst[0].append(n)
-            dst[1].append(arena[i])
+            # per-image fallback: the native decoder rejects some valid
+            # encodings (e.g. interlaced PNG)
+            img, reason = _decode(blobs[i])
+            if img is None:
+                skip(n, _file_name(n.compute_file(file_type)), reason)
+            else:
+                add(n, img)
     if skipped:
         LOG.warning("skipped %d targets with missing/corrupt images", skipped)
     _METRICS.add("cds.decodeTargets.seconds", time.time() - t_decode0)
@@ -345,12 +351,18 @@ def _trim_per_mask(matches: list[CDMatch], k: int) -> list[CDMatch]:
     return out
 
 
-def _decode_or_none(blob: bytes):
+def _decode(blob: bytes):
+    """(ImageData, None), or (None, the decoder's reason)."""
     from colormipsearch_tpu_torch.io.image import read_image
     try:
-        return read_image(blob)
-    except (OSError, ValueError):
-        return None
+        return read_image(blob), None
+    except (OSError, ValueError) as e:
+        return None, e
+
+
+def _file_name(fd) -> str:
+    return f"{fd.file_name}:{fd.entry_name}" if fd.is_zip_entry \
+        else fd.file_name
 
 
 def iter_target_shards(targets: Sequence[Neuron], *, device: torch.device,

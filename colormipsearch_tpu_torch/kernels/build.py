@@ -55,15 +55,15 @@ _SIGNATURES = {
     "cmst_expand_tables": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P,
                            _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
     "cmst_union_score": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _I32,
-                         _I32, _I32, _I32, _I32, _P, _P, _P],
+                         _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     "cmst_union_score_splitk": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P,
-                                _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
-                                _P],
+                                _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P,
+                                _P, _P, _P],
     "cmst_expand_qkeys": [_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I64, _P,
                           _P, _P],
     "cmst_union_score_qkeys": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I64,
-                               _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P,
-                               _P],
+                               _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                               _P, _P, _P, _P],
     "cmst_topk": [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
     "cmst_shape_dense": [_P, _P, _I32, _I64, _I64, _P, _P],
     "cmst_slice_numbers": [_P, _I64, _P, _P, _I32, _P, _P],

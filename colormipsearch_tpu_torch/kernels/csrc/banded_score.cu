@@ -30,205 +30,260 @@
 // -use_fast_math.
 //
 // Bound on the H100: one 4-byte gather (K11: a 2-byte and a 1-byte
-// gather) and ~25 integer and f32
-// operations per (mask, variant, query pixel, column) element, 6e9
-// elements for 8 masks x 18 variants x 20,480 padded query pixels x
-// 2,048 columns. K3's lesson (one thread walking a whole query serially
-// is latency-bound) shapes the grid: blocks split over (column block,
-// query chunk, mask x variant), so ~10^5 blocks keep every SM busy; a
-// chunk's positions and rules are staged in shared memory (every thread
-// reads the same entry: a broadcast), each thread owns one column and
-// keeps its two counts in registers, and adds them with int32 atomics
-// into a zeroed [B, V, T] scratch. Integer addition is order-free, so
-// the result is exact and deterministic. A second small pass reduces
+// gather) and ~25 integer and f32 operations per (mask, variant, query
+// pixel, column) element, 6e9 elements for 8 masks x 18 variants x 20,480
+// padded query pixels x 2,048 columns; most of the operations are integer
+// compares and selects, which issue at a quarter of the f32 FMA rate.
+//
+// The first design (one column a thread, one block per (column block,
+// query chunk, mask x variant), ~92k blocks) filled the card but paid per
+// element ~10 shared-memory loads for the query pixel's rules against one
+// global gather, and 47M int32 atomics (~80 per output word). Three
+// changes were measured on the H100, alone and together (PERF.md): C
+// columns a thread, every variant of a query chunk in one block, and
+// several query chunks a block. Only the first paid: looping the variants
+// in a block costs registers and so occupancy, and more than one chunk a
+// block serialises its staging. So a thread now takes COLS = 4 adjacent
+// columns, read with one vector load (int4; K11 a uint2 + uint32) when the
+// column count and the planes' alignment allow it and one by one
+// otherwise, and every rule read from shared memory serves 4 elements. The
+// grid is (column block, query chunk, mask x variant); each thread keeps
+// 2 x COLS counts in registers and adds them into the zeroed [2, B, V, T]
+// scratch with int32 atomics at the end. Integer addition is order-free,
+// so the result is exact and deterministic. A second small pass reduces
 // over the variants.
 #include "common.cuh"
 
 namespace {
 
-constexpr int QC = 256;       // query pixels staged per block
-constexpr int THREADS = 256;  // columns per block
+constexpr int QC = 256;       // query pixels staged per chunk
+constexpr int THREADS = 128;  // threads per block (COLS columns each)
+constexpr int COLS = 4;       // adjacent target columns a thread
 
-// Loaders read the planes through the read-only cache (__ldg).
+// Loaders read the planes through the read-only cache (__ldg): load
+// gathers COLS consecutive columns (a vector load when `vec`, else one by
+// one, columns past the edge 0) into packed words, decode unpacks one.
 
 // K9's loader: one int32 summary word (cls << 24) | (p << 16) | (s << 8)
 // | maxch; valid unless the threshold is tested here (not FOLDED)
 struct SummaryPlanes {
     const int32_t* planes;
     int thr;
+    __device__ __forceinline__ void load(int64_t i, bool vec, int64_t left,
+                                         uint32_t (&w)[COLS]) const {
+        if (vec) {
+            const int4 x = __ldg(reinterpret_cast<const int4*>(planes + i));
+            w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+            return;
+        }
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+            w[c] = c < left ? __ldg(planes + i + c) : 0;
+    }
     template <bool FOLDED>
-    __device__ __forceinline__ bool load(int64_t i, int& t_cls, int& t_s,
-                                         int& t_p) const {
-        const int v = __ldg(planes + i);
+    __device__ __forceinline__ bool decode(uint32_t v, int& t_cls, int& t_s,
+                                           int& t_p) const {
         t_cls = (v >> 24) & 0x7;
         t_s = (v >> 8) & 0xFF;
         t_p = (v >> 16) & 0xFF;
-        return FOLDED || (v & 0xFF) > thr;
+        return FOLDED || static_cast<int>(v & 0xFF) > thr;
     }
 };
 
 // K11's loader: the split pair, the threshold folded into it; the class
-// byte is taken as it is, as the JAX function takes it
+// byte is taken as it is, as the JAX function takes it. Packed word:
+// (cls << 16) | (p << 8) | s.
 struct SplitPlanes {
     const uint16_t* sp;
     const uint8_t* c8;
+    __device__ __forceinline__ void load(int64_t i, bool vec, int64_t left,
+                                         uint32_t (&w)[COLS]) const {
+        if (vec) {
+            const uint2 x = __ldg(reinterpret_cast<const uint2*>(sp + i));
+            const uint32_t c = __ldg(reinterpret_cast<const uint32_t*>(
+                c8 + i));
+            w[0] = (x.x & 0xFFFF) | ((c & 0xFF) << 16);
+            w[1] = (x.x >> 16) | (((c >> 8) & 0xFF) << 16);
+            w[2] = (x.y & 0xFFFF) | (((c >> 16) & 0xFF) << 16);
+            w[3] = (x.y >> 16) | ((c >> 24) << 16);
+            return;
+        }
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+            w[c] = c < left ? (__ldg(sp + i + c)
+                               | (static_cast<uint32_t>(__ldg(c8 + i + c))
+                                  << 16))
+                            : 0;
+    }
     template <bool FOLDED>
-    __device__ __forceinline__ bool load(int64_t i, int& t_cls, int& t_s,
-                                         int& t_p) const {
-        const int w = __ldg(sp + i);
-        t_cls = __ldg(c8 + i);
-        t_s = w & 0xFF;
-        t_p = w >> 8;
+    __device__ __forceinline__ bool decode(uint32_t v, int& t_cls, int& t_s,
+                                           int& t_p) const {
+        t_cls = v >> 16;
+        t_s = v & 0xFF;
+        t_p = (v >> 8) & 0xFF;
         return true;
     }
 };
 
-template <bool EXACT_SAME, bool FOLDED, class Planes>
-__global__ void banded_score_kernel(
-        const Planes planes, int64_t n_cols,
-        const int32_t* __restrict__ pos, int n_var, int n_q,
-        const int32_t* __restrict__ same_cls,
-        const float* __restrict__ bq_s, const float* __restrict__ bq_p,
-        const float* __restrict__ a_qp, const float* __restrict__ q_r,
-        const int32_t* __restrict__ tc, const float* __restrict__ bound,
-        const uint8_t* __restrict__ upper, int64_t rule_stride,
-        float ztol, float band,
-        int32_t* __restrict__ match_out, int32_t* __restrict__ flag_out) {
-    __shared__ int32_t s_pos[QC];
-    __shared__ int32_t s_same[QC];
-    __shared__ float s_a[QC];   // bq_s (exact branch) or q_r (banded)
-    __shared__ float s_b[QC];   // bq_p (exact branch)
-    __shared__ float s_c[QC];   // a_qp (exact branch)
-    __shared__ int32_t s_tc[2][QC];
-    __shared__ float s_bound[2][QC];
-    __shared__ uint8_t s_up[2][QC];
+// one element's verdicts: the query pixel's rules against a target pixel
+template <bool EXACT_SAME>
+__device__ __forceinline__ void predicate(
+        int t_cls, int t_s, int t_p, int q_same, float a, float bq,
+        float aq, int4 tcb, int up, float ztol, float band, bool& match,
+        bool& flag) {
+    const float ts_f = static_cast<float>(t_s);
+    const float tp_f = static_cast<float>(t_p);
+    const bool same = q_same == t_cls && t_s >= 1;
+    bool m_same, f_same;
+    if (EXACT_SAME) {
+        // every product < 2^24: exact in f32, as in the JAX package
+        const float lhs = fabsf(__fsub_rn(__fmul_rn(a, tp_f),
+                                          __fmul_rn(ts_f, bq)));
+        const float rhs = __fmul_rn(aq, tp_f);
+        m_same = same && lhs <= rhs;
+        f_same = same && lhs == rhs;
+    } else {
+        const float t_r32 = __fdiv_rn(ts_f, fmaxf(tp_f, 1.0f));
+        const float gap = fabsf(__fsub_rn(t_r32, a));
+        m_same = same && gap <= ztol;
+        f_same = same && fabsf(__fsub_rn(gap, ztol)) < band;
+    }
+    // the two rule slots target distinct classes: at most one fires
+    const bool sel0 = t_cls == tcb.x;
+    const bool sel1 = t_cls == tcb.y;
+    const bool sel = (sel0 || sel1) && t_cls > 0;
+    const float bound_sel = __int_as_float(sel0 ? tcb.z : tcb.w);
+    const bool upper_sel = sel0 ? (up & 1) : (up >> 1);
+    // g = ts - bound * tp: its sign with the product rounded on its own,
+    // its magnitude as one fused multiply-add (see above)
+    const bool m_adj = sel
+        && ((ts_f <= __fmul_rn(bound_sel, tp_f)) == upper_sel);
+    const float g = __fmaf_rn(-bound_sel, tp_f, ts_f);
+    const bool f_adj = sel && fabsf(g) < __fmul_rn(band, tp_f);
+    match = m_same || m_adj;
+    flag = f_same || f_adj;
+}
 
-    const int bv = blockIdx.z;          // b * n_var + v
+struct Rules {
+    const int32_t* same_cls;
+    const float* bq_s;
+    const float* bq_p;
+    const float* a_qp;
+    const float* q_r;
+    const int32_t* tc;
+    const float* bound;
+    const uint8_t* upper;
+    int64_t stride;  // between the two rule slots: batch * n_q
+};
+
+template <bool EXACT_SAME, bool FOLDED, class Planes>
+__global__ void __launch_bounds__(THREADS) banded_score_kernel(
+        const Planes planes, int64_t n_cols, bool vec,
+        const int32_t* __restrict__ pos, int n_var, int n_q, const Rules r,
+        float ztol, float band, int32_t* __restrict__ match_out,
+        int32_t* __restrict__ flag_out) {
+    __shared__ int32_t s_pos[QC];
+    __shared__ float4 s_q[QC];   // (bq_s or q_r, bq_p, a_qp, same_cls)
+    __shared__ int4 s_tcb[QC];   // (tc0, tc1, bound0, bound1 bits)
+    __shared__ int s_up[QC];     // upper0 | upper1 << 1
+
+    const int bv = blockIdx.z;   // mask x variant
     const int b = bv / n_var;
     const int q0 = blockIdx.y * QC;
     const int n = min(QC, n_q - q0);
-    const int64_t t = blockIdx.x * static_cast<int64_t>(THREADS)
-        + threadIdx.x;
-
     const int64_t qb = static_cast<int64_t>(b) * n_q + q0;
-    const int32_t* pos_c = pos + static_cast<int64_t>(bv) * n_q + q0;
     for (int k = threadIdx.x; k < n; k += THREADS) {
-        s_pos[k] = pos_c[k];
-        s_same[k] = same_cls[qb + k];
-        if (EXACT_SAME) {
-            s_a[k] = bq_s[qb + k];
-            s_b[k] = bq_p[qb + k];
-            s_c[k] = a_qp[qb + k];
-        } else {
-            s_a[k] = q_r[qb + k];
-        }
-        for (int r = 0; r < 2; ++r) {
-            s_tc[r][k] = tc[r * rule_stride + qb + k];
-            s_bound[r][k] = bound[r * rule_stride + qb + k];
-            s_up[r][k] = upper[r * rule_stride + qb + k];
-        }
+        s_q[k] = make_float4(EXACT_SAME ? r.bq_s[qb + k] : r.q_r[qb + k],
+                             EXACT_SAME ? r.bq_p[qb + k] : 0.0f,
+                             EXACT_SAME ? r.a_qp[qb + k] : 0.0f,
+                             __int_as_float(r.same_cls[qb + k]));
+        s_tcb[k] = make_int4(r.tc[qb + k], r.tc[r.stride + qb + k],
+                             __float_as_int(r.bound[qb + k]),
+                             __float_as_int(r.bound[r.stride + qb + k]));
+        s_up[k] = (r.upper[qb + k] != 0)
+            | ((r.upper[r.stride + qb + k] != 0) << 1);
+        s_pos[k] = pos[static_cast<int64_t>(bv) * n_q + q0 + k];
     }
     __syncthreads();
-    if (t >= n_cols) return;
+    const int64_t t0 = (blockIdx.x * static_cast<int64_t>(THREADS)
+                        + threadIdx.x) * COLS;
+    if (t0 >= n_cols) return;
+    const int64_t left = n_cols - t0;
 
-    int n_match = 0;
-    int n_flag = 0;
-#pragma unroll 4
+    int n_match[COLS] = {}, n_flag[COLS] = {};
     for (int k = 0; k < n; ++k) {
         const int p = s_pos[k];
         if (p < 0) continue;
-        int t_cls, t_s, t_p;
-        const bool valid = planes.template load<FOLDED>(
-            static_cast<int64_t>(p) * n_cols + t, t_cls, t_s, t_p);
-        const float ts_f = static_cast<float>(t_s);
-        const float tp_f = static_cast<float>(t_p);
-
-        const bool same = s_same[k] == t_cls && t_s >= 1;
-        bool m_same, f_same;
-        if (EXACT_SAME) {
-            // every product < 2^24: exact in f32, as in the JAX package
-            const float lhs = fabsf(__fsub_rn(__fmul_rn(s_a[k], tp_f),
-                                              __fmul_rn(ts_f, s_b[k])));
-            const float rhs = __fmul_rn(s_c[k], tp_f);
-            m_same = same && lhs <= rhs;
-            f_same = same && lhs == rhs;
-        } else {
-            const float t_r32 = __fdiv_rn(ts_f, fmaxf(tp_f, 1.0f));
-            const float gap = fabsf(__fsub_rn(t_r32, s_a[k]));
-            m_same = same && gap <= ztol;
-            f_same = same && fabsf(__fsub_rn(gap, ztol)) < band;
+        const float4 q = s_q[k];
+        const int4 tcb = s_tcb[k];
+        const int up = s_up[k];
+        const int q_same = __float_as_int(q.w);
+        uint32_t w[COLS];
+        planes.load(static_cast<int64_t>(p) * n_cols + t0, vec, left, w);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            int t_cls, t_s, t_p;
+            const bool valid = planes.template decode<FOLDED>(w[c], t_cls,
+                                                              t_s, t_p);
+            bool m, f;
+            predicate<EXACT_SAME>(t_cls, t_s, t_p, q_same, q.x, q.y, q.z,
+                                  tcb, up, ztol, band, m, f);
+            n_match[c] += valid && m;
+            n_flag[c] += valid && f;
         }
-        // the two rule slots target distinct classes: at most one fires
-        const bool sel0 = t_cls == s_tc[0][k];
-        const bool sel1 = t_cls == s_tc[1][k];
-        const bool sel = (sel0 || sel1) && t_cls > 0;
-        const float bound_sel = sel0 ? s_bound[0][k] : s_bound[1][k];
-        const bool upper_sel = sel0 ? s_up[0][k] : s_up[1][k];
-        // g = ts - bound * tp: its sign with the product rounded on its
-        // own, its magnitude as one fused multiply-add (see above)
-        const bool m_adj = sel
-            && ((ts_f <= __fmul_rn(bound_sel, tp_f)) == upper_sel);
-        const float g = __fmaf_rn(-bound_sel, tp_f, ts_f);
-        const bool f_adj = sel && fabsf(g) < __fmul_rn(band, tp_f);
-
-        n_match += valid && (m_same || m_adj);
-        n_flag += valid && (f_same || f_adj);
     }
-    const int64_t out = static_cast<int64_t>(bv) * n_cols + t;
-    if (n_match) atomicAdd(match_out + out, n_match);
-    if (n_flag) atomicAdd(flag_out + out, n_flag);
-}
-
-template <bool EXACT_SAME, bool FOLDED, class Planes>
-void launch(const dim3& grid, cudaStream_t st, const Planes& planes,
-            int64_t n_cols, const int32_t* pos, int n_var, int n_q,
-            const int32_t* same_cls, const float* bq_s, const float* bq_p,
-            const float* a_qp, const float* q_r, const int32_t* tc,
-            const float* bound, const uint8_t* upper, int64_t rule_stride,
-            float ztol, float band, int32_t* match, int32_t* flag) {
-    banded_score_kernel<EXACT_SAME, FOLDED, Planes>
-        <<<grid, THREADS, 0, st>>>(
-        planes, n_cols, pos, n_var, n_q, same_cls, bq_s, bq_p, a_qp, q_r,
-        tc, bound, upper, rule_stride, ztol, band, match, flag);
+    const int64_t out = static_cast<int64_t>(bv) * n_cols + t0;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        if (c >= left) continue;
+        if (n_match[c]) atomicAdd(match_out + out + c, n_match[c]);
+        if (n_flag[c]) atomicAdd(flag_out + out + c, n_flag[c]);
+    }
 }
 
 // the counts into the zeroed scratch, then the variant reduction
 template <bool FOLDED, class Planes>
-int run(const Planes& planes, int64_t n_cols, const void* pos, int batch,
-        int n_var, int n_q, int n_straight, const void* same_cls,
+int run(const Planes& planes, int64_t n_cols, bool aligned, const void* pos,
+        int batch, int n_var, int n_q, int n_straight, const void* same_cls,
         const void* bq_s, const void* bq_p, const void* a_qp,
         const void* q_r, const void* tc, const void* bound,
         const void* upper, int exact_same, float ztol, float band,
         void* scratch, void* best, void* mirrored, void* pair_flags,
         void* stream) {
-    if (n_straight < 1 || n_straight > n_var
-        || static_cast<int64_t>(batch) * n_var > 65535
-        || (n_q + QC - 1) / QC > 65535)
-        return cudaErrorInvalidValue;
+    if (n_straight < 1 || n_straight > n_var) return cudaErrorInvalidValue;
     if (batch == 0 || n_cols == 0) return cudaGetLastError();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int32_t* match = static_cast<int32_t*>(scratch);
     int32_t* flag = match + static_cast<int64_t>(batch) * n_var * n_cols;
     if (n_q > 0) {
-        const dim3 grid(cmst::blocks_for(n_cols, THREADS),
-                        (n_q + QC - 1) / QC, batch * n_var);
-        const int64_t rule_stride = static_cast<int64_t>(batch) * n_q;
-        auto args = [&](auto launcher) {
-            launcher(grid, st, planes, n_cols,
-                     static_cast<const int32_t*>(pos), n_var, n_q,
-                     static_cast<const int32_t*>(same_cls),
-                     static_cast<const float*>(bq_s),
-                     static_cast<const float*>(bq_p),
-                     static_cast<const float*>(a_qp),
-                     static_cast<const float*>(q_r),
-                     static_cast<const int32_t*>(tc),
-                     static_cast<const float*>(bound),
-                     static_cast<const uint8_t*>(upper), rule_stride, ztol,
-                     band, match, flag);
-        };
-        if (exact_same) args(launch<true, FOLDED, Planes>);
-        else args(launch<false, FOLDED, Planes>);
-        cudaError_t err = cudaGetLastError();
+        const Rules r{static_cast<const int32_t*>(same_cls),
+                      static_cast<const float*>(bq_s),
+                      static_cast<const float*>(bq_p),
+                      static_cast<const float*>(a_qp),
+                      static_cast<const float*>(q_r),
+                      static_cast<const int32_t*>(tc),
+                      static_cast<const float*>(bound),
+                      static_cast<const uint8_t*>(upper),
+                      static_cast<int64_t>(batch) * n_q};
+        const int n_chunks = (n_q + QC - 1) / QC;
+        if (static_cast<int64_t>(batch) * n_var > 65535 || n_chunks > 65535)
+            return cudaErrorInvalidValue;
+        // vector loads need whole groups of COLS columns on 16-byte-aligned
+        // planes
+        const bool vec = aligned && n_cols % COLS == 0;
+        const dim3 grid(static_cast<unsigned>(
+                            (n_cols + THREADS * COLS - 1) / (THREADS * COLS)),
+                        n_chunks, batch * n_var);
+        const int32_t* p = static_cast<const int32_t*>(pos);
+        if (exact_same)
+            banded_score_kernel<true, FOLDED, Planes><<<grid, THREADS, 0, st>>>(
+                planes, n_cols, vec, p, n_var, n_q, r, ztol, band, match,
+                flag);
+        else
+            banded_score_kernel<false, FOLDED, Planes>
+                <<<grid, THREADS, 0, st>>>(planes, n_cols, vec, p, n_var, n_q,
+                                           r, ztol, band, match, flag);
+        const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return err;
     }
     constexpr int threads = 256;
@@ -245,9 +300,9 @@ int run(const Planes& planes, int64_t n_cols, const void* pos, int batch,
 
 // K9: planes int32 [P, n_cols] (summary words); pos int32 [batch, n_var,
 // n_q]; same_cls int32, bq_s / bq_p / a_qp / q_r f32 [batch, n_q]; tc
-// int32, bound f32, upper uint8 [2, batch, n_q]; scratch int32
-// [2, batch, n_var, n_cols], zeroed by the caller -> best int32, mirrored
-// uint8, pair_flags int32 [batch, n_cols]. thr < 0: threshold folded.
+// int32, bound f32, upper uint8 [2, batch, n_q]; scratch int32 [2, batch,
+// n_var, n_cols], zeroed by the caller -> best int32, mirrored uint8,
+// pair_flags int32 [batch, n_cols]. thr < 0: threshold folded.
 extern "C" int cmst_banded_score(
         const void* planes, int64_t n_cols, const void* pos, int batch,
         int n_var, int n_q, int n_straight, const void* same_cls,
@@ -257,10 +312,12 @@ extern "C" int cmst_banded_score(
         void* scratch, void* best, void* mirrored, void* pair_flags,
         void* stream) {
     const SummaryPlanes p{static_cast<const int32_t*>(planes), thr};
+    const bool aligned = reinterpret_cast<uintptr_t>(planes) % 16 == 0;
     auto go = [&](auto run_) {
-        return run_(p, n_cols, pos, batch, n_var, n_q, n_straight, same_cls,
-                    bq_s, bq_p, a_qp, q_r, tc, bound, upper, exact_same,
-                    ztol, band, scratch, best, mirrored, pair_flags, stream);
+        return run_(p, n_cols, aligned, pos, batch, n_var, n_q, n_straight,
+                    same_cls, bq_s, bq_p, a_qp, q_r, tc, bound, upper,
+                    exact_same, ztol, band, scratch, best, mirrored,
+                    pair_flags, stream);
     };
     return thr < 0 ? go(run<true, SummaryPlanes>)
                    : go(run<false, SummaryPlanes>);
@@ -278,7 +335,9 @@ extern "C" int cmst_banded_score_split(
         void* stream) {
     const SplitPlanes p{static_cast<const uint16_t*>(sp),
                         static_cast<const uint8_t*>(c8)};
-    return run<true>(p, n_cols, pos, batch, n_var, n_q, n_straight,
+    const bool aligned = reinterpret_cast<uintptr_t>(sp) % 16 == 0
+        && reinterpret_cast<uintptr_t>(c8) % 16 == 0;
+    return run<true>(p, n_cols, aligned, pos, batch, n_var, n_q, n_straight,
                      same_cls, bq_s, bq_p, a_qp, q_r, tc, bound, upper,
                      exact_same, ztol, band, scratch, best, mirrored,
                      pair_flags, stream);

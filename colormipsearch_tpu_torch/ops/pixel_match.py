@@ -1325,58 +1325,67 @@ def _is_segmented(u2, n_slots: int, n_u: int) -> bool:
     return u2 is not None and n_slots == 2 and 0 <= u2 < n_u
 
 
+def _lane_counts_plain(key, lo, sp, c0: int, u2, seg: bool):
+    """int64 [L, T] lane counts of the union slice that starts at element
+    c0 and whose gathered keys are key int64 [n, T]; lo, sp int64 [L,
+    n_slots, U] are one mask's lane windows (sp as uint32 values)."""
+    n = key.shape[0]
+    n2 = min(max((u2 or 0) - c0, 0), n)
+    counts = []
+    for j in range(lo.shape[0]):
+        l, s = lo[j, :, c0:c0 + n], sp[j, :, c0:c0 + n]
+        hit = ((key - l[0, :, None]) & _U32) <= s[0, :, None]
+        if seg:
+            c = hit.sum(0)
+            if n2 > 0:
+                c = c + (((key[:n2] - l[1, :n2, None]) & _U32)
+                         <= s[1, :n2, None]).sum(0)
+        else:
+            for sl in range(1, lo.shape[1]):
+                hit |= ((key - l[sl, :, None]) & _U32) <= s[sl, :, None]
+            c = hit.sum(0)
+        counts.append(c)
+    return torch.stack(counts)
+
+
+def _union_finish_plain(counts, n_msets: int):
+    """counts [B, 2, S, L, T] summed over the whole union -> (best int32
+    [B, T], mirrored bool [B, T]): the max over sets and lanes of each
+    orientation, the mirror winning only when strictly greater."""
+    straight = counts[:, 0].amax(dim=(1, 2))
+    if n_msets == 0:
+        return straight.to(torch.int32), torch.zeros_like(straight,
+                                                          dtype=torch.bool)
+    mirror = counts[:, 1, :n_msets].amax(dim=(1, 2))
+    return torch.maximum(straight, mirror).to(torch.int32), mirror > straight
+
+
 def _union_walk_plain(gather, n_cols: int, dev, u_pos, mu_pos, lane_lo,
                       lane_span, u2, chunk: int, seg: bool | None = None):
     """K3's, K13's and the qkey kernel's plain walk: gather(rows) -> int64
-    [len(rows), T] keys; the union is taken in `chunk`-element slices so
-    that the int64 [chunk, T] intermediates stay bounded at production
-    shapes. `seg` forces the segmented form with prefix u2 (the qkey
-    kernel, where u2 may equal U); None derives it as K3 does."""
-    batch, _, n_u = u_pos.shape
+    [len(rows), T] keys. The kernels' decomposition: the lane counts of
+    every `chunk`-element slice of the union, summed into [B, 2, S, L, T]
+    as the kernels' atomics sum them (which also keeps the int64 [chunk,
+    T] intermediates bounded at production shapes), then one max over
+    sets and lanes of each orientation (_union_finish_plain). `seg`
+    forces the segmented form with prefix u2 (the qkey kernel, where u2
+    may equal U); None derives it as K3 does."""
+    batch, n_sets, n_u = u_pos.shape
     n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
     if seg is None:
         seg = _is_segmented(u2, n_slots, n_u)
-    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
-    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
+    counts = torch.zeros((batch, 2, n_sets, n_lanes, n_cols),
+                         dtype=torch.int64, device=dev)
     for b in range(batch):
         lo_b = lane_lo[b].long()
         sp_b = lane_span[b].long() & _U32
-        maxes = []
-        for pos_sets in (u_pos[b], mu_pos[b]):
-            omax = None
-            for pos in pos_sets:
-                cnt = torch.zeros((n_lanes, n_cols), dtype=torch.int64,
-                                  device=dev)
+        for o, pos_sets in enumerate((u_pos[b], mu_pos[b])):
+            for si, pos in enumerate(pos_sets):
                 for c0 in range(0, n_u, chunk):
-                    c1 = min(n_u, c0 + chunk)
-                    key = gather(pos[c0:c1].long())
-                    n2 = min(max((u2 or 0) - c0, 0), c1 - c0)
-                    for j in range(n_lanes):
-                        lo, sp = lo_b[j, :, c0:c1], sp_b[j, :, c0:c1]
-                        hit = ((key - lo[0, :, None]) & _U32) \
-                            <= sp[0, :, None]
-                        if seg:
-                            cnt[j] += hit.sum(0)
-                            if n2 > 0:
-                                cnt[j] += (((key[:n2] - lo[1, :n2, None])
-                                            & _U32)
-                                           <= sp[1, :n2, None]).sum(0)
-                            continue
-                        for s in range(1, n_slots):
-                            hit |= ((key - lo[s, :, None]) & _U32) \
-                                <= sp[s, :, None]
-                        cnt[j] += hit.sum(0)
-                cmax = cnt.max(0).values
-                omax = cmax if omax is None else torch.maximum(omax, cmax)
-            maxes.append(omax)
-        straight, mirror = maxes
-        if mirror is None:
-            best[b] = straight
-            mirrored[b] = False
-        else:
-            best[b] = torch.maximum(straight, mirror)
-            mirrored[b] = mirror > straight
-    return best, mirrored
+                    counts[b, o, si] += _lane_counts_plain(
+                        gather(pos[c0:c0 + chunk].long()), lo_b, sp_b, c0,
+                        u2, seg)
+    return _union_finish_plain(counts, mu_pos.shape[1])
 
 
 def score_query_batch_union_keys_plain(planes, u_pos, mu_pos, lane_lo,
@@ -1413,12 +1422,37 @@ def _check_union(planes: dict, u_pos, mu_pos, lane_lo, lane_span) -> None:
         raise ValueError(f"{batch} masks in one launch (at most 65,535)")
 
 
+# bytes of the union kernels' lane-count scratch a launch may take
+UNION_SCRATCH_CAP = 1 << 30
+
+
+def _union_scratch(batch: int, n_sets: int, n_lanes: int, n_cols: int,
+                   dev) -> torch.Tensor:
+    """The zeroed int32 [B, 2, S, L, T] lane counts the union kernels
+    (K3, K13, row 14) sum their chunks into; raises past
+    UNION_SCRATCH_CAP."""
+    n_bytes = batch * 2 * n_sets * n_lanes * n_cols * 4
+    if n_bytes > UNION_SCRATCH_CAP:
+        raise ValueError(
+            f"the union kernels' lane counts [{batch}, 2, {n_sets}, "
+            f"{n_lanes}, {n_cols}] take {n_bytes} bytes, past the "
+            f"{UNION_SCRATCH_CAP}-byte cap: split the batch")
+    return torch.zeros((batch, 2, n_sets, n_lanes, n_cols),
+                       dtype=torch.int32, device=dev)
+
+
+def _check_chunk(chunk: int) -> None:
+    if chunk < 0:
+        raise ValueError(f"chunk {chunk} < 0 (0: the kernel chooses)")
+
+
 def _launch_union(entry: str, name: str, plane_ptrs, n_cols: int, dev,
-                  u_pos, mu_pos, lane_lo, lane_span, u2):
+                  u_pos, mu_pos, lane_lo, lane_span, u2, chunk: int):
     """Launch K3 (entry cmst_union_score) or K13 (cmst_union_score_splitk)
     on CUDA tensors; returns (best, mirrored)."""
     batch, n_sets, n_u = u_pos.shape
     n_lanes, n_slots = lane_lo.shape[1], lane_lo.shape[2]
+    scratch = _union_scratch(batch, n_sets, n_lanes, n_cols, dev)
     best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
     mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
     seg = _is_segmented(u2, n_slots, n_u)
@@ -1426,15 +1460,15 @@ def _launch_union(entry: str, name: str, plane_ptrs, n_cols: int, dev,
     kbuild.check(getattr(lib, entry)(
         *plane_ptrs, n_cols, u_pos.data_ptr(), mu_pos.data_ptr(), n_sets,
         mu_pos.shape[1], lane_lo.data_ptr(), lane_span.data_ptr(), batch,
-        n_lanes, n_slots, n_u, u2 if seg else -1, int(seg),
-        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(u_pos)),
-        name)
+        n_lanes, n_slots, n_u, u2 if seg else -1, int(seg), chunk,
+        scratch.data_ptr(), best.data_ptr(), mirrored.data_ptr(),
+        kbuild.stream_of(u_pos)), name)
     kbuild.count_launch(name)
     return best, mirrored
 
 
 def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
-                                 u2: int | None = None):
+                                 u2: int | None = None, *, chunk: int = 0):
     """K3: batched union-lane key scoring with the variant reduction.
 
     planes int32 [P+1, T]; u_pos int32 [B, S, U]; mu_pos int32 [B, S or
@@ -1443,9 +1477,13 @@ def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
     segmentation prefix (stack_union_plan_args) or None. Returns
     (best int32 [B, T], mirrored bool [B, T]). CPU tensors run the plain
     version; CUDA tensors launch kernels/csrc/union_score.cu or raise.
+    `chunk` sets the union elements a block counts (0: the kernel
+    chooses; any other value is for testing the decomposition); the
+    result does not depend on it.
     """
     _check_union({"planes": (planes, torch.int32)}, u_pos, mu_pos, lane_lo,
                  lane_span)
+    _check_chunk(chunk)
     if planes.device.type == "cpu":
         return score_query_batch_union_keys_plain(
             planes, u_pos, mu_pos, lane_lo, lane_span, u2)
@@ -1453,7 +1491,7 @@ def score_query_batch_union_keys(planes, u_pos, mu_pos, lane_lo, lane_span,
     return _launch_union("cmst_union_score", "score_query_batch_union_keys",
                          (planes.data_ptr(),), planes.shape[1],
                          planes.device, u_pos, mu_pos, lane_lo, lane_span,
-                         u2)
+                         u2, chunk)
 
 
 def split_key_planes(keys: torch.Tensor):
@@ -1479,7 +1517,8 @@ def score_query_batch_union_keys_splitk_plain(rank, cls, u_pos, mu_pos,
 
 
 def score_query_batch_union_keys_splitk(rank, cls, u_pos, mu_pos, lane_lo,
-                                        lane_span, u2: int | None = None):
+                                        lane_span, u2: int | None = None, *,
+                                        chunk: int = 0):
     """K13: K3 over the split key planes of split_key_planes (rank int16
     with the uint16 bits, cls uint8, both [P+1, T]); every other argument
     and the result as score_query_batch_union_keys'. CPU tensors run the
@@ -1487,6 +1526,7 @@ def score_query_batch_union_keys_splitk(rank, cls, u_pos, mu_pos, lane_lo,
     raise."""
     _check_union({"rank": (rank, torch.int16), "cls": (cls, torch.uint8)},
                  u_pos, mu_pos, lane_lo, lane_span)
+    _check_chunk(chunk)
     if rank.device.type == "cpu":
         return score_query_batch_union_keys_splitk_plain(
             rank, cls, u_pos, mu_pos, lane_lo, lane_span, u2)
@@ -1494,7 +1534,8 @@ def score_query_batch_union_keys_splitk(rank, cls, u_pos, mu_pos, lane_lo,
     return _launch_union("cmst_union_score_splitk",
                          "score_query_batch_union_keys_splitk",
                          (rank.data_ptr(), cls.data_ptr()), rank.shape[1],
-                         rank.device, u_pos, mu_pos, lane_lo, lane_span, u2)
+                         rank.device, u_pos, mu_pos, lane_lo, lane_span, u2,
+                         chunk)
 
 
 def union_keys_topk_plain(best, mirrored, k: int, pair_flags=None):
@@ -1646,7 +1687,8 @@ def score_query_batch_union_qkeys_plain(planes, u_pos, mu_pos, qidx,
 
 
 def score_query_batch_union_qkeys(planes, u_pos, mu_pos, qidx, key_list,
-                                  tab_lo, tab_span, u2: int | None = None):
+                                  tab_lo, tab_span, u2: int | None = None, *,
+                                  chunk: int = 0):
     """Row 14: K3 on the factored qkey wire form.
 
     planes int32 [P+1, T]; u_pos int32 [B, S, U], mu_pos int32 [B, S or
@@ -1657,8 +1699,10 @@ def score_query_batch_union_qkeys(planes, u_pos, mu_pos, qidx, key_list,
     always ADDED, never ORed. Returns (best int32 [B, T], mirrored bool
     [B, T]), equal to K3's on the same batch's expanded tables. CPU
     tensors run the plain version; CUDA tensors launch
-    kernels/csrc/union_score.cu (its qkey table source) or raise."""
+    kernels/csrc/union_score.cu (its qkey table source) or raise
+    (`chunk` as score_query_batch_union_keys')."""
     _check_planes({"planes": (planes, torch.int32)})
+    _check_chunk(chunk)
     _check_qkeys(qidx, key_list, tab_lo, tab_span)
     kbuild.check_tensor(u_pos, "u_pos", torch.int32)
     kbuild.check_tensor(mu_pos, "mu_pos", torch.int32)
@@ -1680,6 +1724,7 @@ def score_query_batch_union_qkeys(planes, u_pos, mu_pos, qidx, key_list,
     kbuild.require_cuda(planes)
     dev = planes.device
     n_cols = planes.shape[1]
+    scratch = _union_scratch(batch, n_sets, qidx.shape[1], n_cols, dev)
     best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
     mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
     lib = kbuild.load_library()
@@ -1688,8 +1733,8 @@ def score_query_batch_union_qkeys(planes, u_pos, mu_pos, qidx, key_list,
         n_sets, n_msets, qidx.data_ptr(), key_list.data_ptr(),
         key_list.shape[1], tab_lo.data_ptr(), tab_span.data_ptr(),
         tab_lo.shape[1], batch, qidx.shape[1], n_u, _qkey_prefix(u2, n_u),
-        best.data_ptr(), mirrored.data_ptr(), kbuild.stream_of(planes)),
-        "score_query_batch_union_qkeys")
+        chunk, scratch.data_ptr(), best.data_ptr(), mirrored.data_ptr(),
+        kbuild.stream_of(planes)), "score_query_batch_union_qkeys")
     kbuild.count_launch("score_query_batch_union_qkeys")
     return best, mirrored
 

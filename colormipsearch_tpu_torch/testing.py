@@ -263,3 +263,58 @@ def write_neuron_images(directory, images: list[np.ndarray], prefix: str, *,
             n.set_compute_file(ftype, ps[i])
         neurons.append(n)
     return neurons
+
+
+# The edge shapes of the union kernels (K3, K13, row 14), which split the
+# union into chunks over the grid: (name, xy_shift, mirror, masks in the
+# batch, union cut to this many elements or None, slot-2 prefix u2 or
+# None for the batch's own, union elements a block (0: the kernel's
+# choice)). 17 and 25 lanes take two and three lane groups of 9.
+UNION_EDGE_CASES = (
+    ("lanes_25", 6, True, 3, None, None, 0),
+    ("lanes_17", 4, True, 2, None, None, 256),
+    ("no_mirror", 2, False, 3, None, None, 0),
+    ("batch_1", 2, True, 1, None, None, 128),
+    ("ragged_union", 2, True, 2, 1700, None, 256),
+    ("u2_on_chunk_edge", 2, True, 2, None, 512, 256),
+    ("u2_past_chunk_edge", 2, True, 2, None, 513, 256),
+    ("u2_before_chunk_edge", 2, True, 2, None, 511, 256),
+    ("u2_inside_ragged_chunk", 2, True, 2, 1700, 300, 200),
+)
+
+
+def union_edge_batch(rng: np.random.Generator, case: tuple, h: int, w: int,
+                     device) -> dict:
+    """One UNION_EDGE_CASES batch on `device`, from random masks of h x
+    w: {"union": (u_pos, mu_pos, lane_lo, lane_span, u2) for K3 and K13,
+    "qkeys": (u_pos, mu_pos, qidx, key_list, tab_lo, tab_span, u2) for
+    row 14, "chunk": chunk}. The lane tables are K2's expansion (its
+    plain version); a cut union keeps the first elements of every
+    array."""
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.oracle.pixel import shift_offsets
+    from colormipsearch_tpu_torch.ops import pixel_match as pm
+
+    _, xy, mirror, n_masks, cut, u2, chunk = case
+    plans = [pm.build_full_union_key_plan(
+        scattered_pixels(rng, h, w, 250), 20, mirror=mirror, xy_shift=xy,
+        pix_color_fluctuation=1.0, light=True) for _ in range(n_masks)]
+    u_pos, mu_pos, q_pos, key_list, own_u2 = pm.stack_union_pos_args(
+        plans, h * w)
+    qidx = pm.stack_union_qkey_args(plans, h * w)[2]
+    tabs = convert.interval_tables(pm.interval_table_arrays(0.01), device)
+    u_t, kl_t = (convert.as_tensor(a, device) for a in (u_pos, key_list))
+    lo, sp = pm.expand_union_tables_from_pos_plain(
+        u_t, convert.as_tensor(q_pos, device), kl_t, *tabs,
+        offsets=tuple(shift_offsets(xy)), w=w, h=h)
+    qidx_t = convert.qidx(qidx, device)
+    mu_t = convert.as_tensor(mu_pos, device)
+    if cut is not None:
+        u_t, mu_t, lo, sp, qidx_t = (x[..., :cut].contiguous() for x in (
+            u_t, mu_t, lo, sp, qidx_t))
+    u2 = own_u2 if u2 is None else u2
+    if not 0 <= u2 < u_t.shape[2]:
+        raise ValueError(f"{case[0]}: u2 {u2} outside the union of "
+                         f"{u_t.shape[2]}")
+    return {"union": (u_t, mu_t, lo, sp, u2),
+            "qkeys": (u_t, mu_t, qidx_t, kl_t, *tabs, u2), "chunk": chunk}

@@ -159,8 +159,8 @@ def test_port_runs_without_jax_and_pil(tmp_path):
 
 def test_png_reader_round_trip_and_rejections(tmp_path):
     """The numpy PNG reader (the fallback when neither the native decoder
-    nor PIL is available) reads the port's PNGs bit-exactly and refuses
-    what it cannot read."""
+    nor PIL is available) reads the port's PNGs and PIL's (adaptive
+    filters) bit-exactly and refuses what does not decode to RGB."""
     rng = np.random.default_rng(2)
     img = testing.synthetic_cdm(rng, 33, 47, fg_fraction=0.2)
     data = testing.encode_png(img)
@@ -169,8 +169,8 @@ def test_png_reader_round_trip_and_rejections(tmp_path):
     from PIL import Image
 
     Image.fromarray(img).save(tmp_path / "pil.png")  # adaptive filters
-    with pytest.raises(ValueError):
-        decode_png_rgb8((tmp_path / "pil.png").read_bytes())
+    np.testing.assert_array_equal(
+        decode_png_rgb8((tmp_path / "pil.png").read_bytes()), img)
     Image.fromarray(img[..., 0]).save(tmp_path / "gray.png")
     with pytest.raises(ValueError):
         decode_png_rgb8((tmp_path / "gray.png").read_bytes())

@@ -600,3 +600,78 @@ def test_cuda_mesh_steps_equal_single_device(cuda_device):
         tmesh.shard_target_planes(mesh, t_pack), q_pack)
     for a, b in zip(both, tss.shape_score_pairs_both(t_pack, q_pack)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_union_kernels_at_edge_shapes(cuda_device):
+    """K3, K13 and row 14, which split the union over the grid, against
+    their plain versions at every testing.UNION_EDGE_CASES shape (17 and
+    25 lanes, no mirror sets, one mask, a ragged union, the slot-2 prefix
+    on, past, before and inside a chunk's edge), on 300 target columns (not
+    a multiple of the 256 a block takes), each at the case's chunk and at
+    the kernel's own choice."""
+    rng = np.random.default_rng(12)
+    h, w = 60, 80
+    stack = np.stack([testing.scattered_pixels(rng, h, w, 400)
+                      for _ in range(300)])
+    lut = tcommon.rank_lut_tensor(cuda_device)
+    planes = tcommon.pack_target_planes_keys_plain(
+        torch.from_numpy(stack).to(cuda_device), 20, lut, t_pad=300)
+    rank, cls = tcommon.split_key_planes_plain(planes)
+    for case in testing.UNION_EDGE_CASES:
+        batch = testing.union_edge_batch(rng, case, h, w, cuda_device)
+        args, qargs = batch["union"], batch["qkeys"]
+        want = tpm.score_query_batch_union_keys_plain(planes, *args)
+        want13 = tpm.score_query_batch_union_keys_splitk_plain(rank, cls,
+                                                               *args)
+        want14 = tpm.score_query_batch_union_qkeys_plain(planes, *qargs)
+        assert int(want[0].max()) > 0, case[0]
+        for chunk in {batch["chunk"], 0}:
+            got = tpm.score_query_batch_union_keys(planes, *args,
+                                                   chunk=chunk)
+            got13 = tpm.score_query_batch_union_keys_splitk(
+                rank, cls, *args, chunk=chunk)
+            got14 = tpm.score_query_batch_union_qkeys(planes, *qargs,
+                                                      chunk=chunk)
+            for g, wnt in ((got, want), (got13, want13), (got14, want14)):
+                for a, b in zip(g, wnt):
+                    assert torch.equal(a, b), (case[0], chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_banded_kernels_at_edge_shapes(cuda_device):
+    """K9 and K11 against their plain versions, flags included: at column
+    counts that are and are not a multiple of the four columns a thread
+    takes (vector and one-by-one loads) and a padded query of 300 (not a
+    multiple of the 256-pixel chunk), at both same-class branches."""
+    rng = np.random.default_rng(13)
+    h, w = 30, 40
+    for n_cols in (13, 301, 302, 304):
+        stack = np.stack([testing.scattered_pixels(rng, h, w, 300)
+                          for _ in range(n_cols)])
+        planes = tcommon.pack_target_planes_plain(
+            torch.from_numpy(stack).to(cuda_device), 20, t_pad=n_cols)
+        sp, c8 = tcommon.split_planes_from_packed_plain(planes)
+        queries = [testing.scattered_pixels(rng, h, w, 260),
+                   stack[1].copy()]
+        for flu in (1.0, 0.37):
+            plans = [tpm.build_query_plan(q, 20, mirror=True, xy_shift=2,
+                                          pix_color_fluctuation=flu,
+                                          pad_to=300) for q in queries]
+            args = [convert.as_tensor(np.stack([getattr(p, f)
+                                                for p in plans]),
+                                      cuda_device)
+                    for f in ("positions", "q_cls", "q_s", "q_p")]
+            kw = dict(ztol_num=plans[0].ztol_num,
+                      ztol_den=plans[0].ztol_den,
+                      n_straight=plans[0].n_straight)
+            want = tpm.score_query_batch_plain(planes, *args,
+                                               target_threshold=-1, **kw)
+            want11 = tpm.score_query_batch_split_plain(sp, c8, *args, **kw)
+            assert int(want[0].max()) > 0
+            got = tpm.score_query_batch(planes, *args, target_threshold=-1,
+                                        **kw)
+            got11 = tpm.score_query_batch_split(sp, c8, *args, **kw)
+            for g, wnt in ((got, want), (got11, want11)):
+                for a, b in zip(g, wnt):
+                    assert torch.equal(a, b), (n_cols, flu)

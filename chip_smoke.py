@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      redesigned walks at their edge shapes (K3, K13 and row 14 at every
      testing.UNION_EDGE_CASES batch, at the case's union chunk and the
      kernel's own; K9 and K11 at 301 and 300 columns and a query that is
-     not a multiple of the chunk), each equal to its plain version;
+     not a multiple of the chunk; K6 at every testing.TILE_EDGE_CASES
+     shape and K5 at every testing.SPLIT_EDGE_CASES shape, through both
+     its loaders), each equal to its plain version; K6 also with the
+     engine's store rows (a sorted subset of 1,638, timed beside an
+     `arange` of as many) and with a permutation of the 2,048, its bound
+     from the 32-byte sectors the gathers touch;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -84,7 +89,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      mesh step; (c) a negative query on the mesh (8 masks); (d)
      GradScoreEngine over the mesh with the device store on 4 masks of
      phase 4's candidates: every shape score equal to the single-device
-     run's. The new kernels' launches in the kernels line are phase 7's.
+     run's. The new kernels' launches in the kernels line are phase 7's;
+  8. the image readers that need no PIL (the GPU hosts have none): the
+     files of tests/torch_forms (a baseline and a progressive JPEG, a GIF
+     and a palette TIFF, written by PIL) decode to the pixels pinned
+     beside them; colorDepthSearch on the card over a small library with
+     those files among its targets skips none and finds the pinned
+     matches; each reader's time for one 566 x 1210 image.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -623,21 +634,24 @@ def check_shape_kernels(lib, variants, device) -> dict:
     kw = dict(n_gap_pad=n_gap_pad, n_he_words=n_he_w)
     tp = ss.tile_positions(pos_gap, g_pos, h_pos, keep_he, mirror=True,
                            device=device, **kw)
-    rows = torch.arange(T_PAD, dtype=torch.int32, device=device)
-    t_gap, t_he = ss.shape_tile_device(fields, rows, tp, **kw)
-    # the field rows the plan touches, once each (zsl and grad: 4 bytes a
-    # target at each gap pixel; tfg: one byte a target per 8 ring
-    # pixels), and ~10 operations per output word
-    gap_px = np.unique(np.concatenate([pos_gap, g_pos]))
-    he_rows = np.unique(h_pos // 8)
+    # store rows on the host, as the engine hands them over
+    rows_h = torch.arange(T_PAD, dtype=torch.int32)
+    rows = rows_h.to(device)
+    t_gap, t_he = ss.shape_tile_device(fields, rows_h, tp, **kw)
+    # the field rows the plan touches, once each (zsl at each gap pixel,
+    # grad at each orientation's, tfg one byte row per 8 ring pixels),
+    # and ~10 operations per output word
+    field_rows = (np.unique(pos_gap), np.unique(g_pos), np.unique(h_pos // 8))
+    k6_ops = 10 * (t_gap.numel() + t_he.numel())
     out["shape_tile_device"] = entry(
         max_abs_err((t_gap, t_he),
                     ss.shape_tile_device_plain(fields, rows, tp, **kw)),
-        timed(lambda: ss.shape_tile_device(fields, rows, tp, **kw), 10),
+        timed(lambda: ss.shape_tile_device(fields, rows_h, tp, **kw), 10),
         timed(lambda: ss.shape_tile_device_plain(fields, rows, tp, **kw),
               3),
-        bound(gap_px.size * T_PAD * 4 + he_rows.size * T_PAD
-              + nbytes(t_gap, t_he), 10 * (t_gap.numel() + t_he.numel())))
+        bound(k6_gather_bytes(field_rows, rows)[0] + nbytes(t_gap, t_he),
+              k6_ops))
+    check_k6_rows(fields, tp, kw, field_rows)
     t0 = time.time()
     want = ss.select_target_tile_from_store(
         host, np.arange(T_PAD), pos_gap, n_gap_pad, n_he_w,
@@ -673,6 +687,92 @@ def check_shape_kernels(lib, variants, device) -> dict:
     # K5's planes (~0.3 GB) stay for phase 7's split shape step
     return out, {"q_pack": q_pack, "region": region, "k5_args": args,
                  "k5": tuple(x.cpu().numpy() for x in (hi, lo, he))}
+
+
+def k6_gather_bytes(field_rows, rows) -> tuple[int, int]:
+    """K6's field gathers for store rows `rows` (int32 [T]), in 32-byte
+    sectors: (the distinct sectors, each read once: what DRAM must move;
+    the sectors each warp of 32 columns touches, summed: what L2 serves).
+    zsl and grad hold 2 bytes a store row, tfg 1, in rows of R columns;
+    `field_rows` are the (zsl, grad, tfg) rows the plan gathers. For an
+    `arange` the distinct sectors are the rows' bytes."""
+    import numpy as np
+
+    r = rows.cpu().numpy().astype(np.int64)
+    pad = -r.size % 32
+    warps = np.concatenate([r, np.repeat(r[-1:], pad)]).reshape(-1, 32)
+    distinct = requested = 0
+    for n, elsize in zip((f.size for f in field_rows), (2, 2, 1)):
+        sector = r * elsize // 32
+        distinct += n * np.unique(sector).size * 32
+        per_warp = sum(np.unique(w * elsize // 32).size for w in warps)
+        requested += n * per_warp * 32
+    return distinct, requested
+
+
+def check_k6_rows(fields, tp, kw: dict, field_rows) -> None:
+    """Phase 2, K6 with the engine's store rows: the engine gathers a
+    mask's candidates, sorted by store row (engine/gradscore.py), so a
+    sorted random subset of 1,638 of the 2,048 rows (phase 4's candidates
+    per mask), timed beside the `arange` of as many columns; and a
+    permutation of all 2,048 rows (what an unsorted caller gives). Each
+    equal to the plain version, with the rows on the host and on the
+    card; the wrapper's time (rows on the host, as the engine gives them:
+    their range checked there, then copied over) beside the kernel's own
+    (launched directly); the bound from the distinct sectors the gathers
+    touch."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    lib = kbuild.load_library()
+    device = fields[0].device
+    n_r = fields[0].shape[1]
+    rng = np.random.default_rng(11)
+    n_eng = 1638
+
+    def launch(rows, planes):
+        kbuild.check(lib.cmst_shape_tile(
+            *(f.data_ptr() for f in fields), n_r, rows.data_ptr(),
+            rows.shape[0], tp.pos_gap.data_ptr(), tp.g_pos.data_ptr(),
+            tp.h_pos.data_ptr(), tp.keep_he.data_ptr(), tp.n_or,
+            kw["n_gap_pad"], kw["n_he_words"], tp.sg, tp.sh,
+            planes[0].data_ptr(), planes[1].data_ptr(),
+            kbuild.stream_of(fields[0])), "shape_tile_device")
+
+    cases = (
+        ("arange 2048", torch.arange(n_r, dtype=torch.int32)),
+        ("engine 1638", torch.from_numpy(np.sort(rng.choice(
+            n_r, n_eng, replace=False)).astype(np.int32))),
+        ("arange 1638", torch.arange(n_eng, dtype=torch.int32)),
+        ("permutation 2048", torch.from_numpy(
+            rng.permutation(n_r).astype(np.int32))))
+    times = {}
+    for name, rows_h in cases:
+        rows = rows_h.to(device)
+        got = ss.shape_tile_device(fields, rows_h, tp, **kw)
+        require_equal(f"K6 with rows_sel {name} vs its plain version", got,
+                      ss.shape_tile_device_plain(fields, rows, tp, **kw))
+        require_equal(f"K6 with rows_sel {name} on the card vs on the host",
+                      ss.shape_tile_device(fields, rows, tp, **kw), got)
+        wrapped = timed(lambda: ss.shape_tile_device(fields, rows_h, tp,
+                                                     **kw), 10)
+        alone = timed(lambda: launch(rows, got), 10)
+        distinct, requested = k6_gather_bytes(field_rows, rows)
+        bound_ = bound(distinct + nbytes(*got), 10 * sum(
+            x.numel() for x in got))
+        times[name] = wrapped
+        print(f"K6 rows_sel {name}: {wrapped:.3f} ms (kernel alone "
+              f"{alone:.3f}), bound {bound_['bound_ms']:.3f} ms "
+              f"({bound_['bound_by']}: {distinct / 1e6:.1f} MB of distinct "
+              f"gather sectors, {requested / 1e6:.1f} MB of sectors the "
+              f"warps request)", flush=True)
+        del got
+    ratio = times["engine 1638"] / times["arange 1638"]
+    print(f"K6 engine rows / arange at {n_eng} columns: {ratio:.2f}x",
+          flush=True)
 
 
 def check_dense_shape_kernels(lib, variants, device, ref: dict):
@@ -1116,7 +1216,137 @@ def check_edge_shapes(lib, device) -> None:
         del planes, sp, c8
         sync()
         free_cached()
+    check_shape_edge_shapes(device)
     kbuild.reset_launches()
+
+
+def check_shape_edge_shapes(device) -> None:
+    """Phase 2, K6 at every testing.TILE_EDGE_CASES shape and K5 at every
+    testing.SPLIT_EDGE_CASES shape, K5 also through its scalar loader
+    (planes one word past 16-byte alignment): each equal to its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch import convert, testing
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    for case in testing.TILE_EDGE_CASES:
+        rng = np.random.default_rng(sum(map(ord, case[0])))
+        fields, rows, tp, kw = testing.tile_edge_inputs(
+            testing.tile_edge_case(rng, case), device)
+        require_equal(f"edge shape {case[0]}: K6 vs its plain version",
+                      ss.shape_tile_device(fields, rows, tp, **kw),
+                      ss.shape_tile_device_plain(fields, rows, tp, **kw))
+    for case in testing.SPLIT_EDGE_CASES:
+        rng = np.random.default_rng(sum(map(ord, case[0])))
+        args = [convert.as_tensor(a, device)
+                for a in testing.split_edge_case(rng, case)]
+        want = ss.shape_score_pairs_split_plain(*args)
+        require_equal(f"edge shape {case[0]}: K5 vs its plain version",
+                      ss.shape_score_pairs_split(*args), want)
+        shifted = list(args)
+        for k in (0, 2):
+            buf = torch.zeros(args[k].numel() + 1, dtype=torch.int32,
+                              device=device)
+            shifted[k] = buf[1:].view(args[k].shape)
+            shifted[k].copy_(args[k])
+        require_equal(f"edge shape {case[0]}: K5's scalar loader vs its "
+                      "plain version", ss.shape_score_pairs_split(*shifted),
+                      want)
+
+
+def check_pil_free_readers(device, work: str) -> dict:
+    """Phase 8, the image readers that need no PIL (io/jpeg.py, io/gif.py,
+    io/tiff.py; the GPU hosts have no PIL): each file of tests/torch_forms
+    (a baseline and a progressive JPEG, a GIF and a palette TIFF, written
+    by PIL) decodes to the pixels pinned beside it; colorDepthSearch on
+    the card over a small library with those files among its targets
+    skips none and finds the pinned matches; then each reader's seconds
+    for one 566 x 1210 image written by testing's encoders. Returns
+    {reader: seconds}."""
+    import logging
+
+    import numpy as np
+
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.engine import cds
+    from colormipsearch_tpu_torch.io import gif, image, jpeg, tiff
+
+    pinned = np.load(os.path.join(testing.FORMS_DIR, testing.FORMS_NPZ))
+    pixels = {}
+    for name in testing.FORM_FILES:
+        with open(os.path.join(testing.FORMS_DIR, name), "rb") as f:
+            got = image._decode_numpy(f.read())
+        if not np.array_equal(got.pixels, pinned[name]):
+            raise AssertionError(f"phase 8: {name} decodes to other pixels "
+                                 "than PIL's")
+        pixels[name] = got.as_rgb()
+    print(f"phase 8: {', '.join(testing.FORM_FILES)} decode without PIL to "
+          "PIL's pixels", flush=True)
+
+    skipped = []
+
+    class Skips(logging.Handler):
+        def emit(self, record):
+            if "skipped" in record.getMessage():
+                skipped.append(record.getMessage())
+
+    handler = Skips()
+    cds.LOG.addHandler(handler)
+    try:
+        matches = testing.forms_search(pixels, work, device)
+    finally:
+        cds.LOG.removeHandler(handler)
+    if skipped:
+        raise AssertionError(f"phase 8: the engine skipped targets: "
+                             f"{skipped}")
+    if not np.array_equal(matches, pinned["matches"]):
+        raise AssertionError(f"phase 8: matches {matches.tolist()} differ "
+                             f"from the pinned {pinned['matches'].tolist()}")
+    print(f"phase 8: colorDepthSearch on the card over the form files: "
+          f"{len(matches)} matches, the pinned ones, no target skipped",
+          flush=True)
+
+    rng = np.random.default_rng(8)
+    cdm = testing.synthetic_cdm(rng, H, W)
+    cube = np.stack(np.meshgrid(*[np.arange(0, 256, 51)] * 3,
+                                indexing="ij"), -1).reshape(-1, 3)
+    idx = (cdm.astype(np.int64) + 25) // 51
+    idx = (idx[..., 0] * 36 + idx[..., 1] * 6 + idx[..., 2]).astype(np.uint8)
+    cmap = cube.T.astype(np.uint16) * 257
+    cmap = np.pad(cmap, ((0, 0), (0, 256 - cmap.shape[1])))
+    files = {
+        "jpeg (baseline, 4:2:0, quality 95)": (
+            jpeg.decode_jpeg, testing.encode_jpeg(
+                cdm, quality=95, sampling=((2, 2), (1, 1), (1, 1)))),
+        "gif (216-colour table)": (
+            gif.decode_gif, testing.encode_gif(idx, cube)),
+        "tiff palette, Deflate": (
+            tiff.decode_tiff, testing.encode_tiff(
+                idx[..., None], photometric=3, compression=8,
+                colormap=cmap, rows_per_strip=64)),
+        "tiff RGB, Deflate + predictor": (
+            tiff.decode_tiff, testing.encode_tiff(
+                cdm, photometric=2, compression=8, predictor=2,
+                rows_per_strip=64)),
+    }
+    want = {"gif (216-colour table)": cube[idx],
+            "tiff palette, Deflate": cube[idx],
+            "tiff RGB, Deflate + predictor": cdm}
+    seconds = {}
+    for name, (decode, data) in files.items():
+        t0 = time.time()
+        px = decode(data)
+        seconds[name] = time.time() - t0
+        if px.shape != (H, W, 3) or (name in want
+                                     and not np.array_equal(px, want[name])):
+            raise AssertionError(f"phase 8: {name} decodes wrongly")
+        err = np.abs(px.astype(int) - cdm).mean()
+        print(f"phase 8: {name}, {len(data)} bytes, {H}x{W}: decoded in "
+              f"{seconds[name]:.3f} s (mean |pixel - source| {err:.2f})",
+              flush=True)
+    return seconds
 
 
 def make_variants(lib, seed: int) -> list:
@@ -2063,6 +2293,10 @@ def main() -> int:
         launches.update({k: step_launches[k] + engine_launches[k]
                          for k in MESH_KERNELS})
         phases["7 mesh"] = time.time() - t0
+        # phase 8
+        t0 = time.time()
+        readers = check_pil_free_readers(device, os.path.join(work, "forms"))
+        phases["8 readers"] = time.time() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2077,6 +2311,8 @@ def main() -> int:
                for name, (src, replaces) in KERNELS.items()]
     print("mesh steps at %d shards of one card, ms (mesh, single-device): "
           "%s" % (MESH_SHARDS, json.dumps(mesh_times)), flush=True)
+    print(f"PIL-free readers, seconds for one {H}x{W} image: "
+          f"{json.dumps(readers)}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

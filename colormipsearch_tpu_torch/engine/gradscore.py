@@ -551,6 +551,9 @@ class GradScoreEngine:
                 row = store.lookup(key) if key else None
                 (hits if row is not None else misses).append((m, row))
             group = [m for m, _ in misses]
+            # ascending store rows: neighbouring plane columns gather
+            # neighbouring field bytes (each match keeps its own column)
+            hits.sort(key=lambda hr: hr[1])
             GLOBAL.add("gs.storeLookup.seconds", time.time() - t_lookup)
             dev = self._device_store_fields(store) if hits else None
             dev_fields = dev[0] if dev else None
@@ -584,9 +587,9 @@ class GradScoreEngine:
                         GLOBAL.add("gs.wireBytes", sum(
                             a.numel() * a.element_size()
                             for a in tile_pos[:4]))
+                    # on the host: K6 checks its range there
                     rows_sel = torch.tensor([r for _, r in chunk],
-                                            dtype=torch.int32,
-                                            device=self.device)
+                                            dtype=torch.int32)
                     GLOBAL.add("gs.wireBytes", 4 * len(chunk))
                     t_gap, t_he = shape_score.shape_tile_device(
                         dev_fields, rows_sel, tile_pos,

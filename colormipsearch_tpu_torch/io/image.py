@@ -9,11 +9,14 @@ Replaces the reference's ImageJ/ImageIO decode layer
 
 Decoders, in order: the native C++ decoder (io/native_decoder.py; TIFF
 and PNG; a 16-bit RGB result is cut to its high bytes, as PIL does), PIL
-when it is importable, and last numpy + zlib decoders of every PNG form
-(decode_png) and of uncompressed BMPs (decode_bmp), which give what PIL
-gives through _from_pil. The last exist because the GPU hosts may have
-neither zlib's headers nor PIL; without PIL, JPEG, GIF and any TIFF the
-native decoder refuses raise ValueError.
+when it is importable, and last numpy + zlib decoders, which give what
+PIL gives through _from_pil: every PNG form (decode_png), uncompressed
+BMPs (decode_bmp), JPEGs (io/jpeg.py, libjpeg-turbo's integer
+decompression), the first frame of GIFs (io/gif.py) and strip TIFFs
+(io/tiff.py: palette, Deflate, planar and the forms the native decoder
+reads). The last exist because the GPU hosts may have neither zlib's
+headers nor PIL; what none of them reads raises ValueError naming the
+form.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from colormipsearch_tpu_torch.io import gif, jpeg, tiff
 
 
 class ImageType(enum.Enum):
@@ -373,22 +378,29 @@ def decode_bmp(data: bytes) -> ImageData:
         px[:, :w * n].reshape(h, w, n)[..., 2::-1]))
 
 
+def _image_data(arr: np.ndarray) -> ImageData:
+    """A reader's array as ImageData: uint8 [H, W] GRAY8, uint16 [H, W]
+    GRAY16, uint8 [H, W, 3] RGB."""
+    if arr.ndim == 3:
+        return ImageData(ImageType.RGB, arr)
+    return ImageData(ImageType.GRAY16 if arr.dtype == np.uint16
+                     else ImageType.GRAY8, arr)
+
+
 def _decode_numpy(data: bytes) -> ImageData:
-    """The decoders that need neither PIL nor the native library: PNG and
-    BMP; every other form raises ValueError naming it."""
+    """The decoders that need neither PIL nor the native library; a form
+    none of them reads raises ValueError naming it."""
     if data.startswith(_PNG_MAGIC):
         return decode_png(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
     if data[:3] == b"\xff\xd8\xff":
-        what = "JPEG"
-    elif data[:4] == b"GIF8":
-        what = "GIF"
-    elif data[:2] in (b"II", b"MM"):
-        what = "TIFF the native decoder cannot read"
-    else:
-        what = "unrecognised image format"
-    raise ValueError(f"{what}: not decodable without PIL")
+        return _image_data(jpeg.decode_jpeg(data))
+    if data[:4] == b"GIF8":
+        return _image_data(gif.decode_gif(data))
+    if data[:2] in (b"II", b"MM"):
+        return _image_data(tiff.decode_tiff(data))
+    raise ValueError("unrecognised image format: not decodable without PIL")
 
 
 def read_image(path_or_bytes) -> ImageData:
@@ -396,9 +408,8 @@ def read_image(path_or_bytes) -> ImageData:
 
     TIFFs and PNGs go through the native C++ decoder when it is
     available; everything else (and any native failure) goes to PIL when
-    it is importable, else to the numpy decoders (decode_png, decode_bmp),
-    which raise ValueError on JPEG, GIF and any TIFF the native decoder
-    cannot read.
+    it is importable, else to the numpy decoders (_decode_numpy), which
+    raise ValueError on what they cannot read.
     """
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)

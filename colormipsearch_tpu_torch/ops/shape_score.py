@@ -1074,9 +1074,10 @@ def shape_tile_device(fields, rows_sel, tp: TilePositions, *,
     [n_or, n_he_words, T]) dispatch planes (uint32 bits) of T store rows
     built from device-resident fields (device_store_fields), bit-identical
     to select_target_tile_from_store on the same rows; pad rows are zero.
-    rows_sel int32 [T] indexes the fields' R axis. CPU tensors run the
-    plain version; CUDA tensors launch kernels/csrc/shape_tile.cu or
-    raise."""
+    rows_sel int32 [T] indexes the fields' R axis; on the fields' device,
+    or on the host, where its range is checked without waiting for the
+    card before it is copied over. CPU fields run the plain version;
+    CUDA fields launch kernels/csrc/shape_tile.cu or raise."""
     zsl, grad, tfg = fields
     if zsl.dim() != 2:
         raise ValueError(f"zsl: expected [n_px, R], got {tuple(zsl.shape)}")
@@ -1093,22 +1094,28 @@ def shape_tile_device(fields, rows_sel, tp: TilePositions, *,
     kbuild.check_tensor(tp.h_pos, "h_pos", torch.int32, (tp.n_or * shp,))
     kbuild.check_tensor(tp.keep_he, "keep_he", torch.uint8,
                         (tp.n_or * shp,))
-    kbuild.same_device(zsl, grad, tfg, rows_sel, tp.pos_gap, tp.g_pos,
-                       tp.h_pos, tp.keep_he)
+    kbuild.same_device(zsl, grad, tfg, tp.pos_gap, tp.g_pos, tp.h_pos,
+                       tp.keep_he)
+    if rows_sel.device.type != "cpu":
+        kbuild.same_device(zsl, rows_sel)
     if tp.n_or not in (1, 2) or not 0 <= tp.sg <= n_gap_pad \
             or not 0 <= tp.sh <= shp:
         raise ValueError(f"positions (n_or {tp.n_or}, sg {tp.sg}, sh "
                          f"{tp.sh}) do not fit the planes")
     if tp.max_px >= n_px:
         raise ValueError(f"pixel {tp.max_px} outside the fields' {n_px}")
-    if t and (int(rows_sel.min()) < 0 or int(rows_sel.max()) >= n_r):
-        raise ValueError(f"rows_sel outside the fields' {n_r} rows")
+    if t:
+        lo, hi = (int(v) for v in torch.aminmax(rows_sel))
+        if lo < 0 or hi >= n_r:
+            raise ValueError(f"rows_sel outside the fields' {n_r} rows")
     if zsl.device.type == "cpu":
         return shape_tile_device_plain(fields, rows_sel, tp,
                                        n_gap_pad=n_gap_pad,
                                        n_he_words=n_he_words)
     kbuild.require_cuda(zsl)
     dev = zsl.device
+    # rows on the host were range-checked there, without reading the card
+    rows_sel = rows_sel.to(dev, non_blocking=True)
     t_gap = torch.empty((tp.n_or, n_gap_pad, t), dtype=torch.int32,
                         device=dev)
     t_he = torch.empty((tp.n_or, n_he_words, t), dtype=torch.int32,

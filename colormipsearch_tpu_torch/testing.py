@@ -85,6 +85,330 @@ def write_png(path, img: np.ndarray) -> None:
         f.write(data)
 
 
+# --- JPEG, GIF and TIFF writers (numpy + zlib): inputs for the port's
+# PIL-free readers (io/jpeg.py, io/gif.py, io/tiff.py) on hosts without PIL
+
+
+def _jpeg_qtable(base: np.ndarray, quality: int) -> np.ndarray:
+    """IJG's quality scaling (jcparam.c) of a base table, clamped to 1..255."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+_Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4
+                     + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38)
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+# fixed-length Huffman codes: 12 DC categories of 4 bits, the 162 AC
+# symbols (EOB, ZRL, run/size 0-15 x 1-10) of 8 bits; no code is all ones
+_DC_SYMBOLS = list(range(12))
+_AC_SYMBOLS = [0x00, 0xF0] + [r << 4 | s for r in range(16)
+                              for s in range(1, 11)]
+
+
+def _jpeg_segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _dct_matrix() -> np.ndarray:
+    k = np.arange(8)
+    c = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def encode_jpeg(pixels: np.ndarray, *, quality: int = 90,
+                sampling=None, restart_interval: int = 0,
+                component_ids=(1, 2, 3), jfif: bool = True) -> bytes:
+    """A baseline JPEG of uint8 [H, W] (gray) or [H, W, 3] (RGB, stored
+    as YCbCr unless component_ids spell 'RGB' without JFIF), with any
+    sampling factors ((h, v) per component; default 1x1), IJG's quality
+    tables, fixed-length Huffman codes and an optional restart interval
+    (in MCUs)."""
+    img = np.asarray(pixels, np.float64)
+    if img.ndim == 2:
+        planes = [img]
+        sampling = sampling or ((1, 1),)
+        component_ids = component_ids[:1]
+    else:
+        r, g, b = img[..., 0], img[..., 1], img[..., 2]
+        if bytes(component_ids) == b"RGB":
+            planes = [r, g, b]
+        else:
+            planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                      -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                      0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        sampling = sampling or ((1, 1),) * 3
+    h, w = img.shape[:2]
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    q_tables = [_jpeg_qtable(_Q_LUMA, quality),
+                _jpeg_qtable(_Q_CHROMA, quality)]
+    cmat = _dct_matrix()
+    comps = []
+    for ci, (plane, (fh, fv)) in enumerate(zip(planes, sampling)):
+        # the padded plane, then the mean over each fh' x fv' cell
+        ph, pw = mcuy * 8 * vmax, mcux * 8 * hmax
+        full = np.pad(plane, ((0, ph - h), (0, pw - w)), mode="edge")
+        sy, sx = vmax // fv, hmax // fh
+        sub = full.reshape(ph // sy, sy, pw // sx, sx).mean(axis=(1, 3))
+        blocks = (sub - 128).reshape(ph // sy // 8, 8, pw // sx // 8, 8) \
+            .transpose(0, 2, 1, 3)
+        coef = cmat @ blocks @ cmat.T
+        qt = q_tables[min(ci, 1)].reshape(8, 8)
+        quant = np.round(coef / qt).astype(np.int64)
+        comps.append(quant.reshape(quant.shape[0], quant.shape[1], 64)
+                     [..., _ZIGZAG])
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(_jpeg_segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"))
+    for t, table in enumerate(q_tables[:min(len(planes), 2)]):
+        out.append(_jpeg_segment(0xDB, bytes([t]) + bytes(
+            table[_ZIGZAG].astype(np.uint8))))
+    out.append(_jpeg_segment(0xC0, struct.pack(">BHHB", 8, h, w,
+                                               len(planes)) + b"".join(
+        bytes([component_ids[ci], fh << 4 | fv, min(ci, 1)])
+        for ci, (fh, fv) in enumerate(sampling))))
+    for tc, length, symbols in ((0, 4, _DC_SYMBOLS), (1, 8, _AC_SYMBOLS)):
+        counts = [0] * 16
+        counts[length - 1] = len(symbols)
+        for th in range(min(len(planes), 2)):
+            out.append(_jpeg_segment(0xC4, bytes([tc << 4 | th] + counts
+                                                 + symbols)))
+    if restart_interval:
+        out.append(_jpeg_segment(0xDD, struct.pack(">H", restart_interval)))
+    out.append(_jpeg_segment(0xDA, bytes([len(planes)]) + b"".join(
+        bytes([component_ids[ci], min(ci, 1) * 0x11])
+        for ci in range(len(planes))) + b"\0\x3f\0"))
+    out.append(_jpeg_scan(comps, sampling, mcux, mcuy, restart_interval,
+                          (h, w)))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def _jpeg_scan(comps, sampling, mcux, mcuy, restart_interval,
+               size) -> bytes:
+    """The entropy-coded data of one interleaved (or single-component)
+    baseline scan, byte-stuffed, with its restart markers."""
+    ac_code = {sym: i for i, sym in enumerate(_AC_SYMBOLS)}
+    if len(comps) == 1:
+        # a one-component scan codes the component's own blocks only
+        by_n, bx_n = -(-size[0] // 8), -(-size[1] // 8)
+        mcus = [[(0, by, bx)] for by in range(by_n) for bx in range(bx_n)]
+    else:
+        mcus = [[(ci, my * fv + v, mx * fh + u)
+                 for ci, (fh, fv) in enumerate(sampling)
+                 for v in range(fv) for u in range(fh)]
+                for my in range(mcuy) for mx in range(mcux)]
+    out = bytearray()
+    acc, n_acc = 0, 0
+    pred = [0] * len(comps)
+
+    def put(value, n):
+        nonlocal acc, n_acc
+        acc = acc << n | value
+        n_acc += n
+        while n_acc >= 8:
+            n_acc -= 8
+            byte = acc >> n_acc & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+        acc &= (1 << n_acc) - 1
+
+    def magnitude(v):
+        n = int(abs(v)).bit_length()
+        return n, (v if v >= 0 else v + (1 << n) - 1)
+
+    for k, mcu in enumerate(mcus):
+        if restart_interval and k and k % restart_interval == 0:
+            if n_acc:
+                put((1 << (8 - n_acc)) - 1, 8 - n_acc)
+            out += bytes([0xFF, 0xD0 + (k // restart_interval - 1) % 8])
+            pred = [0] * len(comps)
+        for ci, by, bx in mcu:
+            blk = comps[ci][by, bx]
+            diff = int(blk[0]) - pred[ci]
+            pred[ci] = int(blk[0])
+            n, bits = magnitude(diff)
+            put(n, 4)
+            if n:
+                put(bits, n)
+            nz = np.flatnonzero(blk[1:]) + 1
+            last = 0
+            for pos in nz.tolist():
+                run = pos - last - 1
+                while run > 15:
+                    put(ac_code[0xF0], 8)
+                    run -= 16
+                n, bits = magnitude(int(blk[pos]))
+                put(ac_code[run << 4 | n], 8)
+                put(bits, n)
+                last = pos
+            if last != 63:
+                put(ac_code[0x00], 8)
+    if n_acc:
+        put((1 << (8 - n_acc)) - 1, 8 - n_acc)
+    return bytes(out)
+
+
+def _lzw_codes(indices: bytes, min_bits: int) -> list:
+    """GIF LZW compression: (code, width) pairs, a clear first and the
+    end code last, the table cleared when it fills."""
+    clear = 1 << min_bits
+    codes = [(clear, min_bits + 1)]
+    table = {bytes([i]): i for i in range(clear)}
+    nxt, width = clear + 2, min_bits + 1
+    cur = b""
+    for i in range(len(indices)):
+        ext = cur + indices[i:i + 1]
+        if ext in table:
+            cur = ext
+            continue
+        codes.append((table[cur], width))
+        if nxt < 4096:
+            table[ext] = nxt
+            nxt += 1
+            # the decoder adds each entry one code later, so the width
+            # grows one code after the entry that fills it
+            if nxt > 1 << width and width < 12:
+                width += 1
+        else:
+            codes.append((clear, width))
+            table = {bytes([i]): i for i in range(clear)}
+            nxt, width = clear + 2, min_bits + 1
+        cur = indices[i:i + 1]
+    if cur:
+        codes.append((table[cur], width))
+    codes.append((clear + 1, width))
+    return codes
+
+
+def encode_gif(indices: np.ndarray, palette: np.ndarray, *,
+               interlace: bool = False, transparency: int | None = None,
+               local_table: bool = False, screen=None,
+               offset=(0, 0)) -> bytes:
+    """A one-frame GIF89a of uint8 indices [h, w] with a colour table
+    uint8 [n, 3] (padded to 2^k black entries; global, or local to the
+    frame), LZW-compressed;
+    `screen` (w, h) may be smaller than the frame, `offset` places it."""
+    h, w = indices.shape
+    bits = max(1, int(len(palette) - 1).bit_length())
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(palette)] = palette
+    # indices may pass the table: the code size covers the largest
+    min_bits = max(2, bits, int(indices.max(initial=0)).bit_length())
+    sw, sh = screen or (w + offset[0], h + offset[1])
+    out = bytearray(b"GIF89a" + struct.pack(
+        "<HHBBB", sw, sh, 0 if local_table else 0x80 | (bits - 1), 0, 0))
+    if not local_table:
+        out += table.tobytes()
+    if transparency is not None:
+        out += struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 1, 0, transparency, 0)
+    flags = (0x40 if interlace else 0) | (0x80 | (bits - 1)
+                                          if local_table else 0)
+    out += struct.pack("<BHHHHB", 0x2C, offset[0], offset[1], w, h, flags)
+    if local_table:
+        out += table.tobytes()
+    rows = np.arange(h)
+    if interlace:
+        rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4],
+                               rows[1::2]])
+    acc, n_acc, stream = 0, 0, bytearray()
+    for code, width in _lzw_codes(indices[rows].astype(np.uint8).tobytes(),
+                                  min_bits):
+        acc |= code << n_acc
+        n_acc += width
+        while n_acc >= 8:
+            stream.append(acc & 0xFF)
+            acc >>= 8
+            n_acc -= 8
+    if n_acc:
+        stream.append(acc & 0xFF)
+    out.append(min_bits)
+    for i in range(0, len(stream), 255):
+        chunk = stream[i:i + 255]
+        out += bytes([len(chunk)]) + chunk
+    return bytes(out + b"\0;")
+
+
+def encode_tiff(samples: np.ndarray, *, photometric: int,
+                compression: int = 1, predictor: int = 1, planar: int = 1,
+                big_endian: bool = False, rows_per_strip: int | None = None,
+                colormap: np.ndarray | None = None,
+                extra_tags: dict | None = None) -> bytes:
+    """A strip TIFF of samples [h, w, spp] (uint8 or uint16), uncompressed
+    (1) or Deflate (8, 32946), with the horizontal predictor (2) and
+    planar configuration 2 on request; colormap uint16 [3, 256] for a
+    palette (photometric 3); extra_tags {tag: [LONG values]}."""
+    e = ">" if big_endian else "<"
+    h, w, spp = samples.shape
+    bits = samples.dtype.itemsize * 8
+    x = samples.astype(samples.dtype.newbyteorder(e))
+    if predictor == 2:
+        d = x.astype(np.int64)
+        d[:, 1:] -= x[:, :-1].astype(np.int64)
+        x = (d % (1 << bits)).astype(x.dtype)
+    planes = ([x[..., p:p + 1] for p in range(spp)] if planar == 2 else [x])
+    rps = rows_per_strip or h
+    strips = []
+    for plane in planes:
+        for r0 in range(0, h, rps):
+            raw = np.ascontiguousarray(plane[r0:r0 + rps]).tobytes()
+            strips.append(zlib.compress(raw) if compression in (8, 32946)
+                          else raw)
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
+            (259, 3, [compression]), (262, 3, [photometric]),
+            (273, 4, [0] * len(strips)), (277, 3, [spp]),
+            (278, 4, [rps]), (279, 4, [len(s) for s in strips]),
+            (284, 3, [planar])]
+    if predictor != 1:
+        tags.append((317, 3, [predictor]))
+    if colormap is not None:
+        tags.append((320, 3, np.asarray(colormap).reshape(-1).tolist()))
+    tags += [(tag, 4, list(vals)) for tag, vals in (extra_tags or {}).items()]
+    tags.sort()
+    ifd_off = 8
+    extra_off = ifd_off + 2 + 12 * len(tags) + 4
+    extra = bytearray()
+    entries = []
+    for tag, typ, vals in tags:
+        fmt = "H" if typ == 3 else "I"
+        body = struct.pack(f"{e}{len(vals)}{fmt}", *vals)
+        entries.append([tag, typ, len(vals), body, None])
+    data_off = extra_off + sum(len(b) for _, _, _, b, _ in entries
+                               if len(b) > 4)
+    offsets, pos = [], data_off
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    out = bytearray((b"MM" if big_endian else b"II")
+                    + struct.pack(e + "HI", 42, ifd_off)
+                    + struct.pack(e + "H", len(tags)))
+    for entry in entries:
+        tag, typ, count, body, _ = entry
+        if tag == 273:
+            body = struct.pack(f"{e}{count}I", *offsets)
+        if len(body) > 4:
+            out += struct.pack(e + "HHII", tag, typ, count,
+                               extra_off + len(extra))
+            extra += body
+        else:
+            out += struct.pack(e + "HHI", tag, typ, count) + body.ljust(4,
+                                                                   b"\0")
+    out += struct.pack(e + "I", 0) + extra
+    return bytes(out + b"".join(strips))
+
+
 _STROKE_WIDTH = 3
 _STROKE_LENGTH = 300
 
@@ -318,3 +642,159 @@ def union_edge_batch(rng: np.random.Generator, case: tuple, h: int, w: int,
                          f"{u_t.shape[2]}")
     return {"union": (u_t, mu_t, lo, sp, u2),
             "qkeys": (u_t, mu_t, qidx_t, kl_t, *tabs, u2), "chunk": chunk}
+
+
+# The edge shapes of the shape pass's two kernels. K6 (shape_tile_device):
+# (name, gap rows, ring rows, mirror, ring order, store rows selected):
+# no gap rows, no ring rows, a ring not a multiple of 32, one
+# orientation, the ring rows shuffled out of raster order, the store rows
+# unsorted with repeats. K5 (shape_score_pairs_split): (name, T,
+# orientations, query): T not a multiple of the 4 columns a thread, all
+# query words zero, one orientation.
+TILE_EDGE_CASES = (
+    ("sg_0", 0, 150, True, "raster", "arange"),
+    ("sh_0", 90, 0, True, "raster", "arange"),
+    ("sh_77", 90, 77, True, "raster", "arange"),
+    ("no_mirror", 90, 77, False, "raster", "arange"),
+    ("shuffled_ring", 90, 300, True, "shuffled", "arange"),
+    ("rows_unsorted_repeats", 90, 300, True, "raster", "repeats"),
+)
+SPLIT_EDGE_CASES = (
+    ("t_1", 1, 2, "random"),
+    ("t_3", 3, 2, "random"),
+    ("t_13", 13, 2, "random"),
+    ("zero_query", 64, 2, "zero"),
+    ("one_orientation", 37, 1, "random"),
+)
+
+
+def tile_edge_case(rng: np.random.Generator, case: tuple, h: int = 19,
+                   w: int = 23, n_rows: int = 9) -> dict:
+    """numpy inputs of K6 at one TILE_EDGE_CASES shape: pixel-major store
+    fields of n_rows random rows ("zsl", "grad" uint16 [h*w, n_rows],
+    "tfg" uint8 [ceil(h*w/8), n_rows]), "rows" int32 [T], the mask's
+    support ("pos_gap", "g_pos", "h_pos", "keep" as split_gather_plan
+    makes them, the ring optionally shuffled), "n_gap_pad",
+    "n_he_words" and "mirror"."""
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    _, sg, sh, mirror, order, rows = case
+    n_px = h * w
+    px = rng.permutation(n_px)
+    pos_gap = np.sort(px[:sg]).astype(np.int32)
+    pos_he = np.sort(px[sg:sg + sh]).astype(np.int32)
+    excluded = np.zeros((h, w), bool)
+    excluded[:h // 4, :w // 3] = True
+    g_pos, h_pos, keep = ss.split_gather_plan(pos_gap, pos_he, w,
+                                              mirror=mirror,
+                                              excluded=excluded)
+    if order == "shuffled":
+        n_or = 2 if mirror else 1
+        perm = np.concatenate([o * sh + rng.permutation(sh)
+                               for o in range(n_or)])
+        h_pos, keep = h_pos[perm], keep[perm]
+    sel = (np.arange(n_rows) if rows == "arange"
+           else rng.integers(0, n_rows, 2 * n_rows + 3))
+    return {"zsl": rng.integers(0, 1 << 16, (n_px, n_rows)).astype(np.uint16),
+            "grad": rng.integers(0, 1 << 16, (n_px, n_rows))
+            .astype(np.uint16),
+            "tfg": rng.integers(0, 256, (-(-n_px // 8), n_rows))
+            .astype(np.uint8),
+            "rows": sel.astype(np.int32), "pos_gap": pos_gap,
+            "g_pos": g_pos, "h_pos": h_pos, "keep": keep,
+            "n_gap_pad": ss.support_bucket(max(sg, 1), minimum=64),
+            "n_he_words": ss.he_words(max(sh, 1), minimum=4),
+            "mirror": mirror}
+
+
+def tile_edge_inputs(c: dict, device) -> tuple:
+    """A tile_edge_case on `device` as shape_tile_device takes it:
+    (fields, rows_sel, TilePositions, {"n_gap_pad", "n_he_words"}); the
+    uint16 fields travel as int16 bits."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    kw = dict(n_gap_pad=c["n_gap_pad"], n_he_words=c["n_he_words"])
+    tp = ss.tile_positions(c["pos_gap"], c["g_pos"], c["h_pos"], c["keep"],
+                           mirror=c["mirror"], device=device, **kw)
+    fields = tuple(torch.from_numpy(c[k].view(np.int16)).to(device)
+                   for k in ("zsl", "grad")) \
+        + (torch.from_numpy(c["tfg"]).to(device),)
+    return fields, torch.from_numpy(c["rows"]).to(device), tp, kw
+
+
+def split_edge_case(rng: np.random.Generator, case: tuple, sg: int = 300,
+                    n_words: int = 9) -> tuple:
+    """numpy inputs of K5 at one SPLIT_EDGE_CASES shape: (t_gap uint32
+    [n_or, sg, T], q_gap int32 [n_or, sg], t_he uint32 [n_or, n_words,
+    T], q_he uint32 [n_or, n_words]), every bit pattern, the last three
+    gap rows and the last ring word of the query zero (pad rows)."""
+    _, t, n_or, query = case
+    t_gap = rng.integers(0, 1 << 32, (n_or, sg, t), dtype=np.uint64) \
+        .astype(np.uint32)
+    t_he = rng.integers(0, 1 << 32, (n_or, n_words, t), dtype=np.uint64) \
+        .astype(np.uint32)
+    q_gap = rng.integers(-(1 << 31), 1 << 31, (n_or, sg), dtype=np.int64) \
+        .astype(np.int32)
+    q_he = rng.integers(0, 1 << 32, (n_or, n_words), dtype=np.uint64) \
+        .astype(np.uint32)
+    q_gap[:, -3:] = 0
+    q_he[:, -1] = 0
+    if query == "zero":
+        q_gap[:] = 0
+        q_he[:] = 0
+    return t_gap, q_gap, t_he, q_he
+
+
+# The repository's image forms that only PIL wrote (tests/torch_forms/):
+# each file, with its PIL-decoded pixels and the matches of forms_search
+# pinned beside them in FORMS_NPZ.
+FORMS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "torch_forms")
+FORM_FILES = ("baseline.jpg", "progressive.jpg", "palette.gif",
+              "palette.tif")
+FORMS_NPZ = "pixels_and_matches.npz"
+FORMS_SIZE = (48, 64)   # height, width of every file and library image
+FORMS_SYNTHETIC_TARGETS = 6
+
+
+def forms_search(pixels: dict, work_dir, device, *, forms_dir=FORMS_DIR,
+                 file_names=FORM_FILES, seed: int = 0) -> np.ndarray:
+    """One colorDepthSearch over four image files: 6 synthetic PNG
+    targets and `file_names` in `forms_dir` (read by the engine as they
+    are) as targets; a mask cut from each file's pixels (`pixels`: the
+    FORM_FILES name in the same place -> uint8 [h, w, 3]) and 2
+    synthetic masks, written as PNGs to `work_dir`. Returns the matches
+    int64 [n, 4] (mask index, target index, matching pixels, mirrored),
+    sorted."""
+    from colormipsearch_tpu_torch.engine import cds
+
+    rng = np.random.default_rng(seed)
+    h, w = FORMS_SIZE
+    lib = synthetic_library(rng, FORMS_SYNTHETIC_TARGETS, 2, h, w,
+                            target_fg=0.1, mask_fg=0.04)
+    cut = [cut_mask(rng, pixels[name], shift=((0, 0), (0, 0), (2, 0),
+                                              (0, -2))[k],
+                    mirror=k == 1) for k, name in enumerate(FORM_FILES)]
+    masks = write_neuron_images(os.path.join(str(work_dir), "m"),
+                                cut + lib.masks, "m")
+    targets = write_neuron_images(os.path.join(str(work_dir), "t"),
+                                  lib.targets, "t")
+    for k, name in enumerate(file_names):
+        n = LMNeuron(mip_id=f"f-{k:05d}", library_name="synthetic",
+                     published_name=f"f{k:05d}")
+        n.set_compute_file(ComputeFileType.InputColorDepthImage,
+                           os.path.join(forms_dir, name))
+        targets.append(n)
+    params = cds.CDSParams(mask_threshold=20, data_threshold=20,
+                           pix_color_fluctuation=1.0, xy_shift=2,
+                           mirror_mask=True, pct_positive_pixels=0.0)
+    engine = cds.CDSearchEngine(params, device=device, decode_concurrency=1)
+    m_idx = {n.mip_id: i for i, n in enumerate(masks)}
+    t_idx = {n.mip_id: i for i, n in enumerate(targets)}
+    return np.array(sorted(
+        (m_idx[m.mask_image.mip_id], t_idx[m.matched_image.mip_id],
+         m.matching_pixels, int(m.mirrored))
+        for m in engine.find_all_matches(masks, targets)),
+        np.int64).reshape(-1, 4)

@@ -675,3 +675,49 @@ def test_cuda_banded_kernels_at_edge_shapes(cuda_device):
             for g, wnt in ((got, want), (got11, want11)):
                 for a, b in zip(g, wnt):
                     assert torch.equal(a, b), (n_cols, flu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.TILE_EDGE_CASES,
+                         ids=[c[0] for c in testing.TILE_EDGE_CASES])
+def test_cuda_k6_at_edge_shapes(cuda_device, case):
+    """K6 at testing.TILE_EDGE_CASES (held to JAX on the CPU in
+    test_torch_shape_edges.py) equals its plain version."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    fields, rows, tp, kw = testing.tile_edge_inputs(
+        testing.tile_edge_case(rng, case), cuda_device)
+    want = tss.shape_tile_device_plain(fields, rows, tp, **kw)
+    # the store rows on the card, and on the host as the engine gives them
+    for rows_sel in (rows, rows.cpu()):
+        for a, b in zip(tss.shape_tile_device(fields, rows_sel, tp, **kw),
+                        want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.SPLIT_EDGE_CASES,
+                         ids=[c[0] for c in testing.SPLIT_EDGE_CASES])
+def test_cuda_k5_at_edge_shapes(cuda_device, case):
+    """K5 at testing.SPLIT_EDGE_CASES, through its 16-byte and its scalar
+    loader (planes one word past 16-byte alignment), equals its plain
+    version."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    args = [convert.as_tensor(a, cuda_device)
+            for a in testing.split_edge_case(rng, case)]
+    want = tss.shape_score_pairs_split_plain(*args)
+    for a, b in zip(tss.shape_score_pairs_split(*args), want):
+        assert torch.equal(a, b)
+    # the same planes one word into a buffer: not 16-byte aligned
+    shifted = list(args)
+    for k in (0, 2):
+        buf = torch.zeros(args[k].numel() + 1, dtype=torch.int32,
+                          device=cuda_device)
+        shifted[k] = buf[1:].view(args[k].shape)
+        shifted[k].copy_(args[k])
+    assert shifted[0].data_ptr() % 16
+    for a, b in zip(tss.shape_score_pairs_split(*shifted), want):
+        assert torch.equal(a, b)

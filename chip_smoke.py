@@ -32,7 +32,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the mirror selection K5's, row 15's slice numbers the float64 slice
      table's everywhere but at exact ties (counted); K4's yardstick,
      torch.topk of its own int64 sort keys, with equal indices; and the
-     redesigned walks at their edge shapes (K3, K13 and row 14 at every
+     redesigned kernels at their edge shapes (K1 at every
+     testing.SCATTER_EDGE_CASES input, K2 at every
+     testing.EXPAND_EDGE_CASES input; K3, K13 and row 14 at every
      testing.UNION_EDGE_CASES batch, at the case's union chunk and the
      kernel's own; K9 and K11 at 301 and 300 columns and a query that is
      not a multiple of the chunk; K6 at every testing.TILE_EDGE_CASES
@@ -91,11 +93,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      phase 4's candidates: every shape score equal to the single-device
      run's. The new kernels' launches in the kernels line are phase 7's;
   8. the image readers that need no PIL (the GPU hosts have none): the
-     files of tests/torch_forms (a baseline and a progressive JPEG, a GIF
-     and a palette TIFF, written by PIL) decode to the pixels pinned
-     beside them; colorDepthSearch on the card over a small library with
-     those files among its targets skips none and finds the pinned
-     matches; each reader's time for one 566 x 1210 image.
+     files of tests/torch_forms (one of every decoded family: JPEGs
+     baseline, progressive, block-smoothed, CMYK, arithmetic-coded,
+     lossless and with corrupt data; a GIF; TIFFs palette, CCITT Group 4,
+     tiled JPEG, RGBA, CMYK and float) decode to the pixels pinned beside
+     them; colorDepthSearch on the card over a small library with those
+     files among its targets skips none and finds the pinned matches;
+     each reader's time for one 566 x 1210 image (CCITT, tiled JPEG in
+     TIFF, arithmetic, block smoothing and lossless among them).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -387,15 +392,24 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
     plain = common.scatter_key_planes_plain(*args1, **kw1)
     err = max_abs_err([planes], [plain])
     del plain
-    # per element: the classification and key (~16 operations) and a
-    # binary search over the cumulative counts (~4 per step)
+    # per element: the classification and key (~16 operations); the
+    # planes written once
     out["scatter_key_planes"] = entry(
         err, timed(lambda: common.scatter_key_planes(*args1, **kw1), 5),
         timed(lambda: common.scatter_key_planes_plain(*args1, **kw1), 3),
-        bound(nbytes(*args1) + 4 * (n_px + 1) * T_PAD,
-              pos.size * (16 + 4 * (T_PAD.bit_length() + 1))))
+        bound(nbytes(*args1) + 4 * (n_px + 1) * T_PAD, pos.size * 16))
+    # a zero fill of the planes (the cost of writing them once), then
+    # the kernel alone (no allocation), which leaves K1's planes again
+    fill_ms = timed(planes.zero_, 5)
+    kernel_ms = timed(lambda: kbuild.check(kbuild.load_library()
+                                           .cmst_scatter_keys(
+        planes.data_ptr(), *(a.data_ptr() for a in args1), pos.size,
+        n_px + 1, T_PAD, kbuild.stream_of(planes)), "K1 alone"), 5)
     print(f"K1 scatter_key_planes: {pos.size} COO elements -> planes "
-          f"{tuple(planes.shape)}", flush=True)
+          f"{tuple(planes.shape)} ({planes.numel() * 4 / 1e9:.3f} GB); "
+          f"kernel alone {kernel_ms:.3f} ms, zero fill of the planes "
+          f"(Tensor.zero_) {fill_ms:.3f} ms, through the wrapper "
+          f"{out['scatter_key_planes']['ms']:.3f} ms", flush=True)
 
     region = label_regions_mask(W, H)
     plans = [pm.build_full_union_key_plan(
@@ -409,7 +423,8 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
     kw2 = dict(offsets=tuple(shift_offsets(2)), w=W, h=H)
     lo, sp = pm.expand_union_tables_from_pos(*args2, **kw2)
     n_lanes, n_u = lo.shape[1], lo.shape[3]
-    # ~20 operations per (mask, lane, element): geometry, two gathers
+    # ~20 operations per (mask, lane, element): geometry, the search of
+    # q_pos, two gathers
     out["expand_union_tables_from_pos"] = entry(
         max_abs_err((lo, sp),
                     pm.expand_union_tables_from_pos_plain(*args2, **kw2)),
@@ -417,8 +432,18 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
         timed(lambda: pm.expand_union_tables_from_pos_plain(*args2, **kw2),
               3),
         bound(nbytes(*args2, lo, sp), BATCH * n_lanes * n_u * 20))
+    k2_offs = pm._host_offsets(kw2["offsets"])
+    k2_alone = timed(lambda: kbuild.check(kbuild.load_library()
+                                          .cmst_expand_tables(
+        args2[0].data_ptr(), u_pos.shape[1] * n_u, args2[1].data_ptr(),
+        q_pos.shape[1], args2[2].data_ptr(), key_list.shape[1],
+        args2[3].data_ptr(), args2[4].data_ptr(), args2[3].shape[1],
+        k2_offs, BATCH, n_lanes, n_u, W, H, lo.data_ptr(), sp.data_ptr(),
+        kbuild.stream_of(lo)), "K2 alone"), 10)
     print(f"K2 expand_union_tables_from_pos: lane tables "
-          f"{tuple(lo.shape)}, u2 {u2}", flush=True)
+          f"{tuple(lo.shape)}, u2 {u2}, q_pos {tuple(q_pos.shape)}; kernel "
+          f"alone {k2_alone:.4f} ms, through the wrapper "
+          f"{out['expand_union_tables_from_pos']['ms']:.4f} ms", flush=True)
 
     args3 = (planes, args2[0], convert.as_tensor(mu_pos, device), lo, sp,
              u2)
@@ -1123,8 +1148,11 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
 
 
 def check_edge_shapes(lib, device) -> None:
-    """Phase 2, the redesigned walks at their edge shapes, each against
-    its plain version exactly: K3, K13 and row 14 on every
+    """Phase 2, the redesigned kernels at their edge shapes, each against
+    its plain version exactly: K1 at every testing.SCATTER_EDGE_CASES
+    input (production image size: many 256-row tiles a block, P + 1 not
+    a multiple of them), K2 at every testing.EXPAND_EDGE_CASES input;
+    K3, K13 and row 14 on every
     testing.UNION_EDGE_CASES batch (random masks at the production image
     size against 300 targets, not a multiple of a block's 256 columns), at
     the case's chunk and at the kernel's own; K9 and K11 at 301 and 300
@@ -1138,6 +1166,25 @@ def check_edge_shapes(lib, device) -> None:
     from colormipsearch_tpu_torch.kernels import build as kbuild
     from colormipsearch_tpu_torch.oracle.pixel import label_regions_mask
     from colormipsearch_tpu_torch.ops import common, pixel_match as pm
+
+    for case in testing.SCATTER_EDGE_CASES:
+        rng = np.random.default_rng(sum(map(ord, case[0])))
+        args, kw = testing.scatter_edge_inputs(rng, case, H, W, device)
+        require_equal(f"edge shape {case[0]}: K1 vs its plain version "
+                      f"({args[0].shape[0]} elements, t_pad {kw['t_pad']})",
+                      [common.scatter_key_planes(*args, **kw)],
+                      [common.scatter_key_planes_plain(*args, **kw)])
+    for case in testing.EXPAND_EDGE_CASES:
+        rng = np.random.default_rng(sum(map(ord, case[0])))
+        args, kw = testing.expand_edge_inputs(rng, case, device)
+        require_equal(f"edge shape {case[0]}: K2 vs its plain version "
+                      f"(q_pos {tuple(args[1].shape)}, "
+                      f"{len(kw['offsets'])} lanes, {kw['h']}x{kw['w']})",
+                      pm.expand_union_tables_from_pos(*args, **kw),
+                      pm.expand_union_tables_from_pos_plain(*args, **kw))
+    del args
+    sync()
+    free_cached()
 
     rng = np.random.default_rng(7)
     n_px = H * W
@@ -1258,13 +1305,14 @@ def check_shape_edge_shapes(device) -> None:
 
 def check_pil_free_readers(device, work: str) -> dict:
     """Phase 8, the image readers that need no PIL (io/jpeg.py, io/gif.py,
-    io/tiff.py; the GPU hosts have no PIL): each file of tests/torch_forms
-    (a baseline and a progressive JPEG, a GIF and a palette TIFF, written
-    by PIL) decodes to the pixels pinned beside it; colorDepthSearch on
-    the card over a small library with those files among its targets
-    skips none and finds the pinned matches; then each reader's seconds
-    for one 566 x 1210 image written by testing's encoders. Returns
-    {reader: seconds}."""
+    io/tiff.py, io/fax.py; the GPU hosts have no PIL): each file of
+    tests/torch_forms (one of every family: baseline, progressive, CMYK,
+    arithmetic-coded, lossless, corrupt and block-smoothed JPEGs, a GIF,
+    palette, CCITT, tiled JPEG, RGBA, CMYK and float TIFFs) decodes to the
+    pixels pinned beside it; colorDepthSearch on the card over a small
+    library with those files among its targets skips none and finds the
+    pinned matches; then each reader's seconds for one 566 x 1210 image
+    written by testing's encoders. Returns {reader: seconds}."""
     import logging
 
     import numpy as np
@@ -1331,9 +1379,41 @@ def check_pil_free_readers(device, work: str) -> dict:
                 cdm, photometric=2, compression=8, predictor=2,
                 rows_per_strip=64)),
     }
+    bits = (cdm.max(-1) > 40).astype(np.uint8)
+    tiles = [testing.encode_jpeg(
+        np.pad(cdm[y:y + 256, x:x + 256],
+               ((0, max(0, y + 256 - H)), (0, max(0, x + 256 - W)), (0, 0)),
+               mode="edge"), quality=95, jfif=False,
+        sampling=((2, 2), (1, 1), (1, 1)))
+        for y in range(0, H, 256) for x in range(0, W, 256)]
+    arith = testing.encode_jpeg(cdm, quality=95, arithmetic=True,
+                                progressive=True,
+                                sampling=((2, 2), (1, 1), (1, 1)))
+    scans = [k for k in range(len(arith) - 1)
+             if arith[k] == 0xFF and arith[k + 1] == 0xDA]
+    files.update({
+        "tiff CCITT Group 4": (tiff.decode_tiff, testing.encode_tiff_chunks(
+            [testing.encode_fax(bits, group=4)], w=W, h=H, bits=[1],
+            photometric=0, compression=4)),
+        "tiff tiled JPEG (YCbCr 4:2:0, 256x256 tiles)": (
+            tiff.decode_tiff, testing.encode_tiff_chunks(
+                tiles, w=W, h=H, bits=[8, 8, 8], photometric=6,
+                compression=7, chunk=(256, 256), tiled=True,
+                extra_tags={530: [2, 2]})),
+        "jpeg arithmetic, progressive 4:2:0, quality 95": (
+            jpeg.decode_jpeg, arith),
+        "jpeg progressive cut after 3 scans (block smoothing)": (
+            jpeg.decode_jpeg, arith[:scans[3]] + b"\xff\xd9"),
+        "jpeg lossless (predictor 4)": (
+            jpeg.decode_jpeg, testing.encode_jpeg_lossless(cdm,
+                                                          predictor=4)),
+    })
     want = {"gif (216-colour table)": cube[idx],
             "tiff palette, Deflate": cube[idx],
-            "tiff RGB, Deflate + predictor": cdm}
+            "tiff RGB, Deflate + predictor": cdm,
+            "tiff CCITT Group 4": np.repeat(255 * (1 - bits)[..., None], 3,
+                                            -1),
+            "jpeg lossless (predictor 4)": cdm}
     seconds = {}
     for name, (decode, data) in files.items():
         t0 = time.time()

@@ -12,11 +12,14 @@ and PNG; a 16-bit RGB result is cut to its high bytes, as PIL does), PIL
 when it is importable, and last numpy + zlib decoders, which give what
 PIL gives through _from_pil: every PNG form (decode_png), uncompressed
 BMPs (decode_bmp), JPEGs (io/jpeg.py, libjpeg-turbo's integer
-decompression), the first frame of GIFs (io/gif.py) and strip TIFFs
-(io/tiff.py: palette, Deflate, planar and the forms the native decoder
-reads). The last exist because the GPU hosts may have neither zlib's
-headers nor PIL; what none of them reads raises ValueError naming the
-form.
+decompression: Huffman and arithmetic coding, sequential, progressive
+with block smoothing and lossless, CMYK / YCCK, corrupt data), the first
+frame of GIFs (io/gif.py) and TIFFs (io/tiff.py: strips and tiles;
+bilevel, gray, float, gray + alpha, RGB(A), palette, CMYK and
+JPEG-compressed YCbCr forms; uncompressed, LZW, PackBits, Deflate, CCITT
+(io/fax.py) and JPEG compression). The last exist because the GPU hosts
+may have neither zlib's headers nor PIL; what none of them reads raises
+ValueError naming the form.
 """
 
 from __future__ import annotations

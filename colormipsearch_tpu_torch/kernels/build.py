@@ -53,7 +53,7 @@ _SIGNATURES = {
                        _P, _P],
     "cmst_scatter_keys": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "cmst_expand_tables": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P,
-                           _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
+                           _I64, _I64, _I64, _I32, _I32, _P, _P, _P],
     "cmst_union_score": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _I32, _I32,
                          _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     "cmst_union_score_splitk": [_P, _P, _I64, _P, _P, _I32, _I32, _P, _P,

@@ -424,6 +424,11 @@ def scatter_key_planes(pos: torch.Tensor, rgb: torch.Tensor,
     target-major), rank_lut int32 [65536]. CPU tensors run the plain
     version; CUDA tensors launch the kernel (kernels/csrc/scatter_keys.cu)
     or raise.
+
+    Precondition of the kernel (not of the plain version): within each
+    target's segment pos rises strictly, as coo_foreground returns it
+    (the native select orders by (image, pixel), np.nonzero row-major);
+    the kernel walks each column's segment with one cursor.
     """
     n = pos.shape[0]
     kbuild.check_tensor(pos, "pos", torch.int32, (n,))
@@ -444,8 +449,7 @@ def scatter_key_planes(pos: torch.Tensor, rgb: torch.Tensor,
         planes.data_ptr(), pos.data_ptr(), rgb.data_ptr(), cum.data_ptr(),
         rank_lut.data_ptr(), n, n_px + 1, t_pad, kbuild.stream_of(pos)),
         "scatter_key_planes")
-    if n > 0:
-        kbuild.count_launch("scatter_key_planes")
+    kbuild.count_launch("scatter_key_planes")
     return planes
 
 

@@ -31,6 +31,7 @@ operations; uint16 planes travel as int16 with the same bits.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -1283,6 +1284,11 @@ def expand_union_tables_from_pos(u_pos, q_pos, key_list, tab_lo, tab_span,
     out-of-image shifts, non-query pixels and sentinel pads are inactive
     (key 0 -> the empty interval). CPU tensors run the plain version;
     CUDA tensors launch kernels/csrc/expand_tables.cu or raise.
+
+    Precondition of the kernel (not of the plain version): each mask's
+    q_pos rises strictly, its pads (= w*h) last, as
+    stack_union_pos_args builds it from np.flatnonzero; the kernel finds
+    a pixel's row by searching q_pos. u_pos needs no order.
     """
     batch, n_sets, n_u = u_pos.shape
     n_kl = key_list.shape[1]
@@ -1299,24 +1305,28 @@ def expand_union_tables_from_pos(u_pos, q_pos, key_list, tab_lo, tab_span,
             u_pos, q_pos, key_list, tab_lo, tab_span, offsets=offsets,
             w=w, h=h)
     kbuild.require_cuda(u_pos)
-    dev = u_pos.device
-    n_lanes = len(offsets)
-    offs = torch.tensor([c for o in offsets for c in o], dtype=torch.int32,
-                        device=dev)
-    pos_index = torch.empty((batch, w * h + 1), dtype=torch.int32,
-                            device=dev)
-    lane_lo = torch.empty((batch, n_lanes, 2, n_u), dtype=torch.int32,
-                          device=dev)
+    offs = _host_offsets(tuple(tuple(o) for o in offsets))
+    lane_lo = torch.empty((batch, len(offsets), 2, n_u), dtype=torch.int32,
+                          device=u_pos.device)
     lane_span = torch.empty_like(lane_lo)
     lib = kbuild.load_library()
     kbuild.check(lib.cmst_expand_tables(
         u_pos.data_ptr(), n_sets * n_u, q_pos.data_ptr(), n_kl - 1,
         key_list.data_ptr(), n_kl, tab_lo.data_ptr(), tab_span.data_ptr(),
-        tab_lo.shape[1], offs.data_ptr(), batch, n_lanes, n_u, w, h,
-        pos_index.data_ptr(), lane_lo.data_ptr(), lane_span.data_ptr(),
+        tab_lo.shape[1], offs, batch, len(offsets), n_u, w, h,
+        lane_lo.data_ptr(), lane_span.data_ptr(),
         kbuild.stream_of(u_pos)), "expand_union_tables_from_pos")
     kbuild.count_launch("expand_union_tables_from_pos")
     return lane_lo, lane_span
+
+
+@functools.lru_cache(maxsize=64)
+def _host_offsets(offsets: tuple):
+    """K2's lane offsets as a host int32 array of (dx, dy) pairs, built
+    once per offset set: the launcher copies them into the kernel's
+    parameters, so no call copies to the card."""
+    flat = [c for o in offsets for c in o]
+    return (ctypes.c_int32 * max(len(flat), 1))(*flat)
 
 
 def _is_segmented(u2, n_slots: int, n_u: int) -> bool:

@@ -31,6 +31,8 @@ import zlib
 import numpy as np
 
 from colormipsearch_tpu_torch.constants import RAINBOW_LUT
+from colormipsearch_tpu_torch.io import fax
+from colormipsearch_tpu_torch.io.jpeg import _QE
 from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron, Neuron
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -127,17 +129,30 @@ def _dct_matrix() -> np.ndarray:
 
 def encode_jpeg(pixels: np.ndarray, *, quality: int = 90,
                 sampling=None, restart_interval: int = 0,
-                component_ids=(1, 2, 3), jfif: bool = True) -> bytes:
-    """A baseline JPEG of uint8 [H, W] (gray) or [H, W, 3] (RGB, stored
-    as YCbCr unless component_ids spell 'RGB' without JFIF), with any
-    sampling factors ((h, v) per component; default 1x1), IJG's quality
-    tables, fixed-length Huffman codes and an optional restart interval
-    (in MCUs)."""
+                component_ids=(1, 2, 3), jfif: bool = True,
+                arithmetic: bool = False, progressive: bool = False,
+                dac: dict | None = None,
+                adobe_transform: int | None = None) -> bytes:
+    """A JPEG of uint8 [H, W] (gray), [H, W, 3] (RGB, stored as YCbCr
+    unless component_ids spell 'RGB' without JFIF) or [H, W, 4] (four
+    planes stored as they are, for CMYK or YCCK under an Adobe marker of
+    adobe_transform 0 or 2), with any sampling
+    factors ((h, v) per component; default 1x1), IJG's quality tables and
+    an optional restart interval (in MCUs). Huffman-coded baseline with
+    fixed-length codes, or with arithmetic=True arithmetic-coded (T.81
+    Annex D's QM coder, as libjpeg's jcarith.c codes): sequential (SOF9)
+    or progressive (SOF10, progressive=True, jpeg_simple_progression's
+    scans), and a DAC segment of {table index: value} on request."""
     img = np.asarray(pixels, np.float64)
     if img.ndim == 2:
         planes = [img]
         sampling = sampling or ((1, 1),)
         component_ids = component_ids[:1]
+    elif img.shape[2] == 4:
+        planes = [img[..., k] for k in range(4)]
+        sampling = sampling or ((1, 1),) * 4
+        component_ids = tuple(component_ids) + (4,) * (4 - len(
+            component_ids))
     else:
         r, g, b = img[..., 0], img[..., 1], img[..., 2]
         if bytes(component_ids) == b"RGB":
@@ -171,13 +186,35 @@ def encode_jpeg(pixels: np.ndarray, *, quality: int = 90,
     out = [b"\xff\xd8"]
     if jfif:
         out.append(_jpeg_segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"))
+    if adobe_transform is not None:
+        out.append(_jpeg_segment(0xEE, b"Adobe\0\x64\0\0\0\0"
+                                 + bytes([adobe_transform])))
     for t, table in enumerate(q_tables[:min(len(planes), 2)]):
         out.append(_jpeg_segment(0xDB, bytes([t]) + bytes(
             table[_ZIGZAG].astype(np.uint8))))
-    out.append(_jpeg_segment(0xC0, struct.pack(">BHHB", 8, h, w,
-                                               len(planes)) + b"".join(
+    sof = (0xCA if progressive else 0xC9) if arithmetic else 0xC0
+    out.append(_jpeg_segment(sof, struct.pack(">BHHB", 8, h, w,
+                                              len(planes)) + b"".join(
         bytes([component_ids[ci], fh << 4 | fv, min(ci, 1)])
         for ci, (fh, fv) in enumerate(sampling))))
+    if arithmetic:
+        if dac:
+            out.append(_jpeg_segment(0xCC, b"".join(
+                bytes([k, v]) for k, v in dac.items())))
+        if restart_interval:
+            out.append(_jpeg_segment(0xDD, struct.pack(">H",
+                                                       restart_interval)))
+        cond = _ArithConditioning(dac or {})
+        for scan in _arith_scans(len(planes), progressive):
+            ids = bytes(b for ci in scan[0]
+                        for b in (component_ids[ci], min(ci, 1) * 0x11))
+            out.append(_jpeg_segment(0xDA, bytes([len(scan[0])]) + ids
+                                     + bytes(scan[1:3])
+                                     + bytes([scan[3] << 4 | scan[4]])))
+            out.append(_arith_scan(comps, sampling, mcux, mcuy,
+                                   restart_interval, (h, w), scan, cond))
+        out.append(b"\xff\xd9")
+        return b"".join(out)
     for tc, length, symbols in ((0, 4, _DC_SYMBOLS), (1, 8, _AC_SYMBOLS)):
         counts = [0] * 16
         counts[length - 1] = len(symbols)
@@ -261,6 +298,437 @@ def _jpeg_scan(comps, sampling, mcux, mcuy, restart_interval,
     return bytes(out)
 
 
+def encode_jpeg_lossless(pixels: np.ndarray, *, predictor: int = 1,
+                         point_transform: int = 0, sampling=None,
+                         restart_interval: int = 0,
+                         component_ids=(1, 2, 3), jfif: bool = False,
+                         interleaved: bool = True) -> bytes:
+    """A lossless JPEG (SOF3, T.81 Annex H) of uint8 [H, W] or [H, W, 3]
+    samples, stored as they are (no colour transform): predictor 1-7,
+    point transform Pt, sampling factors ((h, v) per component; a
+    subsampled component takes the mean of each cell, rounded down), one
+    interleaved scan or one scan per component, an optional restart
+    interval (in MCUs; libjpeg needs whole MCU rows) and fixed-length
+    5-bit codes for the 17 difference categories."""
+    img = np.asarray(pixels, np.int64)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, nc = img.shape
+    sampling = sampling or ((1, 1),) * nc
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    planes = []
+    for k, (fh, fv) in enumerate(sampling):
+        sy, sx = vmax // fv, hmax // fh
+        full = np.pad(img[..., k], ((0, mcuy * vmax - h), (0, mcux * hmax - w)),
+                      mode="edge")
+        sub = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx,
+                           sx).sum(axis=(1, 3)) // (sy * sx)
+        planes.append(sub >> point_transform)
+    dims = [(-(-h * fv // vmax), -(-w * fh // hmax)) for fh, fv in sampling]
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(_jpeg_segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"))
+    out.append(_jpeg_segment(0xC3, struct.pack(">BHHB", 8, h, w, nc)
+                             + b"".join(bytes([component_ids[k], fh << 4 | fv,
+                                               0])
+                                        for k, (fh, fv) in
+                                        enumerate(sampling))))
+    counts = [0] * 16
+    counts[4] = 17
+    out.append(_jpeg_segment(0xC4, bytes([0] + counts + list(range(17)))))
+    if restart_interval:
+        out.append(_jpeg_segment(0xDD, struct.pack(">H", restart_interval)))
+    scans = [tuple(range(nc))] if interleaved else [(k,) for k in range(nc)]
+    for members in scans:
+        out.append(_jpeg_segment(0xDA, bytes([len(members)]) + b"".join(
+            bytes([component_ids[k], 0]) for k in members)
+            + bytes([predictor, 0, point_transform])))
+        out.append(_lossless_data(planes, dims, sampling, members, mcux,
+                                  mcuy, predictor, point_transform,
+                                  restart_interval))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def _lossless_data(planes, dims, sampling, members, mcux, mcuy, predictor,
+                   pt, restart_interval) -> bytes:
+    """One lossless scan's entropy-coded data."""
+    # each component's predictions: the first row of the scan (and of
+    # each restart interval) along the row from 2^(7 - Pt), the others
+    # by the predictor, their first sample from above
+    if len(members) == 1:
+        dh, dw = dims[members[0]]
+        per_row, rows_per_mcu = dw, [1]
+        mcus = [[(members[0], y, x)] for y in range(dh) for x in range(dw)]
+    else:
+        per_row = mcux
+        mcus = [[(k, my * sampling[k][1] + v, mx * sampling[k][0] + u)
+                 for k in members for v in range(sampling[k][1])
+                 for u in range(sampling[k][0])]
+                for my in range(mcuy) for mx in range(mcux)]
+    rows_per_interval = restart_interval // per_row if restart_interval \
+        else 0
+    diffs = {}
+    for k in members:
+        x = planes[k]
+        fv = 1 if len(members) == 1 else sampling[k][1]
+        pred = np.zeros_like(x)
+        for y in range(x.shape[0]):
+            fresh = y == 0 or (rows_per_interval
+                               and y % (fv * rows_per_interval) == 0)
+            if fresh:
+                pred[y, 0] = 1 << (8 - pt - 1)
+                pred[y, 1:] = x[y, :-1]
+                continue
+            ra = np.concatenate([[0], x[y, :-1]])
+            rb = x[y - 1]
+            rc = np.concatenate([[0], x[y - 1, :-1]])
+            p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                 7: (ra + rb) >> 1}[predictor]
+            p = p.copy()
+            p[0] = rb[0]
+            pred[y] = p
+        d = (x - pred) & 0xFFFF
+        diffs[k] = np.where(d >= 0x8000, d - 0x10000, d)
+    data = bytearray()
+    acc, n_acc = 0, 0
+
+    def put(value, n):
+        nonlocal acc, n_acc
+        acc = acc << n | value
+        n_acc += n
+        while n_acc >= 8:
+            n_acc -= 8
+            byte = acc >> n_acc & 0xFF
+            data.append(byte)
+            if byte == 0xFF:
+                data.append(0)
+        acc &= (1 << n_acc) - 1
+
+    for i, mcu in enumerate(mcus):
+        if restart_interval and i and i % restart_interval == 0:
+            if n_acc:
+                put((1 << (8 - n_acc)) - 1, 8 - n_acc)
+            data += bytes([0xFF, 0xD0 + (i // restart_interval - 1) % 8])
+        for k, y, x in mcu:
+            dy, dx = diffs[k].shape
+            v = int(diffs[k][y, x]) if y < dy and x < dx else 0
+            s = 16 if v == -32768 else abs(v).bit_length()
+            put(s, 5)
+            if 0 < s < 16:
+                put(v if v > 0 else v + (1 << s) - 1, s)
+    if n_acc:
+        put((1 << (8 - n_acc)) - 1, 8 - n_acc)
+    return bytes(data)
+
+
+class _ArithConditioning:
+    """DAC's conditioning (L, U per DC table, K per AC table), with
+    SOI's defaults."""
+
+    def __init__(self, dac: dict):
+        self.lo, self.hi, self.kx = [0] * 16, [1] * 16, [5] * 16
+        for index, val in dac.items():
+            if index >= 16:
+                self.kx[index - 16] = val
+            else:
+                self.lo[index], self.hi[index] = val & 15, val >> 4
+
+
+def _arith_scans(n_comps: int, progressive: bool) -> list:
+    """(component indices, Ss, Se, Ah, Al) of each scan: one sequential
+    scan, or jpeg_simple_progression's script (jcparam.c)."""
+    every = tuple(range(n_comps))
+    if not progressive:
+        return [(every, 0, 63, 0, 0)]
+    if n_comps == 3:
+        return [(every, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2),
+                ((0,), 1, 63, 2, 1), (every, 0, 0, 1, 0),
+                ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                ((0,), 1, 63, 1, 0)]
+    return [(every, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+            ((0,), 1, 63, 2, 1), (every, 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+
+
+class _ArithEncoder:
+    """jcarith.c's arith_encode and finish_pass: the QM coder with its
+    carry handling, 0xFF stuffing and trailing-zero trimming."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.ct = 0, 0x10000, 11
+        self.sc, self.zc, self.buffer = 0, 0, -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+
+    def _flush_zeros(self) -> None:
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st, k: int, val: int) -> None:
+        sv = st[k]
+        qe, nm, nl = _QE[sv & 0x7F]
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[k] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[k] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._flush_zeros()
+                        for _ in range(self.sc):
+                            self.out += b"\xff\x00"
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_zeros()
+                for _ in range(self.sc):
+                    self.out += b"\xff\x00"
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            b = (self.c >> 19) & 0xFF
+            self._emit(b)
+            if b == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                b = (self.c >> 11) & 0xFF
+                self._emit(b)
+                if b == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _arith_value(enc, stats, st: int, v: int, x1: int, fixed=None) -> None:
+    """Figures F.6-F.9 for a nonzero v: its sign (in bin st + 1 for DC,
+    the fixed bin for AC), magnitude category and bits. x1 < 0: DC (the
+    categories in bins 20 on); else AC, categories past the second in
+    bins x1 on."""
+    if fixed is None:
+        enc.encode(stats, st + 1, int(v < 0))
+        st += 3 if v < 0 else 2
+    else:
+        enc.encode(fixed, 0, int(v < 0))
+        st += 2
+    v = abs(v) - 1
+    m = 0
+    if v:
+        enc.encode(stats, st, 1)
+        m = 1
+        v2 = v >> 1
+        if x1 < 0:
+            st = 20
+            while v2:
+                enc.encode(stats, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+        elif v2:
+            enc.encode(stats, st, 1)
+            m <<= 1
+            st = x1
+            v2 >>= 1
+            while v2:
+                enc.encode(stats, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+    enc.encode(stats, st, 0)
+    st += 14
+    m >>= 1
+    while m:
+        enc.encode(stats, st, int(bool(m & v)))
+        m >>= 1
+
+
+def _arith_scan(comps, sampling, mcux, mcuy, restart_interval, size, scan,
+                cond) -> bytes:
+    """One arithmetic-coded scan of quantized blocks (zigzag order),
+    byte-stuffed, with its restart markers."""
+    members, ss, se, ah, al = scan
+    if len(members) == 1:
+        ci = members[0]
+        fh, fv = sampling[ci]
+        hmax = max(f[0] for f in sampling)
+        vmax = max(f[1] for f in sampling)
+        bh = -(-(-(-size[0] * fv // vmax)) // 8)
+        bw = -(-(-(-size[1] * fh // hmax)) // 8)
+        mcus = [[(0, ci, by, bx)] for by in range(bh) for bx in range(bw)]
+    else:
+        mcus = [[(k, ci, my * sampling[ci][1] + v, mx * sampling[ci][0] + u)
+                 for k, ci in enumerate(members)
+                 for v in range(sampling[ci][1])
+                 for u in range(sampling[ci][0])]
+                for my in range(mcuy) for mx in range(mcux)]
+    out = bytearray()
+    fixed = bytearray([113])
+
+    def fresh():
+        return ({min(ci, 1): bytearray(64) for ci in members},
+                {min(ci, 1): bytearray(256) for ci in members},
+                [0] * len(members), [0] * len(members))
+
+    dc_stats, ac_stats, last, ctx = fresh()
+    enc = _ArithEncoder()
+    for n, mcu in enumerate(mcus):
+        if restart_interval and n and n % restart_interval == 0:
+            out += enc.finish() + bytes(
+                [0xFF, 0xD0 + (n // restart_interval - 1) % 8])
+            dc_stats, ac_stats, last, ctx = fresh()
+            enc = _ArithEncoder()
+        for k, ci, by, bx in mcu:
+            blk = [int(x) for x in comps[ci][by, bx]]
+            tbl = min(ci, 1)
+            if ss == 0 and ah == 0:
+                dc = blk[0] >> al
+                v = dc - last[k]
+                st = ctx[k]
+                if v == 0:
+                    enc.encode(dc_stats[tbl], st, 0)
+                    ctx[k] = 0
+                else:
+                    last[k] = dc
+                    enc.encode(dc_stats[tbl], st, 1)
+                    _arith_value(enc, dc_stats[tbl], st, v, -1)
+                    m = abs(v) - 1
+                    m = 1 << (m.bit_length() - 1) if m else 0
+                    if m < (1 << cond.lo[tbl]) >> 1:
+                        ctx[k] = 0
+                    elif m > (1 << cond.hi[tbl]) >> 1:
+                        ctx[k] = 12 + 4 * int(v < 0)
+                    else:
+                        ctx[k] = 4 + 4 * int(v < 0)
+                if ss == 0 and se == 0:
+                    continue
+                _arith_ac_block(enc, ac_stats[tbl], fixed, blk, 1, 63, 0,
+                                cond.kx[tbl])
+            elif ss == 0:
+                enc.encode(fixed, 0, (blk[0] >> al) & 1)
+            elif ah == 0:
+                _arith_ac_block(enc, ac_stats[tbl], fixed, blk, ss, se, al,
+                                cond.kx[tbl])
+            else:
+                _arith_ac_refine_block(enc, ac_stats[tbl], fixed, blk, ss,
+                                       se, ah, al)
+    return bytes(out + enc.finish())
+
+
+def _shifted(v: int, al: int) -> int:
+    """An AC coefficient's point transform: |v| >> al with v's sign."""
+    return (abs(v) >> al) * (1 if v >= 0 else -1)
+
+
+def _arith_ac_block(enc, stats, fixed, blk, ss, se, al, kx) -> None:
+    """Figure F.5 over the band ss..se of a block (zigzag order) after
+    its point transform by al."""
+    ke = se
+    while ke > 0 and not _shifted(blk[ke], al):
+        ke -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        enc.encode(stats, st, 0)
+        while not _shifted(blk[k], al):
+            enc.encode(stats, st + 1, 0)
+            st += 3
+            k += 1
+        enc.encode(stats, st + 1, 1)
+        _arith_value(enc, stats, st, _shifted(blk[k], al),
+                     189 if k <= kx else 217, fixed)
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine_block(enc, stats, fixed, blk, ss, se, ah, al) -> None:
+    """Figure G.10: the refinement scan of a block's band."""
+    ke = se
+    while ke > 0 and not _shifted(blk[ke], al):
+        ke -= 1
+    kex = ke
+    while kex > 0 and not _shifted(blk[kex], ah):
+        kex -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        if k > kex:
+            enc.encode(stats, st, 0)
+        while True:
+            v = abs(blk[k]) >> al
+            if v:
+                if v >> 1:
+                    enc.encode(stats, st + 2, v & 1)
+                else:
+                    enc.encode(stats, st + 1, 1)
+                    enc.encode(fixed, 0, int(blk[k] < 0))
+                break
+            enc.encode(stats, st + 1, 0)
+            st += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(stats, 3 * (k - 1), 1)
+
+
 def _lzw_codes(indices: bytes, min_bits: int) -> list:
     """GIF LZW compression: (code, width) pairs, a clear first and the
     end code last, the table cleared when it fills."""
@@ -341,18 +809,87 @@ def encode_gif(indices: np.ndarray, palette: np.ndarray, *,
     return bytes(out + b"\0;")
 
 
+def encode_fax(bits: np.ndarray, *, group: int = 4,
+               two_d: bool = True) -> bytes:
+    """CCITT fax coding of uint8 [h, w] bits (1 = black) for one TIFF
+    strip or tile: T.6 (group 4) or T.4 (group 3, an EOL before every
+    row, then with two_d a tag bit: every row but the first 2-D coded),
+    MSB first, the last byte padded with zeros. The run codes are
+    io/fax.py's tables."""
+    white = {r: c for c, r in fax._run_codes(fax._WHITE).items()}
+    black = {r: c for c, r in fax._run_codes(fax._BLACK).items()}
+    modes = {m: c for c, m in fax._MODES.items()}
+    out = []
+
+    def run(length, colour):
+        table = black if colour else white
+        while length >= 2560:
+            out.append(table[2560])
+            length -= 2560
+        if length >= 64:
+            out.append(table[length // 64 * 64])
+        out.append(table[length % 64])
+
+    h, w = bits.shape
+    ref = [w, w]
+    for y in range(h):
+        row = bits[y].astype(np.int8)
+        changes = (np.flatnonzero(np.diff(np.concatenate([[0], row])))
+                   .tolist())
+        if group == 3:
+            out.append("000000000001")
+            if two_d:
+                out.append("1" if y == 0 else "0")
+        if group == 3 and (not two_d or y == 0):
+            a0, colour = 0, 0
+            for c in changes + [w]:
+                run(c - a0, colour)
+                a0, colour = c, colour ^ 1
+                if c == w:
+                    break
+        else:
+            line = changes + [w, w]
+            a0, colour = -1, 0
+            while a0 < w:
+                a1 = next(c for c in line if c > a0)
+                i = colour
+                while i < len(ref) and ref[i] <= a0:
+                    i += 2
+                b1 = ref[i] if i < len(ref) else w
+                b2 = ref[i + 1] if i + 1 < len(ref) else w
+                if b2 < a1:
+                    out.append(modes["P"])
+                    a0 = b2
+                elif abs(a1 - b1) <= 3:
+                    out.append(modes[a1 - b1])
+                    a0, colour = a1, colour ^ 1
+                else:
+                    a2 = next((c for c in line if c > a1), w)
+                    out.append(modes["H"])
+                    run(a1 - max(a0, 0), colour)
+                    run(a2 - a1, colour ^ 1)
+                    a0 = a2
+        ref = changes + [w, w]
+    text = "".join(out)
+    text += "0" * (-len(text) % 8)
+    return int(text, 2).to_bytes(len(text) // 8, "big") if text else b""
+
+
 def encode_tiff(samples: np.ndarray, *, photometric: int,
                 compression: int = 1, predictor: int = 1, planar: int = 1,
                 big_endian: bool = False, rows_per_strip: int | None = None,
                 colormap: np.ndarray | None = None,
-                extra_tags: dict | None = None) -> bytes:
-    """A strip TIFF of samples [h, w, spp] (uint8 or uint16), uncompressed
-    (1) or Deflate (8, 32946), with the horizontal predictor (2) and
-    planar configuration 2 on request; colormap uint16 [3, 256] for a
-    palette (photometric 3); extra_tags {tag: [LONG values]}."""
+                extra_tags: dict | None = None, bits: int | None = None,
+                fill_order: int = 1) -> bytes:
+    """A strip TIFF of samples [h, w, spp] (uint8, uint16 or float32),
+    uncompressed (1) or Deflate (8, 32946), with the horizontal predictor
+    (2) and planar configuration 2 on request; `bits` < 8 packs uint8
+    samples MSB first, each row on a byte; fill_order 2 reverses the bits
+    of every byte; colormap uint16 [3, 2^bits] for a palette
+    (photometric 3); extra_tags {tag: [LONG values]}."""
     e = ">" if big_endian else "<"
     h, w, spp = samples.shape
-    bits = samples.dtype.itemsize * 8
+    bits = bits or samples.dtype.itemsize * 8
     x = samples.astype(samples.dtype.newbyteorder(e))
     if predictor == 2:
         d = x.astype(np.int64)
@@ -363,40 +900,90 @@ def encode_tiff(samples: np.ndarray, *, photometric: int,
     strips = []
     for plane in planes:
         for r0 in range(0, h, rps):
-            raw = np.ascontiguousarray(plane[r0:r0 + rps]).tobytes()
+            rows = plane[r0:r0 + rps]
+            raw = (_pack_bits(rows, bits) if bits < 8
+                   else np.ascontiguousarray(rows).tobytes())
             strips.append(zlib.compress(raw) if compression in (8, 32946)
                           else raw)
-    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
-            (259, 3, [compression]), (262, 3, [photometric]),
-            (273, 4, [0] * len(strips)), (277, 3, [spp]),
-            (278, 4, [rps]), (279, 4, [len(s) for s in strips]),
-            (284, 3, [planar])]
-    if predictor != 1:
-        tags.append((317, 3, [predictor]))
+    tags = {277: [spp]}
     if colormap is not None:
-        tags.append((320, 3, np.asarray(colormap).reshape(-1).tolist()))
-    tags += [(tag, 4, list(vals)) for tag, vals in (extra_tags or {}).items()]
-    tags.sort()
+        tags[320] = np.asarray(colormap).reshape(-1).tolist()
+    if samples.dtype == np.float32:
+        tags[339] = [3]
+    if predictor != 1:
+        tags[317] = [predictor]
+    tags.update(extra_tags or {})
+    return encode_tiff_chunks(
+        strips, w=w, h=h, bits=[bits] * spp, photometric=photometric,
+        compression=compression, planar=planar, big_endian=big_endian,
+        chunk=(w, rps), extra_tags=tags, fill_order=fill_order)
+
+
+def _pack_bits(rows: np.ndarray, bits: int) -> bytes:
+    """uint8 samples [h, w, c] of `bits` bits -> rows packed MSB first,
+    each padded to a byte."""
+    h = rows.shape[0]
+    flat = rows.reshape(h, -1).astype(np.uint8)
+    per = 8 // bits
+    n = -(-flat.shape[1] // per)
+    padded = np.zeros((h, n * per), np.uint8)
+    padded[:, :flat.shape[1]] = flat
+    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+    return (padded.reshape(h, n, per) << shifts).sum(2).astype(
+        np.uint8).tobytes()
+
+
+def encode_tiff_chunks(chunks: list, *, w: int, h: int, bits: list,
+                       photometric: int, compression: int, planar: int = 1,
+                       big_endian: bool = False, chunk: tuple | None = None,
+                       tiled: bool = False, extra_tags: dict | None = None,
+                       fill_order: int = 1) -> bytes:
+    """A TIFF around already coded strips or tiles (chunk = (width,
+    height) of a strip or tile, tiles with tiled=True; in the order a
+    reader takes them: plane by plane, row of tiles by row). fill_order 2
+    reverses the bits of every chunk's bytes. extra_tags {tag: values}
+    are SHORT where every value fits, LONG otherwise; bytes values are
+    UNDEFINED (JPEGTables)."""
+    e = ">" if big_endian else "<"
+    cw, ch = chunk or (w, h)
+    if fill_order == 2:
+        rev = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+        chunks = [c.translate(rev) for c in chunks]
+    tags = {256: [w], 257: [h], 258: list(bits), 259: [compression],
+            262: [photometric], 277: [len(bits)], 284: [planar]}
+    if fill_order != 1:
+        tags[266] = [fill_order]
+    if tiled:
+        tags.update({322: [cw], 323: [ch], 324: [0] * len(chunks),
+                     325: [len(c) for c in chunks]})
+    else:
+        tags.update({273: [0] * len(chunks), 278: [ch],
+                     279: [len(c) for c in chunks]})
+    tags.update(extra_tags or {})
     ifd_off = 8
     extra_off = ifd_off + 2 + 12 * len(tags) + 4
-    extra = bytearray()
     entries = []
-    for tag, typ, vals in tags:
-        fmt = "H" if typ == 3 else "I"
-        body = struct.pack(f"{e}{len(vals)}{fmt}", *vals)
-        entries.append([tag, typ, len(vals), body, None])
-    data_off = extra_off + sum(len(b) for _, _, _, b, _ in entries
-                               if len(b) > 4)
+    for tag in sorted(tags):
+        vals = tags[tag]
+        if isinstance(vals, (bytes, bytearray)):
+            typ, body = 7, bytes(vals)
+        else:
+            typ = 3 if max(vals, default=0) < 1 << 16 \
+                and tag not in (273, 279, 324, 325) else 4
+            body = struct.pack(f"{e}{len(vals)}{'H' if typ == 3 else 'I'}",
+                               *vals)
+        entries.append((tag, typ, len(vals), body))
+    data_off = extra_off + sum(len(b) for *_, b in entries if len(b) > 4)
     offsets, pos = [], data_off
-    for s in strips:
+    for c in chunks:
         offsets.append(pos)
-        pos += len(s)
+        pos += len(c)
     out = bytearray((b"MM" if big_endian else b"II")
                     + struct.pack(e + "HI", 42, ifd_off)
-                    + struct.pack(e + "H", len(tags)))
-    for entry in entries:
-        tag, typ, count, body, _ = entry
-        if tag == 273:
+                    + struct.pack(e + "H", len(entries)))
+    extra = bytearray()
+    for tag, typ, count, body in entries:
+        if tag in (273, 324):
             body = struct.pack(f"{e}{count}I", *offsets)
         if len(body) > 4:
             out += struct.pack(e + "HHII", tag, typ, count,
@@ -406,7 +993,7 @@ def encode_tiff(samples: np.ndarray, *, photometric: int,
             out += struct.pack(e + "HHI", tag, typ, count) + body.ljust(4,
                                                                    b"\0")
     out += struct.pack(e + "I", 0) + extra
-    return bytes(out + b"".join(strips))
+    return bytes(out + b"".join(chunks))
 
 
 _STROKE_WIDTH = 3
@@ -651,6 +1238,101 @@ def union_edge_batch(rng: np.random.Generator, case: tuple, h: int, w: int,
 # unsorted with repeats. K5 (shape_score_pairs_split): (name, T,
 # orientations, query): T not a multiple of the 4 columns a thread, all
 # query words zero, one orientation.
+# K1 at the shapes its tiles and cursors meet at their edges: (name,
+# targets, t_pad, fill). t_pad 13 and 33 are not a multiple of the
+# kernel's 32-column tile (one-by-one stores), 32 is one tile; "empty"
+# leaves every third target black and pads t_pad past the last target
+# (flat cum), "full" makes one target foreground at every pixel, "black"
+# gives no element at all (n = 0). No image size of the callers has P + 1
+# a multiple of the kernel's 256-row tile.
+SCATTER_EDGE_CASES = (
+    ("t_pad_13", 13, 13, "random"),
+    ("t_pad_32", 32, 32, "random"),
+    ("t_pad_33", 33, 33, "random"),
+    ("empty_targets", 40, 64, "empty"),
+    ("full_target", 5, 32, "full"),
+    ("n_0", 4, 32, "black"),
+)
+
+
+def scatter_edge_inputs(rng: np.random.Generator, case: tuple, h: int,
+                        w: int, device) -> tuple:
+    """One SCATTER_EDGE_CASES input on `device` for scatter_key_planes:
+    ((pos, rgb, cum, rank_lut), {"n_px", "t_pad"}), the COO elements of
+    random targets of h x w in coo_foreground's order."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import common
+
+    _, n_targets, t_pad, fill = case
+    stack = np.stack([scattered_pixels(rng, h, w, max(1, h * w // 20))
+                      for _ in range(n_targets)])
+    if fill == "empty":
+        stack[::3] = 0
+    elif fill == "full":
+        stack[2] = rng.integers(21, 256, (h, w, 3))
+    elif fill == "black":
+        stack[:] = 0
+    pos, rgb, cum = common.coo_foreground(stack, 20, t_pad)
+    args = tuple(torch.from_numpy(a).to(device) for a in (pos, rgb, cum))
+    return args + (common.rank_lut_tensor(device),), \
+        {"n_px": h * w, "t_pad": t_pad}
+
+
+# K2 at its edges: (name, h, w, masks, n_q (= KL - 1), query pixels,
+# union elements, lanes). lanes: an xy-shift (0: one lane, 4: 17), or
+# "far", offsets that move every src out of the image. "segmented" lays
+# u_pos out as the slot-2 plans do (two ascending runs, then sentinel
+# pads); the rest draw it in no order. n_q 65,534 is the longest list
+# the wire form allows, with no pad.
+EXPAND_EDGE_CASES = (
+    ("n_q_0", 30, 40, 2, 0, 0, 700, 2),
+    ("n_q_65534", 566, 1210, 2, 65534, 65534, 20000, 2),
+    ("batch_1_lane_1", 30, 40, 1, 511, 300, 700, 0),
+    ("lanes_17", 60, 80, 3, 1023, 900, 3000, 4),
+    ("segmented", 60, 80, 2, 511, 400, 2000, 2),
+    ("w_1", 500, 1, 2, 127, 100, 400, 2),
+    ("h_1", 1, 500, 2, 127, 100, 400, 2),
+    ("far_offsets", 30, 40, 2, 511, 300, 700, "far"),
+)
+
+
+def expand_edge_inputs(rng: np.random.Generator, case: tuple,
+                       device) -> tuple:
+    """One EXPAND_EDGE_CASES input on `device` for
+    expand_union_tables_from_pos: ((u_pos, q_pos, key_list, tab_lo,
+    tab_span), {"offsets", "w", "h"}). q_pos rises with pads = P last,
+    as stack_union_pos_args builds it; key_list holds random keys and
+    the trailing 0 of the inactive slot; the tables are the 1.0% ones."""
+    from colormipsearch_tpu_torch import convert
+    from colormipsearch_tpu_torch.oracle.pixel import shift_offsets
+    from colormipsearch_tpu_torch.ops import pixel_match as pm
+
+    name, h, w, batch, n_q, n_real, n_u, lanes = case
+    n_px = h * w
+    tabs = pm.interval_table_arrays(0.01)
+    n_keys = tabs[0].shape[1]
+    q_pos = np.full((batch, n_q), n_px, np.int32)
+    key_list = np.zeros((batch, n_q + 1), np.int32)
+    u_pos = np.full((batch, 2, n_u), n_px, np.int32)
+    for b in range(batch):
+        q_pos[b, :n_real] = np.sort(rng.choice(n_px, n_real, replace=False))
+        key_list[b, :n_real] = rng.integers(0, n_keys, n_real)
+        live = n_u - n_u // 8          # the rest stay sentinel pads
+        u = rng.integers(0, n_px, (2, live))
+        if name == "segmented":
+            cut = live // 3
+            u[0, :cut].sort()
+            u[0, cut:].sort()
+        u_pos[b, :, :live] = u
+    offsets = (((w + 3, 0), (0, h + 3), (-w - 1, -h - 1)) if lanes == "far"
+               else tuple(shift_offsets(lanes)))
+    args = tuple(convert.as_tensor(a, device)
+                 for a in (u_pos, q_pos, key_list)) \
+        + convert.interval_tables(tabs, device)
+    return args, {"offsets": offsets, "w": w, "h": h}
+
+
 TILE_EDGE_CASES = (
     ("sg_0", 0, 150, True, "raster", "arange"),
     ("sh_0", 90, 0, True, "raster", "arange"),
@@ -753,7 +1435,9 @@ def split_edge_case(rng: np.random.Generator, case: tuple, sg: int = 300,
 FORMS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "torch_forms")
 FORM_FILES = ("baseline.jpg", "progressive.jpg", "palette.gif",
-              "palette.tif")
+              "palette.tif", "ccitt_g4.tif", "tiled_jpeg.tif",
+              "rgba_lzw.tif", "cmyk.tif", "float.tif", "cmyk.jpg",
+              "smoothed.jpg", "arith.jpg", "lossless.jpg", "corrupt.jpg")
 FORMS_NPZ = "pixels_and_matches.npz"
 FORMS_SIZE = (48, 64)   # height, width of every file and library image
 FORMS_SYNTHETIC_TARGETS = 6
@@ -761,13 +1445,12 @@ FORMS_SYNTHETIC_TARGETS = 6
 
 def forms_search(pixels: dict, work_dir, device, *, forms_dir=FORMS_DIR,
                  file_names=FORM_FILES, seed: int = 0) -> np.ndarray:
-    """One colorDepthSearch over four image files: 6 synthetic PNG
-    targets and `file_names` in `forms_dir` (read by the engine as they
-    are) as targets; a mask cut from each file's pixels (`pixels`: the
-    FORM_FILES name in the same place -> uint8 [h, w, 3]) and 2
-    synthetic masks, written as PNGs to `work_dir`. Returns the matches
-    int64 [n, 4] (mask index, target index, matching pixels, mirrored),
-    sorted."""
+    """One colorDepthSearch over image files: 6 synthetic PNG targets
+    and `file_names` in `forms_dir` (read by the engine as they are) as
+    targets; a mask cut from each file's pixels (`pixels`: file name ->
+    uint8 [h, w, 3]) and 2 synthetic masks, written as PNGs to
+    `work_dir`. Returns the matches int64 [n, 4] (mask index, target
+    index, matching pixels, mirrored), sorted."""
     from colormipsearch_tpu_torch.engine import cds
 
     rng = np.random.default_rng(seed)
@@ -775,8 +1458,8 @@ def forms_search(pixels: dict, work_dir, device, *, forms_dir=FORMS_DIR,
     lib = synthetic_library(rng, FORMS_SYNTHETIC_TARGETS, 2, h, w,
                             target_fg=0.1, mask_fg=0.04)
     cut = [cut_mask(rng, pixels[name], shift=((0, 0), (0, 0), (2, 0),
-                                              (0, -2))[k],
-                    mirror=k == 1) for k, name in enumerate(FORM_FILES)]
+                                              (0, -2))[k % 4],
+                    mirror=k % 4 == 1) for k, name in enumerate(file_names)]
     masks = write_neuron_images(os.path.join(str(work_dir), "m"),
                                 cut + lib.masks, "m")
     targets = write_neuron_images(os.path.join(str(work_dir), "t"),

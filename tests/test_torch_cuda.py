@@ -603,6 +603,33 @@ def test_cuda_mesh_steps_equal_single_device(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.SCATTER_EDGE_CASES,
+                         ids=[c[0] for c in testing.SCATTER_EDGE_CASES])
+def test_cuda_k1_at_edge_shapes(cuda_device, case):
+    """K1 at testing.SCATTER_EDGE_CASES (held to JAX on the CPU in
+    test_torch_k1k2_edges.py) equals its plain version, at a small image
+    and at the production one (many row tiles a block)."""
+    for h, w in ((23, 37), (566, 1210)):
+        rng = np.random.default_rng(sum(map(ord, case[0])))
+        args, kw = testing.scatter_edge_inputs(rng, case, h, w, cuda_device)
+        assert torch.equal(tcommon.scatter_key_planes(*args, **kw),
+                           tcommon.scatter_key_planes_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.EXPAND_EDGE_CASES,
+                         ids=[c[0] for c in testing.EXPAND_EDGE_CASES])
+def test_cuda_k2_at_edge_shapes(cuda_device, case):
+    """K2 at testing.EXPAND_EDGE_CASES (held to JAX on the CPU in
+    test_torch_k1k2_edges.py) equals its plain version."""
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    args, kw = testing.expand_edge_inputs(rng, case, cuda_device)
+    for a, b in zip(tpm.expand_union_tables_from_pos(*args, **kw),
+                    tpm.expand_union_tables_from_pos_plain(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_union_kernels_at_edge_shapes(cuda_device):
     """K3, K13 and row 14, which split the union over the grid, against
     their plain versions at every testing.UNION_EDGE_CASES shape (17 and

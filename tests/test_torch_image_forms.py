@@ -226,6 +226,8 @@ def _form(name: str) -> bytes:
         return _jpeg_form(rng, rest)
     if kind == "gif":
         return _gif_form(rng, rest)
+    if kind == "edge":
+        return _edge(rest)
     raise KeyError(name)
 
 
@@ -241,13 +243,26 @@ def _cdm_like(rng, h, w):
 def _jpeg_form(rng, rest: str) -> bytes:
     """jpeg-pil_<mode>_<subsampling>_<quality>[_prog][_opt][_rst][_HxW]:
     written by PIL; jpeg-enc_<sampling>[_rst][_HxW] by
-    testing.encode_jpeg (sampling h1v1.h2v2... per component)."""
+    testing.encode_jpeg (sampling h1v1.h2v2... per component); jpeg-cmyk_*,
+    jpeg-arith_*, jpeg-lossless_*, jpeg-cut_* and jpeg-corrupt_* as their
+    helpers below say."""
     parts = rest.split("_")
     h, w = 13, 11
     if "x" in parts[-1]:
         h, w = (int(v) for v in parts.pop().split("x"))
     img = _cdm_like(rng, h, w)
-    if parts[0] == "enc":
+    kind = parts[0]
+    if kind == "cmyk":
+        return _jpeg_cmyk(rng, parts, h, w)
+    if kind == "arith":
+        return _jpeg_arith(img, parts)
+    if kind == "lossless":
+        return _jpeg_lossless(img, parts)
+    if kind == "cut":
+        return _jpeg_cut(img, parts)
+    if kind == "corrupt":
+        return _jpeg_corrupt(rng, img, parts)
+    if kind == "enc":
         sampling = tuple((int(f[1]), int(f[3])) for f in parts[1].split("."))
         ids = (82, 71, 66) if "rgbids" in parts else (1, 2, 3)
         return testing.encode_jpeg(
@@ -263,6 +278,137 @@ def _jpeg_form(rng, rest: str) -> bytes:
         kw["restart_marker_blocks"] = 2
     src = img if mode == "rgb" else img[..., 0]
     return _pil(lambda im: im.fromarray(src), format="JPEG", **kw)
+
+
+def _jpeg_cmyk(rng, parts, h, w) -> bytes:
+    """jpeg-cmyk_pil[_<quality>]: PIL's CMYK JPEG (Adobe transform 0);
+    jpeg-cmyk_<transform|none>[_sub]: four planes under an Adobe marker
+    of that transform (2: YCCK), or none, by testing.encode_jpeg, the
+    first and last planes 2x2 with _sub."""
+    planes = np.concatenate([_cdm_like(rng, h, w),
+                             rng.integers(0, 256, (h, w, 1))], -1)
+    planes = planes.astype(np.uint8)
+    if parts[1] == "pil":
+        q = int(parts[2]) if len(parts) > 2 else 75
+        return _pil(lambda im: im.fromarray(planes, "CMYK"), format="JPEG",
+                    quality=q)
+    sampling = ((2, 2), (1, 1), (1, 1), (2, 2)) if "sub" in parts else None
+    return testing.encode_jpeg(
+        planes, quality=80, sampling=sampling, jfif=False,
+        adobe_transform=None if parts[1] == "none" else int(parts[1]))
+
+
+def _jpeg_arith(img, parts) -> bytes:
+    """jpeg-arith_<seq|prog>_<gray|444|420|422>[_rst][_dac]: an
+    arithmetic-coded JPEG by testing.encode_jpeg (DAC: L 1, U 3 and K 10
+    on table 0, L 0, U 2, K 2 on table 1)."""
+    sampling = {"gray": None, "444": None, "420": ((2, 2), (1, 1), (1, 1)),
+                "422": ((2, 1), (1, 1), (1, 1))}[parts[2]]
+    src = img[..., 0] if parts[2] == "gray" else img
+    return testing.encode_jpeg(
+        src, quality=85, sampling=sampling, arithmetic=True,
+        progressive=parts[1] == "prog",
+        restart_interval=2 if "rst" in parts else 0,
+        dac={0: 0x31, 1: 0x20, 16: 10, 17: 2} if "dac" in parts else None)
+
+
+def _jpeg_lossless(img, parts) -> bytes:
+    """jpeg-lossless_p<predictor>_t<point transform>[_gray][_420]
+    [_planar][_rst]: testing.encode_jpeg_lossless (restarts every MCU
+    row)."""
+    psv, pt = int(parts[1][1:]), int(parts[2][1:])
+    gray = "gray" in parts
+    src = img[..., 0] if gray else img
+    if "cmyk" in parts:
+        k = (img.sum(-1) // 3)[..., None].astype(np.uint8)
+        return testing.encode_jpeg_lossless(
+            np.concatenate([img, k], -1), predictor=psv,
+            point_transform=pt, component_ids=(1, 2, 3, 4))
+    sampling = ((2, 2), (1, 1), (1, 1)) if "420" in parts else None
+    per_row = img.shape[1] if gray or "planar" in parts or not sampling \
+        else -(-img.shape[1] // 2)
+    return testing.encode_jpeg_lossless(
+        src, predictor=psv, point_transform=pt, sampling=sampling,
+        interleaved="planar" not in parts,
+        restart_interval=per_row if "rst" in parts else 0)
+
+
+def _scan_starts(data: bytes) -> list:
+    """The offsets of a JPEG's SOS markers."""
+    out, at = [], data.find(b"\xff\xda")
+    while at >= 0:
+        out.append(at)
+        at = data.find(b"\xff\xda", at + 2)
+    return out
+
+
+def _jpeg_cut(img, parts) -> bytes:
+    """jpeg-cut_<scans>_<pil sub|arith>: a progressive JPEG (PIL's at
+    that subsampling, or testing.encode_jpeg's arithmetic-coded 4:2:0)
+    cut after its first <scans> scans, EOI appended: libjpeg smooths the
+    blocks whose AC coefficients the scans leave inexact."""
+    n = int(parts[1])
+    if parts[2] == "arith":
+        data = testing.encode_jpeg(img, quality=85, arithmetic=True,
+                                   progressive=True,
+                                   sampling=((2, 2), (1, 1), (1, 1)))
+    elif parts[2] == "gray":
+        data = _pil(lambda im: im.fromarray(img[..., 0]), format="JPEG",
+                    quality=85, progressive=True)
+    else:
+        data = _pil(lambda im: im.fromarray(img), format="JPEG", quality=85,
+                    progressive=True, subsampling=int(parts[2]))
+    starts = _scan_starts(data)
+    return data[:starts[n]] + b"\xff\xd9" if n < len(starts) else data
+
+
+def _entropy_ranges(data: bytes) -> list:
+    """(start, end) of each scan's entropy-coded data."""
+    out = []
+    for at in _scan_starts(data):
+        (length,) = struct.unpack(">H", data[at + 2:at + 4])
+        start = end = at + 2 + length
+        while True:
+            end = data.index(b"\xff", end)
+            if data[end + 1] == 0 or 0xD0 <= data[end + 1] <= 0xD7:
+                end += 2
+                continue
+            break
+        out.append((start, end))
+    return out
+
+
+def _jpeg_corrupt(rng, img, parts) -> bytes:
+    """jpeg-corrupt_<bytes|renumber|drop|dup>_<base|rst|prog|prog_rst>:
+    a PIL-written JPEG with 1-3 entropy-coded bytes replaced (never
+    making or breaking a 0xFF), or one restart marker renumbered,
+    dropped or doubled; libjpeg warns, and PIL returns an image."""
+    what, base = parts[1], "_".join(parts[2:])
+    kw = {"quality": 85, "progressive": base.startswith("prog")}
+    if base.endswith("rst"):
+        kw["restart_marker_blocks"] = 1 if kw["progressive"] else 2
+    data = bytearray(_pil(lambda im: im.fromarray(img), format="JPEG", **kw))
+    if what == "bytes":
+        ranges = _entropy_ranges(bytes(data))
+        for _ in range(int(rng.integers(1, 4))):
+            start, end = ranges[int(rng.integers(len(ranges)))]
+            for _ in range(100):
+                k = int(rng.integers(start, end))
+                v = int(rng.integers(0, 255))
+                if data[k] != 0xFF and data[k - 1] != 0xFF and v != data[k]:
+                    data[k] = v
+                    break
+        return bytes(data)
+    rst = [k for k in range(len(data) - 1)
+           if data[k] == 0xFF and 0xD0 <= data[k + 1] <= 0xD7]
+    k = rst[int(rng.integers(len(rst)))]
+    if what == "renumber":
+        data[k + 1] = 0xD0 + (data[k + 1] - 0xD0 + int(rng.integers(1, 8))) % 8
+    elif what == "drop":
+        del data[k:k + 2]
+    else:
+        data[k:k] = data[k:k + 2]
+    return bytes(data)
 
 
 def _gif_form(rng, rest: str) -> bytes:
@@ -306,14 +452,56 @@ def _gif_form(rng, rest: str) -> bytes:
 
 def _tiff_form(rng, rest: str, h: int, w: int) -> bytes:
     """tiff-<photometric>_<bits>[_deflate|_adobe][_pred][_planar][_be]
-    by testing.encode_tiff, or tiff-pil_* written by PIL."""
+    by testing.encode_tiff; tiff-pil_* written by PIL; tiff-bits_*,
+    tiff-assoc_*, tiff-float_* by testing.encode_tiff; tiff-tile_* and
+    tiff-fill2_* assembled by testing.encode_tiff_chunks around chunks
+    PIL coded."""
     if rest.startswith("pil_"):
-        comp = {"pil_palette": None, "pil_palette_lzw": "tiff_lzw",
-                "pil_palette_deflate": "tiff_adobe_deflate"}[rest]
-        kw = {} if comp is None else {"compression": comp}
-        return _pil(lambda im: im.fromarray(_cdm_like(rng, h, w))
-                    .quantize(40), format="TIFF", **kw)
+        return _tiff_pil(rng, rest[4:], h, w)
+    if rest.startswith(("tile_", "fill2_")):
+        return _tiff_chunked(rng, rest)
     parts = rest.split("_")
+    if parts[0] == "fax":
+        # testing.encode_fax: tiff-fax_<g3|g4>_<1d|2d>_<photometric>
+        # [_fill2]_<h>x<w>, runs past 64 and 2,560 at the widths used
+        fh, fw = (int(v) for v in parts[-1].split("x"))
+        on = (_cdm_like(rng, fh, fw).max(-1) > 60).astype(np.uint8)
+        on[1 % fh] = 1
+        group, two_d = int(parts[1][1]), parts[2] == "2d"
+        options = int(two_d) if group == 3 else 0
+        return testing.encode_tiff_chunks(
+            [testing.encode_fax(on, group=group, two_d=two_d)], w=fw, h=fh,
+            bits=[1], photometric=int(parts[3]), compression=group,
+            extra_tags={292 if group == 3 else 293: [options]},
+            fill_order=2 if "fill2" in parts else 1)
+    if parts[0] == "bilevel":
+        # uncompressed 1-bit, WhiteIsZero (0) or BlackIsZero (1)
+        on = rng.integers(0, 2, (h, w, 1)).astype(np.uint8)
+        return testing.encode_tiff(on, photometric=int(parts[1]), bits=1,
+                                   rows_per_strip=4,
+                                   fill_order=2 if "fill2" in parts else 1)
+    if parts[0] == "bits":
+        # palette at 1, 2 or 4 bits, raw or Deflate
+        bits = int(parts[1])
+        idx = rng.integers(0, 1 << bits, (h, w, 1)).astype(np.uint8)
+        cmap = rng.integers(0, 1 << 16, (3, 1 << bits)).astype(np.uint16)
+        return testing.encode_tiff(
+            idx, photometric=3, bits=bits, colormap=cmap,
+            compression=8 if "deflate" in parts else 1, rows_per_strip=4,
+            big_endian="be" in parts)
+    if parts[0] == "assoc":
+        # RGB + associated alpha: every alpha, 0 and 255 included
+        rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        rgba[0, :3, 3] = (0, 255, 1)
+        return testing.encode_tiff(
+            rgba, photometric=2, extra_tags={338: [1]},
+            compression=8 if "deflate" in parts else 1, rows_per_strip=5)
+    if parts[0] == "float":
+        x = rng.uniform(-40, 300, (h, w, 1)).astype(np.float32)
+        x[0, :6, 0] = (np.nan, np.inf, -np.inf, 254.99, 0.5, 255.0)
+        return testing.encode_tiff(
+            x, photometric=1, big_endian="be" in parts,
+            compression=8 if "deflate" in parts else 1, rows_per_strip=5)
     photo = {"gray": 1, "wiz": 0, "rgb": 2, "palette": 3}[parts[0]]
     bits = int(parts[1])
     spp = 3 if photo == 2 else 1
@@ -327,6 +515,129 @@ def _tiff_form(rng, rest: str, h: int, w: int) -> bytes:
         predictor=2 if "pred" in parts else 1,
         planar=2 if "planar" in parts else 1, big_endian="be" in parts,
         rows_per_strip=5, colormap=cmap)
+
+
+# PIL's names of the TIFF compressions the tests write with it
+_PIL_COMPRESSION = {"raw": None, "lzw": "tiff_lzw", "packbits": "packbits",
+                    "deflate": "tiff_adobe_deflate", "g3": "group3",
+                    "g4": "group4", "jpeg": "jpeg"}
+
+
+def _bilevel(rng, h, w):
+    """A 1-bit image with runs of every length: strokes, noise, a black
+    row, a white row (runs longer than 64 and 1,728 at w >= 1,792)."""
+    on = _cdm_like(rng, h, w).max(-1) > 60
+    on[1] = True
+    on[2] = False
+    on[3, ::2] = True
+    return Image.fromarray(on)
+
+
+def _tiff_image(rng, mode: str, h: int, w: int):
+    if mode == "1":
+        return _bilevel(rng, h, w)
+    if mode == "F":
+        x = rng.uniform(-40, 300, (h, w)).astype(np.float32)
+        x[0, :4] = (np.nan, np.inf, -np.inf, 255.5)
+        return Image.fromarray(x, "F")
+    rgb = _cdm_like(rng, h, w)
+    if mode in ("RGBA", "LA"):
+        alpha = rng.integers(0, 256, (h, w, 1)).astype(np.uint8)
+        img = Image.fromarray(np.concatenate([rgb, alpha], -1), "RGBA")
+        return img if mode == "RGBA" else img.convert("LA")
+    if mode == "CMYK":
+        k = rng.integers(0, 256, (h, w, 1)).astype(np.uint8)
+        return Image.fromarray(np.concatenate([rgb, k], -1), "CMYK")
+    return Image.fromarray(rgb).convert(mode)
+
+
+def _tiff_pil(rng, rest: str, h: int, w: int) -> bytes:
+    """tiff-pil_<mode>[_<compression>][_<option>]: an image PIL writes in
+    that mode (1, F, LA, RGBA, CMYK, RGB, YCbCr, L, palette) and
+    compression; options: g3 2d and fill (Group3Options 1 and 5), strips
+    (several strips: PIL's strip_size), big (40 x 1,900)."""
+    parts = rest.split("_")
+    mode = {"palette": "P", "ycbcr": "YCbCr", "rgb": "RGB", "l": "L",
+            "f": "F", "la": "LA", "rgba": "RGBA", "cmyk": "CMYK",
+            "1": "1"}.get(parts[0], parts[0])
+    comp = _PIL_COMPRESSION[parts[1] if len(parts) > 1 else "raw"]
+    kw = {} if comp is None else {"compression": comp}
+    if "2d" in parts:
+        kw["tiffinfo"] = {292: 1}
+    if "fill" in parts:
+        kw["tiffinfo"] = {292: 5}
+    if "strips" in parts:
+        kw["strip_size"] = 600
+    if comp == "jpeg":
+        kw["quality"] = 85
+    big = mode == "1" and "big" in parts
+    if mode == "P":
+        img = Image.fromarray(_cdm_like(rng, h, w)).quantize(40)
+    else:
+        img = _tiff_image(rng, mode, 40 if big else h, 1900 if big else w)
+    return _pil(lambda im: img, format="TIFF", **kw)
+
+
+def _pil_chunk(img, comp: str) -> tuple:
+    """One strip or tile as PIL codes it: (its bytes, the tags of the
+    one-strip TIFF PIL wrote)."""
+    from colormipsearch_tpu_torch.io import tiff as ttiff
+
+    kw = {} if comp == "raw" else {"compression": _PIL_COMPRESSION[comp]}
+    if comp == "jpeg":
+        kw["quality"] = 85
+    data = _pil(lambda im: img, format="TIFF",
+                strip_size=1 << 30, **kw)
+    _, tags = ttiff._ifd(data)
+    (off,), (count,) = tags[273], tags[279]
+    return data[off:off + count], tags
+
+
+def _tiff_chunked(rng, rest: str) -> bytes:
+    """tiff-tile_<mode>_<compression>[_<tw>x<th>]: a 37 x 29 image in
+    tiles (16 x 16 unless named: edge tiles overhang) or tiff-fill2_<mode>
+    _<compression>: in strips of 5 rows with FillOrder 2, each chunk coded
+    by PIL, the container by testing.encode_tiff_chunks."""
+    parts = rest.split("_")
+    kind, mode, comp = parts[0], parts[1], parts[2]
+    h, w = 37, 29
+    mode = {"rgb": "RGB", "ycbcr": "YCbCr", "l": "L", "1": "1",
+            "rgba": "RGBA", "cmyk": "CMYK"}[mode]
+    full = np.asarray(_tiff_image(rng, mode, h, w))
+    if kind == "tile":
+        tw, th = (int(v) for v in parts[3].split("x")) if len(parts) > 3 \
+            else (16, 16)
+        boxes = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        tw, th = w, 5
+        boxes = [(y, 0) for y in range(0, h, th)]
+    chunks, tags = [], None
+    for y, x in boxes:
+        tile = np.zeros((th, tw) + full.shape[2:], full.dtype)
+        part = full[y:y + th, x:x + tw]
+        tile[:part.shape[0], :part.shape[1]] = part
+        if kind == "fill2":
+            tile = tile[:part.shape[0]]
+        if comp == "jpeg22":
+            # YCbCr 2x2, which PIL cannot write: testing.encode_jpeg's
+            # whole streams, their tables inline
+            data = testing.encode_jpeg(
+                tile, quality=85, jfif=False,
+                sampling=((2, 2), (1, 1), (1, 1)))
+            tags = {258: (8, 8, 8), 259: (7,), 262: (6,), 277: (3,),
+                    530: (2, 2)}
+        else:
+            data, tags = _pil_chunk(Image.fromarray(tile, mode), comp)
+        chunks.append(data)
+    keep = {t: list(v) for t, v in tags.items()
+            if t in (277, 284, 292, 293, 338, 339, 530)}
+    if 347 in tags:
+        keep[347] = bytes(tags[347])
+    return testing.encode_tiff_chunks(
+        chunks, w=w, h=h, bits=list(tags.get(258, (1,))),
+        photometric=tags[262][0],
+        compression=tags[259][0], chunk=(tw, th), tiled=kind == "tile",
+        extra_tags=keep, fill_order=2 if kind == "fill2" else 1)
 
 
 FORMS = (
@@ -357,6 +668,42 @@ FORMS = (
        "tiff-gray_16_deflate_pred_be", "tiff-rgb_8_adobe_pred",
        "tiff-rgb_16_deflate_pred", "tiff-rgb_8_planar",
        "tiff-rgb_8_deflate_pred_planar_be", "tiff-wiz_8"]
+    # TIFFs PIL writes: bilevel raw, PackBits, LZW, Deflate, CCITT Group 3
+    # (1-D, 2-D, 2-D with fill bits) and Group 4, also at 1,900 columns
+    # (the extended make-up codes); float, gray + alpha, RGBA, CMYK, raw
+    # and LZW; JPEG-compressed RGB, gray and YCbCr (1x1 and 2x2), in one
+    # strip and in several
+    + [f"tiff-pil_1_{c}" for c in ("raw", "packbits", "lzw", "deflate",
+                                   "g3", "g4")]
+    + ["tiff-pil_1_g3_2d", "tiff-pil_1_g3_fill", "tiff-pil_1_g4_big",
+       "tiff-pil_1_g3_2d_big", "tiff-pil_f", "tiff-pil_f_lzw",
+       "tiff-pil_la", "tiff-pil_la_lzw", "tiff-pil_rgba",
+       "tiff-pil_rgba_deflate", "tiff-pil_cmyk", "tiff-pil_cmyk_lzw",
+       "tiff-pil_rgb_jpeg", "tiff-pil_rgb_jpeg_strips", "tiff-pil_l_jpeg",
+       "tiff-pil_ycbcr_jpeg", "tiff-pil_ycbcr_jpeg_strips"]
+    # TIFFs of testing.encode_tiff: palettes at 1, 2 and 4 bits, RGB with
+    # associated alpha, float32 (NaN, infinities, out of range), the
+    # uncompressed planar 16-bit RGB PIL reads as 8-bit planes
+    + ["tiff-bits_1", "tiff-bits_2_deflate", "tiff-bits_4_be",
+       "tiff-assoc", "tiff-assoc_deflate", "tiff-float", "tiff-float_be",
+       "tiff-float_deflate", "tiff-rgb_16_planar", "tiff-rgb_16_planar_be"]
+    # tiled TIFFs (16 x 16 tiles over 37 x 29: edge tiles overhang) in
+    # every compression, and FillOrder 2 strips, the chunks coded by PIL
+    + [f"tiff-tile_{m}_{c}" for m, c in (
+        ("rgb", "raw"), ("rgb", "lzw"), ("rgb", "packbits"),
+        ("rgb", "deflate"), ("1", "raw"), ("1", "g3"), ("1", "g4"),
+        ("rgb", "jpeg"), ("ycbcr", "jpeg"), ("l", "jpeg"), ("rgba", "lzw"),
+        ("cmyk", "raw"))]
+    + ["tiff-tile_rgb_jpeg_32x16", "tiff-tile_1_g4_32x48",
+       "tiff-tile_rgb_jpeg22", "tiff-tile_rgb_jpeg22_32x32"]
+    + [f"tiff-fill2_1_{c}" for c in ("raw", "lzw", "packbits", "g3", "g4")]
+    # CCITT strips of testing.encode_fax: Group 4, Group 3 1-D and 2-D,
+    # both photometrics, FillOrder 2, widths of long runs
+    + ["tiff-fax_g4_2d_0_40x150", "tiff-fax_g4_2d_1_30x1900",
+       "tiff-fax_g3_1d_0_30x1900", "tiff-fax_g3_2d_1_40x150",
+       "tiff-fax_g3_1d_1_fill2_40x150", "tiff-fax_g4_2d_0_fill2_13x11",
+       "tiff-bilevel_0", "tiff-bilevel_1_fill2"]
+    + ["tiff-fill2_rgb_deflate"]
     # JPEGs written by PIL: gray and RGB, subsampling 4:4:4, 4:2:2 and
     # 4:2:0, quality 50 and 95, baseline and progressive, optimised
     # tables, restart markers, sizes off the 8 and 16 grids
@@ -375,6 +722,39 @@ FORMS = (
        "jpeg-enc_h2v2.h1v1.h1v1_rst_37x29", "jpeg-enc_h2v2.h1v1.h1v1_3x4",
        "jpeg-enc_h2v1.h1v1.h1v1_4x3", "jpeg-enc_h1v1.h1v1.h1v1_rgbids",
        "jpeg-enc_h2v2_37x29"]
+    # four components: PIL's CMYK; testing.encode_jpeg's CMYK, YCCK
+    # (Adobe transform 2, also with 2x2 planes) and no Adobe marker
+    + ["jpeg-cmyk_pil", "jpeg-cmyk_pil_95_37x29", "jpeg-cmyk_0_37x29",
+       "jpeg-cmyk_2_37x29", "jpeg-cmyk_2_sub_37x29", "jpeg-cmyk_none_37x29"]
+    # arithmetic coding, sequential and progressive: gray, 4:4:4, 4:2:0
+    # with restarts, 4:2:2 with a DAC segment
+    + [f"jpeg-arith_{m}_{form}_37x29" for m in ("seq", "prog")
+       for form in ("gray", "444", "420_rst", "422_dac")]
+    # lossless: every predictor, point transforms 0-3, gray, 4:2:0, one
+    # scan a component, a restart every MCU row
+    + [f"jpeg-lossless_p{p}_t{t}_37x29" for p, t in (
+        (1, 0), (2, 1), (3, 0), (4, 2), (5, 0), (6, 3), (7, 1))]
+    + ["jpeg-lossless_p1_t0_gray_37x29", "jpeg-lossless_p4_t0_420_37x29",
+       "jpeg-lossless_p7_t0_planar_37x29", "jpeg-lossless_p5_t1_rst_37x29",
+       "jpeg-lossless_p2_t0_cmyk_37x29"]
+    # progressive JPEGs cut after a scan (libjpeg's block smoothing),
+    # Huffman at every subsampling and gray, and arithmetic
+    + [f"jpeg-cut_{n}_{b}_{size}" for n, b, size in (
+        (1, "2", "37x29"), (2, "2", "64x48"), (3, "0", "37x29"),
+        (4, "1", "40x56"), (5, "2", "64x48"), (9, "2", "37x29"),
+        (1, "gray", "24x20"), (3, "gray", "64x48"), (2, "arith", "37x29"),
+        (6, "arith", "64x48"))]
+    # corrupt entropy-coded data: bytes replaced in baseline and
+    # progressive files with and without restarts, restart markers
+    # renumbered, dropped and doubled
+    + [f"jpeg-corrupt_bytes_{b}_{size}" for b in ("base", "rst", "prog",
+                                                  "prog_rst")
+       for size in ("37x29", "64x48")]
+    + [f"jpeg-corrupt_{what}_{b}_64x48" for what in ("renumber", "drop", "dup")
+       for b in ("rst", "prog_rst")]
+    # the forms the port refused before this slice, now decoded
+    + [f"edge-{what}" for what in ("cmyk", "dc_only", "sof9", "tiled",
+                                   "bits1", "float", "jpeg_in_tiff")]
     # GIFs: the first frame through its table, as PIL converts it
     + [f"gif-{f}" for f in (
         "global", "local", "interlaced", "transparency", "grey_ramp",
@@ -435,19 +815,26 @@ def _corrupt_png(what: str) -> bytes:
     return data[:8] + _chunk(b"IHDR", data[16:28]) + data[33:]
 
 
-def _refused(what: str) -> bytes:
-    """A form the port refuses without PIL: JPEGs re-labelled as
-    arithmetic-coded, lossless or 12-bit, PIL's CMYK JPEG, a progressive
-    JPEG cut after its first (DC) scan, which libjpeg would smooth; PIL's
-    1-bit, float and JPEG-compressed TIFFs and a tiled one."""
+def _edge(what: str) -> bytes:
+    """Forms the port refused without PIL before, each now decoded (a
+    FORMS entry "edge-<what>") or refused with PIL: PIL's CMYK JPEG; a
+    progressive JPEG cut after its first (DC) scan, which libjpeg
+    smooths; a baseline JPEG re-labelled as arithmetic-coded (libjpeg
+    decodes its Huffman data as arithmetic-coded data), lossless, 12-bit,
+    hierarchical (SOF5-7) or of another process PIL refuses (SOF11, 13);
+    PIL's 1-bit, float and JPEG-compressed TIFFs and a tiled one; a
+    2-component and a YCbCr lossless JPEG; a big-endian 16-bit
+    WhiteIsZero TIFF."""
     rgb = _cdm_like(np.random.default_rng(3), 24, 20)
-    if what in ("sof9", "sof3", "precision12"):
+    sof = {"sof9": 0xC9, "sof3": 0xC3, "sof5": 0xC5, "sof6": 0xC6,
+           "sof7": 0xC7, "sof11": 0xCB, "sof13": 0xCD}
+    if what in sof or what == "precision12":
         data = bytearray(_pil(lambda im: im.fromarray(rgb), format="JPEG"))
         at = data.index(b"\xff\xc0")
         if what == "precision12":
             data[at + 4] = 12
         else:
-            data[at + 1] = 0xC9 if what == "sof9" else 0xC3
+            data[at + 1] = sof[what]
         return bytes(data)
     if what == "cmyk":
         cmyk = np.concatenate([rgb, rgb[..., :1]], -1)
@@ -457,9 +844,24 @@ def _refused(what: str) -> bytes:
                     progressive=True)
         first = data.index(b"\xff\xda")
         return data[:data.index(b"\xff\xda", first + 2)] + b"\xff\xd9"
+    if what == "two_components":
+        return testing.encode_jpeg_lossless(rgb[..., :2],
+                                            component_ids=(1, 2))
+    if what == "lossless_ycbcr":
+        return testing.encode_jpeg_lossless(rgb, jfif=True)
+    if what == "lossless_ycck":
+        data = testing.encode_jpeg_lossless(
+            np.concatenate([rgb, rgb[..., :1]], -1),
+            component_ids=(1, 2, 3, 4))
+        return data[:2] + testing._jpeg_segment(
+            0xEE, b"Adobe\0\x64\0\0\0\0\x02") + data[2:]
     if what == "tiled":
         return testing.encode_tiff(rgb, photometric=2,
                                    extra_tags={322: [16], 323: [16]})
+    if what == "wiz16_be":
+        return testing.encode_tiff(
+            (rgb[..., :1].astype(np.uint16) * 257), photometric=0,
+            big_endian=True)
     mode, kw = {"bits1": ("1", {}), "float": ("F", {}),
                 "jpeg_in_tiff": ("RGB", {"compression": "jpeg"})}[what]
     src = rgb if mode == "RGB" else rgb[..., 0]
@@ -467,35 +869,43 @@ def _refused(what: str) -> bytes:
                 **kw)
 
 
-@pytest.mark.parametrize("what,data", [
+# what the port still refuses, with the words its ValueError names;
+# PIL refuses every one of these bytes too
+_REFUSED = [
     ("JPEG", b"\xff\xd8\xff\xe0" + b"\0" * 32),
     ("GIF", b"GIF89a" + b"\0" * 32),
     ("unrecognised", b"\0" * 40),
     ("bad CRC", _corrupt_png("crc")),
     ("IHDR of 12 bytes", _corrupt_png("ihdr")),
-    ("arithmetic-coded JPEG", _refused("sof9")),
-    ("lossless JPEG", _refused("sof3")),
-    ("12-bit JPEG", _refused("precision12")),
-    ("CMYK", _refused("cmyk")),
-    ("block smoothing", _refused("dc_only")),
+    ("lossless", _edge("sof3")),
+    ("12-bit JPEG", _edge("precision12")),
+    ("hierarchical JPEG", _edge("sof5")),
+    ("hierarchical JPEG", _edge("sof6")),
+    ("hierarchical JPEG", _edge("sof7")),
+    ("lossless arithmetic-coded JPEG", _edge("sof11")),
+    ("hierarchical arithmetic-coded JPEG", _edge("sof13")),
+    ("JPEG with 2 components", _edge("two_components")),
+    ("lossless JPEG with a colour transform", _edge("lossless_ycbcr")),
+    ("lossless JPEG with a colour transform", _edge("lossless_ycck")),
     ("truncated", _form("jpeg-pil_rgb_2_95")[:300]),
-    ("tiled TIFF", _refused("tiled")),
-    ("TIFF with photometric", _refused("bits1")),
-    ("float", _refused("float")),
-    ("TIFF compression 7", _refused("jpeg_in_tiff")),
-])
+    ("big-endian 16-bit WhiteIsZero", _edge("wiz16_be")),
+]
+_REFUSED_IDS = ["jpeg_junk", "gif_junk", "unrecognised", "png_crc",
+                "png_ihdr", "sof3_fake", "precision12", "sof5", "sof6",
+                "sof7", "sof11", "sof13", "two_components", "lossless_ycbcr",
+                "lossless_ycck", "truncated_jpeg", "wiz16_be"]
+
+
+@pytest.mark.parametrize("what,data", _REFUSED, ids=_REFUSED_IDS)
 def test_read_image_without_pil_names_what_it_cannot_decode(what, data,
                                                             no_pil,
                                                             monkeypatch):
     monkeypatch.setattr(tnative, "decode_img", lambda d: None)
     with pytest.raises(ValueError, match=what):
         timage.read_image(data)
-    if data.startswith(b"\x89PNG"):
-        # PIL refuses the corrupt PNGs too
-        from PIL import Image
-
-        with pytest.raises(Exception):
-            Image.open(io.BytesIO(data)).load()
+    # PIL refuses the same bytes
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).load()
 
 
 def test_engine_names_every_skipped_target(tmp_path, no_pil, monkeypatch,
@@ -568,10 +978,9 @@ def test_engine_reads_jpeg_gif_and_palette_tiff_without_pil(
         pixels[name] = _pil_decoded(tmp_path / name)
 
     def run(work):
-        return testing.forms_search(
-            {f: pixels[n] for f, n in zip(testing.FORM_FILES, forms)},
-            tmp_path / work, "cpu", forms_dir=str(tmp_path),
-            file_names=list(forms))
+        return testing.forms_search(pixels, tmp_path / work, "cpu",
+                                    forms_dir=str(tmp_path),
+                                    file_names=list(forms))
 
     with_pil = run("with_pil")
     monkeypatch.setattr(timage, "importlib", _NoPIL())
@@ -606,23 +1015,80 @@ def test_pinned_forms_agree_with_pil_and_the_engine(tmp_path, monkeypatch):
     np.testing.assert_array_equal(matches, pinned["matches"])
 
 
-def write_pinned_forms() -> None:
-    """Write tests/torch_forms/ with PIL: the four files from seed 7 and
-    the .npz of their pixels and of the engine's matches over them."""
-    rng = np.random.default_rng(7)
+def _pinned_form(name: str, rng) -> bytes:
+    """The bytes of one tests/torch_forms file: PIL's for the forms PIL
+    writes, testing's encoders' for the others; each from rng."""
     h, w = testing.FORMS_SIZE
-    kws = (dict(format="JPEG", quality=90),
-           dict(format="JPEG", quality=85, progressive=True),
-           dict(format="GIF"),
-           dict(format="TIFF", compression="tiff_adobe_deflate"))
-    pinned = {}
-    for name, kw in zip(testing.FORM_FILES, kws):
-        img = Image.fromarray(testing.synthetic_cdm(rng, h, w,
-                                                    fg_fraction=0.12))
+    cdm = testing.synthetic_cdm(rng, h, w, fg_fraction=0.12)
+    img = Image.fromarray(cdm)
+    if name in ("baseline.jpg", "progressive.jpg", "palette.gif",
+                "palette.tif"):
+        kw = {"baseline.jpg": dict(format="JPEG", quality=90),
+              "progressive.jpg": dict(format="JPEG", quality=85,
+                                      progressive=True),
+              "palette.gif": dict(format="GIF"),
+              "palette.tif": dict(format="TIFF",
+                                  compression="tiff_adobe_deflate")}[name]
         if kw["format"] in ("GIF", "TIFF"):
             img = img.quantize(48)
+        return _pil(lambda im: img, **kw)
+    alpha = rng.integers(0, 256, (h, w, 1)).astype(np.uint8)
+    if name == "ccitt_g4.tif":
+        return _pil(lambda im: Image.fromarray(cdm.max(-1) > 40),
+                    format="TIFF", compression="group4")
+    if name == "tiled_jpeg.tif":
+        tiles = [testing.encode_jpeg(cdm[y:y + 16, x:x + 16], quality=85,
+                                     jfif=False,
+                                     sampling=((2, 2), (1, 1), (1, 1)))
+                 for y in range(0, h, 16) for x in range(0, w, 16)]
+        return testing.encode_tiff_chunks(
+            tiles, w=w, h=h, bits=[8, 8, 8], photometric=6, compression=7,
+            chunk=(16, 16), tiled=True, extra_tags={530: [2, 2]})
+    if name == "rgba_lzw.tif":
+        return _pil(lambda im: Image.fromarray(
+            np.concatenate([cdm, alpha], -1), "RGBA"), format="TIFF",
+            compression="tiff_lzw")
+    if name == "cmyk.tif":
+        return _pil(lambda im: Image.fromarray(
+            np.concatenate([255 - cdm, alpha], -1), "CMYK"), format="TIFF")
+    if name == "float.tif":
+        return _pil(lambda im: Image.fromarray(
+            cdm[..., 1].astype(np.float32) * 1.5 - 20, "F"), format="TIFF")
+    if name == "cmyk.jpg":
+        return _pil(lambda im: Image.fromarray(
+            np.concatenate([255 - cdm, alpha], -1), "CMYK"), format="JPEG",
+            quality=90)
+    if name == "smoothed.jpg":
+        data = _pil(lambda im: img, format="JPEG", quality=90,
+                    progressive=True)
+        return data[:_scan_starts(data)[4]] + b"\xff\xd9"
+    if name == "arith.jpg":
+        return testing.encode_jpeg(cdm, quality=90, arithmetic=True,
+                                   progressive=True,
+                                   sampling=((2, 2), (1, 1), (1, 1)))
+    if name == "lossless.jpg":
+        return testing.encode_jpeg_lossless(cdm, predictor=4)
+    if name == "corrupt.jpg":
+        data = bytearray(_pil(lambda im: img, format="JPEG", quality=90,
+                              restart_marker_blocks=4))
+        start, end = _entropy_ranges(bytes(data))[0]
+        for k in (start + (end - start) // 3, start + 2 * (end - start) // 3):
+            if data[k] != 0xFF and data[k - 1] != 0xFF:
+                data[k] ^= 0x5A if data[k] ^ 0x5A != 0xFF else 0x33
+        return bytes(data)
+    raise KeyError(name)
+
+
+def write_pinned_forms() -> None:
+    """Write tests/torch_forms/: each of testing.FORM_FILES from seed 7
+    (see _pinned_form) and the .npz of their pixels as PIL decodes them
+    and of the engine's matches over them."""
+    rng = np.random.default_rng(7)
+    pinned = {}
+    for name in testing.FORM_FILES:
         path = f"{testing.FORMS_DIR}/{name}"
-        img.save(path, **kw)
+        with open(path, "wb") as f:
+            f.write(_pinned_form(name, rng))
         pinned[name] = jimage.read_image(path).pixels
     import tempfile
 

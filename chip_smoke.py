@@ -42,7 +42,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      its loaders), each equal to its plain version; K6 also with the
      engine's store rows (a sorted subset of 1,638, timed beside an
      `arange` of as many) and with a permutation of the 2,048, its bound
-     from the 32-byte sectors the gathers touch;
+     from the 32-byte sectors the gathers touch; K4 alone and through its
+     wrapper at chip_smoke's k, at the k the engine picks in phase 3 and
+     at k = T (its bitonic branch), with the flag gather on K9's batch,
+     beside an empty kernel's launch; K4 at every testing.TOPK_EDGE_CASES
+     input and K7 at every testing.PIXEL_MAJOR_EDGE_CASES shape (aligned
+     and shifted sources); K7's uint8 mode on the whole tfg field (one
+     [2,048, ceil(P / 8)] chunk) beside its int16 chunk;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -96,11 +102,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      files of tests/torch_forms (one of every decoded family: JPEGs
      baseline, progressive, block-smoothed, CMYK, arithmetic-coded,
      lossless and with corrupt data; a GIF; TIFFs palette, CCITT Group 4,
-     tiled JPEG, RGBA, CMYK and float) decode to the pixels pinned beside
-     them; colorDepthSearch on the card over a small library with those
-     files among its targets skips none and finds the pinned matches;
-     each reader's time for one 566 x 1210 image (CCITT, tiled JPEG in
-     TIFF, arithmetic, block smoothing and lossless among them).
+     tiled JPEG, RGBA, CMYK, float, CIELab, palette + alpha, signed
+     32-bit, 4-bit gray, LZMA, Zstandard and CCITT RLE) decode to the
+     pixels pinned beside them; colorDepthSearch on the card over a small
+     library with those files among its targets skips none and finds the
+     pinned matches; each reader's time for one 566 x 1210 image (CCITT,
+     tiled JPEG in TIFF, arithmetic, block smoothing, lossless, LZMA,
+     Zstandard (a file libzstd wrote, tests/torch_forms) and CIELab among
+     them).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -306,6 +315,24 @@ def timed(fn, repeats: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def timed_loop(fn, repeats: int) -> float:
+    """Mean milliseconds of fn() over `repeats` back-to-back calls between
+    two CUDA events (after one warm-up call): for a launch of a few
+    microseconds, the events' own cost no longer counts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
 def max_abs_err(got, want) -> int:
     """Largest elementwise difference over matching output tuples, taken
     2^26 elements at a time (the planes hold 1.4e9); raises when shapes
@@ -466,9 +493,10 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
           f"columns, union {u_pos.shape[2]}, max score "
           f"{int(best.max())}", flush=True)
 
-    # a bitonic sort of T 64-bit keys a mask: ~log2(T)^2 / 2 steps of
-    # two operations per column
-    log_t = T_PAD.bit_length() - 1
+    # K4's least work: a key and a select compare a column, k log2(k)
+    # compares to order the winners; its bytes are ~100 KB, so a launch
+    # floor (an empty kernel's event-timed launch) is printed beside it
+    log_k = TOP_K.bit_length() - 1
     k4 = pm.union_keys_topk(best, mirrored, TOP_K)
     # the yardstick: torch.topk, smallest first, of K4's own sort keys
     # ~(score ^ 2^31) << 32 | column (distinct, so the order is lax.top_k's
@@ -485,14 +513,85 @@ def check_kernels(lib, device) -> tuple[dict, dict]:
         timed(lambda: pm.union_keys_topk(best, mirrored, TOP_K), 20),
         timed(lambda: pm.union_keys_topk_plain(best, mirrored, TOP_K), 20),
         bound(nbytes(best, mirrored) + BATCH * TOP_K * 9,
-              BATCH * T_PAD * log_t * (log_t + 1)),
+              BATCH * (2 * T_PAD + TOP_K * log_k)),
         timed(lambda: torch.topk(keys4, TOP_K, largest=False), 20))
+    time_topk(best, mirrored, out["union_keys_topk"], device)
     report(out)
     sync()
     kbuild.reset_launches()
     return out, {"planes": planes, "args3": args3, "best": best,
                  "mirrored": mirrored, "rows": rows.size, "ops": k3_ops,
                  "plans": plans}
+
+
+def topk_alone(best, mirrored, k: int, pair_flags=None,
+               timer=None) -> float:
+    """K4's time with no wrapper: the library's entry point on outputs
+    allocated once (as K1 and K2 are timed alone), by `timer` (timed's
+    median of single launches unless given)."""
+    import torch
+
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+
+    lib = kbuild.load_library()
+    batch, n_cols = best.shape
+    outs = [torch.empty((batch, k), dtype=t, device=best.device)
+            for t in (torch.int32, torch.int32, torch.bool)]
+    flags = (torch.empty((batch, k), dtype=torch.int32, device=best.device)
+             if pair_flags is not None else None)
+
+    def launch():
+        kbuild.check(lib.cmst_topk(
+            best.data_ptr(), mirrored.data_ptr(),
+            pair_flags.data_ptr() if flags is not None else None, batch,
+            n_cols, k, *(o.data_ptr() for o in outs),
+            flags.data_ptr() if flags is not None else None,
+            kbuild.stream_of(best)), "K4 alone")
+
+    return (timer or timed)(launch, 20)
+
+
+def time_topk(best, mirrored, e4: dict, device) -> None:
+    """Phase 2, K4 beyond its kernels-line entry: alone and through its
+    wrapper at chip_smoke's k, at the k the engine picks in phase 3 and
+    at k = T (its bitonic branch), each checked against its plain
+    version, beside an empty kernel's launch (the floor of any launch)."""
+    import torch
+
+    from colormipsearch_tpu_torch.engine import cds
+    from colormipsearch_tpu_torch.ops import pixel_match as pm
+
+    params = cds.CDSParams(mask_threshold=20, data_threshold=20,
+                           pix_color_fluctuation=1.0, xy_shift=2,
+                           mirror_mask=True, pct_positive_pixels=1.0)
+    engine_k = min(cds.CDSearchEngine(params, device=device)
+                   ._emit_select_k(0), T_PAD)
+    def loop(fn, _repeats):
+        return timed_loop(fn, 200)
+
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor = (timed(empty, 50), loop(empty, 0))
+    cols = torch.arange(T_PAD, dtype=torch.int64, device=device)
+    keys = ((~(best.long() ^ (1 << 31)) & 0xFFFFFFFF) << 32) | cols
+    parts = []
+    for name, k in (("chip_smoke's", TOP_K), ("phase 3's engine", engine_k),
+                    ("k = T", T_PAD)):
+        require_equal(f"K4 at k {k} vs its plain version",
+                      pm.union_keys_topk(best, mirrored, k),
+                      pm.union_keys_topk_plain(best, mirrored, k))
+        wrapper = lambda: pm.union_keys_topk(best, mirrored, k)  # noqa: E731
+        library = lambda: torch.topk(keys, k, largest=False)  # noqa: E731
+        parts.append(
+            f"{name} k {k}: alone {topk_alone(best, mirrored, k):.4f} / "
+            f"{topk_alone(best, mirrored, k, timer=loop):.4f} ms, through "
+            f"the wrapper {timed(wrapper, 20):.4f} / {loop(wrapper, 0):.4f} "
+            f"ms, torch.topk {timed(library, 20):.4f} / "
+            f"{loop(library, 0):.4f} ms")
+    print(f"K4 union_keys_topk, {BATCH} masks x {T_PAD} columns (median of "
+          f"single launches / mean of 200 back to back): "
+          f"{'; '.join(parts)}; an empty kernel's launch {floor[0]:.4f} / "
+          f"{floor[1]:.4f} ms; bound {e4['bound_ms']:.5f} ms "
+          f"({e4['bound_by']})", flush=True)
 
 
 def check_qkey_kernels(device, k1: dict) -> dict:
@@ -641,7 +740,43 @@ def check_shape_kernels(lib, variants, device) -> dict:
         timed(lambda: ss.upload_pixel_major_chunk_plain(ref, chunk, p0), 3),
         bound(2 * nbytes(chunk), 0),
         timed(lambda: dst.copy_(chunk.t()), 10))
-    del buf, ref, chunk, dst
+    flat = torch.empty_like(chunk)
+    copy16 = timed(lambda: flat.copy_(chunk), 10)
+    del buf, ref, chunk, dst, flat
+    sync()
+    # K7's uint8 mode: the whole tfg field, one chunk of [R, ceil(P / 8)]
+    n_r8, n_px8 = host.tfg.shape
+    chunk = torch_from(np.array(host.tfg), device)
+    buf = torch.zeros((n_px8, n_r8), dtype=torch.uint8, device=device)
+    ref = torch.zeros_like(buf)
+    ss.upload_pixel_major_chunk(buf, chunk, 0)
+    ss.upload_pixel_major_chunk_plain(ref, chunk, 0)
+    e8 = entry(max_abs_err([buf], [ref]),
+               timed(lambda: ss.upload_pixel_major_chunk(buf, chunk, 0), 10),
+               timed(lambda: ss.upload_pixel_major_chunk_plain(ref, chunk, 0),
+                     3),
+               bound(2 * nbytes(chunk), 0),
+               timed(lambda: buf.copy_(chunk.t()), 10))
+    if e8["max_abs_err"]:
+        raise AssertionError("K7's uint8 mode disagrees with its plain "
+                             "version")
+    # a plain copy of the same bytes (what a transpose can at best reach)
+    flat8 = torch.empty_like(chunk)
+    copy8 = timed(lambda: flat8.copy_(chunk), 10)
+    del flat8
+    e16 = out["upload_pixel_major"]
+    print(f"K7 upload_pixel_major: int16 chunk [{n_r}, {rows_per}] "
+          f"({nbytes(host.zsl[:, :rows_per]) / 1e6:.1f} MB) {e16['ms']:.4f} "
+          f"ms, bound {e16['bound_ms']:.4f} ms "
+          f"({100 * e16['bound_ms'] / e16['ms']:.0f}%), library "
+          f"{e16['library_ms']:.4f} ms, a plain copy of its bytes "
+          f"{copy16:.4f} ms; uint8 chunk [{n_r8}, {n_px8}] "
+          f"({nbytes(chunk) / 1e6:.1f} MB): max_abs_err 0, kernel "
+          f"{e8['ms']:.4f} ms, plain {e8['plain_ms']:.3f} ms, library "
+          f"(dst.copy_(src.t())) {e8['library_ms']:.4f} ms, a plain copy of "
+          f"its bytes {copy8:.4f} ms, bound {e8['bound_ms']:.4f} ms "
+          f"({100 * e8['bound_ms'] / e8['ms']:.0f}%)", flush=True)
+    del buf, ref, chunk
     sync()
     t0 = time.time()
     fields = tuple(ss.upload_pixel_major(f, device)
@@ -1098,6 +1233,15 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
                 "K4 with the flag gather (K9's batch at 1.0%) vs its plain "
                 "version", pm.union_keys_topk(*got[:2], TOP_K, got[2]),
                 pm.union_keys_topk_plain(*got[:2], TOP_K, got[2]))
+            print(f"K4 with the flag gather on K9's batch "
+                  f"{tuple(got[0].shape)}, k {TOP_K}: through the wrapper "
+                  f"""{timed(lambda: pm.union_keys_topk(
+                      *got[:2], TOP_K, got[2]), 20):.4f} ms, alone """
+                  f"{topk_alone(got[0], got[1], TOP_K, got[2]):.4f} / "
+                  f"""{topk_alone(got[0], got[1], TOP_K, got[2],
+                                  timer=lambda f, _: timed_loop(f, 200))
+                     :.4f} ms (median of single launches / mean of 200 back """
+                  "to back)", flush=True)
         # the rows the batch gathers, once each; per valid (mask,
         # variant, query pixel, column) element ~20 integer operations
         # (unpack, class tests, selects, counts) and ~13 f32 ones (two
@@ -1264,7 +1408,30 @@ def check_edge_shapes(lib, device) -> None:
         sync()
         free_cached()
     check_shape_edge_shapes(device)
+    check_topk_pixel_major_edge_shapes(device)
     kbuild.reset_launches()
+
+
+def check_topk_pixel_major_edge_shapes(device) -> None:
+    """Phase 2, K4 at every testing.TOPK_EDGE_CASES input (both ordering
+    branches, flag gather on and off, batch 0) and K7 at every
+    testing.PIXEL_MAJOR_EDGE_CASES shape, also with the chunk one element
+    past an aligned base (narrower loads): each equal to its plain
+    version."""
+    from colormipsearch_tpu_torch import testing
+
+    for case in testing.TOPK_EDGE_CASES:
+        testing.check_topk_edge(case, device)
+    print(f"K4 equals its plain version at {len(testing.TOPK_EDGE_CASES)} "
+          f"edge cases ({', '.join(c[0] for c in testing.TOPK_EDGE_CASES)})",
+          flush=True)
+    for case in testing.PIXEL_MAJOR_EDGE_CASES:
+        testing.check_pixel_major_edge(case, device)
+    print(f"K7 equals its plain version at "
+          f"{len(testing.PIXEL_MAJOR_EDGE_CASES)} edge shapes (R 1, 31, 33, "
+          "1,638, 2,048; n 1, 7, 9, a chunk; at pixel 0 and at the end; "
+          "int16 and uint8; aligned and shifted sources)", flush=True)
+    sync()
 
 
 def check_shape_edge_shapes(device) -> None:
@@ -1308,11 +1475,14 @@ def check_pil_free_readers(device, work: str) -> dict:
     io/tiff.py, io/fax.py; the GPU hosts have no PIL): each file of
     tests/torch_forms (one of every family: baseline, progressive, CMYK,
     arithmetic-coded, lossless, corrupt and block-smoothed JPEGs, a GIF,
-    palette, CCITT, tiled JPEG, RGBA, CMYK and float TIFFs) decodes to the
+    palette, CCITT, tiled JPEG, RGBA, CMYK, float, CIELab, palette +
+    alpha, signed 32-bit, 4-bit gray, LZMA, Zstandard and CCITT RLE
+    TIFFs) decodes to the
     pixels pinned beside it; colorDepthSearch on the card over a small
     library with those files among its targets skips none and finds the
     pinned matches; then each reader's seconds for one 566 x 1210 image
-    written by testing's encoders. Returns {reader: seconds}."""
+    written by testing's encoders (the Zstandard one by PIL, committed in
+    tests/torch_forms). Returns {reader: seconds}."""
     import logging
 
     import numpy as np
@@ -1386,6 +1556,11 @@ def check_pil_free_readers(device, work: str) -> dict:
                mode="edge"), quality=95, jfif=False,
         sampling=((2, 2), (1, 1), (1, 1)))
         for y in range(0, H, 256) for x in range(0, W, 256)]
+    # the same CDM, written by PIL with libzstd (the GPU hosts have no
+    # zstd encoder)
+    with open(os.path.join(testing.FORMS_DIR, testing.FORMS_ZSTD_TIMING),
+              "rb") as f:
+        zstd_file = f.read()
     arith = testing.encode_jpeg(cdm, quality=95, arithmetic=True,
                                 progressive=True,
                                 sampling=((2, 2), (1, 1), (1, 1)))
@@ -1407,10 +1582,18 @@ def check_pil_free_readers(device, work: str) -> dict:
         "jpeg lossless (predictor 4)": (
             jpeg.decode_jpeg, testing.encode_jpeg_lossless(cdm,
                                                           predictor=4)),
+        "tiff RGB, LZMA": (tiff.decode_tiff, testing.encode_tiff(
+            cdm, photometric=2, compression=34925, rows_per_strip=64)),
+        "tiff RGB, Zstandard (libzstd's, tests/torch_forms)": (
+            tiff.decode_tiff, zstd_file),
+        "tiff CIELab, uncompressed": (tiff.decode_tiff, testing.encode_tiff(
+            cdm, photometric=8, rows_per_strip=64)),
     })
     want = {"gif (216-colour table)": cube[idx],
             "tiff palette, Deflate": cube[idx],
             "tiff RGB, Deflate + predictor": cdm,
+            "tiff RGB, LZMA": cdm,
+            "tiff RGB, Zstandard (libzstd's, tests/torch_forms)": cdm,
             "tiff CCITT Group 4": np.repeat(255 * (1 - bits)[..., None], 3,
                                             -1),
             "jpeg lossless (predictor 4)": cdm}

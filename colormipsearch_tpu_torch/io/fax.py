@@ -1,6 +1,7 @@
-"""CCITT fax decoding (TIFF compressions 3 and 4) without PIL: ITU-T T.4
-one- and two-dimensional coding and T.6, as libtiff's tif_fax3.c reads
-them for a strip or a tile.
+"""CCITT fax decoding (TIFF compressions 2, 3 and 4) without PIL: ITU-T
+T.4 one- and two-dimensional coding and T.6, as libtiff's tif_fax3.c
+reads them for a strip or a tile (compression 2, CCITT RLE, is T.4's
+one-dimensional Modified Huffman coding with each row on a byte).
 
 A decoded row is a list of run lengths that alternate white, black,
 white, ..., starting white; libtiff turns white runs into 0 bits and
@@ -200,8 +201,10 @@ def rows_to_bits(rows: list, width: int) -> np.ndarray:
 def decode(data: bytes, width: int, height: int, group: int,
            options: int = 0) -> np.ndarray:
     """One CCITT-coded strip or tile -> uint8 [height, width] bits (1 =
-    black). group 3 (T.4, options = Group3Options: bit 0 two-dimensional)
-    or 4 (T.6, options = Group4Options)."""
+    black). group 2 (TIFF compression 2, CCITT RLE: Modified Huffman,
+    every row one-dimensional and starting on a byte, no EOLs), 3 (T.4,
+    options = Group3Options: bit 0 two-dimensional) or 4 (T.6, options =
+    Group4Options)."""
     if options & 2:
         raise ValueError("TIFF CCITT data in uncompressed mode is not "
                          "decodable without PIL")
@@ -209,7 +212,10 @@ def decode(data: bytes, width: int, height: int, group: int,
     ref = [width, width]
     rows = []
     for _ in range(height):
-        if group == 3:
+        if group == 2:
+            changes = _row_1d(bits, width)
+            bits.pos = (bits.pos + 7) & ~7
+        elif group == 3:
             if not bits.eol():
                 break
             two_d = options & 1 and not (bits.peek(1))

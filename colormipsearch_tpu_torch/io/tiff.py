@@ -7,22 +7,37 @@ overhang the image are cut), either byte order, chunky or planar
 (PlanarConfiguration 2) samples, FillOrder 1 or 2 (the bits of every
 byte of a chunk reversed before it is decompressed, as libtiff and PIL's
 ";R" raw modes do); uncompressed, LZW (5), PackBits (32773), Deflate (8,
-32946), CCITT Group 3 and 4 (3, 4; io/fax.py) and JPEG (7; io/jpeg.py on
-the shared JPEGTables and each chunk's stream), with or without the
-horizontal predictor (2; PIL ignores it in uncompressed data). What PIL
-makes of them (its mode, then _from_pil), pinned by
-tests/test_torch_image_forms.py:
-  * gray: 1-bit (mode "1": RGB of 0 and 255), 8-bit (GRAY8, inverted
-    for WhiteIsZero), 16-bit (GRAY16, its values as they are; PIL refuses
-    a big-endian WhiteIsZero one), float32 (mode "F": RGB of each value
-    clipped to [0, 255] and truncated, NaN 0); gray + alpha (mode "LA":
-    RGB of the gray);
+32946), CCITT RLE, Group 3 and Group 4 (2, 3, 4; io/fax.py), JPEG (7;
+io/jpeg.py on the shared JPEGTables and each chunk's stream), LZMA
+(34925: an .xz stream, the standard library's lzma) and Zstandard
+(50000; io/zstd.py), with or without the horizontal predictor (2; PIL
+ignores it in uncompressed data; libtiff adds 32-bit samples as uint32
+words, float32 too). What PIL makes of them (its mode, then
+_from_pil), pinned by tests/test_torch_image_forms.py:
+  * gray: 1-bit (mode "1": RGB of 0 and 255), 2- and 4-bit (mode "L":
+    each sample times 85 or 17, inverted for WhiteIsZero), 8-bit (GRAY8,
+    inverted for WhiteIsZero), 16-bit (GRAY16, its values as they are;
+    PIL refuses a big-endian WhiteIsZero one), float32 (mode "F": RGB of
+    each value clipped to [0, 255] and truncated, NaN 0; compressed
+    big-endian ones byte-swapped, as mode "I" below); gray + alpha
+    (mode "LA": RGB of the gray);
+  * BlackIsZero signed 16-bit, signed 32-bit and (little-endian only, as
+    PIL maps it) unsigned 32-bit integers: PIL's mode "I" (int32; an
+    unsigned value of 2^31 or more wraps negative), then _from_pil's
+    range rule: GRAY8 when every value is at most 255, GRAY16 when all
+    lie in [0, 65535], else ValueError. Compressed big-endian files are
+    read as PIL reads them on a little-endian host: libtiff hands PIL its
+    samples in host order and PIL unpacks them as big-endian, so each
+    value comes out byte-swapped;
+  * CIELab (photometric 8, 8-bit): PIL's LAB -> RGB (io/lab.py);
   * RGB 8-bit (RGB) and 16-bit (the high byte of each sample), with an
     extra sample: unassociated or unspecified (dropped), associated
     (PIL's "RGBa" raw mode divides it out: 255 * v // a, clipped; 0 where
     a = 0);
-  * palette (photometric 3) at 1, 2, 4 and 8 bits: the 16-bit ColorMap
-    cut to its high byte (b // 256), converted to RGB;
+  * palette (photometric 3) at 1, 2, 4 and 8 bits, and 8-bit with an
+    alpha or unspecified extra sample (modes "PA", "P"): the 16-bit
+    ColorMap cut to its high byte (b // 256), converted to RGB; indices
+    past a short ColorMap are black, the extra sample is dropped;
   * CMYK (photometric 5, 8-bit): PIL's CMYK -> RGB, (255 - c) * (255 - k)
     / 255 rounded;
   * JPEG-compressed RGB (photometric 2: the components as they are) and
@@ -31,8 +46,8 @@ tests/test_torch_image_forms.py:
     8-bit one, so 16-bit planes give the bytes of each strip's first
     half, row by row.
 Everything else (other bit depths or sample formats, YCbCr without
-JPEG, LAB, old-style JPEG, SGILog, LZMA, ZSTD, WebP, ...) raises
-ValueError naming the form.
+JPEG, old-style JPEG, SGILog, ThunderScan, WebP, ...) raises ValueError
+naming the form.
 """
 
 from __future__ import annotations
@@ -42,13 +57,13 @@ import zlib
 
 import numpy as np
 
-from colormipsearch_tpu_torch.io import fax, jpeg
+from colormipsearch_tpu_torch.io import fax, jpeg, lab, zstd
 
 # BYTE, SHORT, LONG, UNDEFINED (bytes)
 _TYPES = {1: "B", 3: "H", 4: "I", 7: "B"}
-# none, CCITT G3 and G4, LZW, JPEG, Deflate (Adobe's code and the old
-# one), PackBits
-_COMPRESSIONS = (1, 3, 4, 5, 7, 8, 32946, 32773)
+# none, CCITT RLE, G3 and G4, LZW, JPEG, Deflate (Adobe's code and the
+# old one), PackBits, LZMA, Zstandard
+_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 34925, 50000)
 # bits -> reversed bits, for FillOrder 2
 _REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
@@ -159,10 +174,12 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"corrupt TIFF: {e!r}") from e
 
 
-# (photometric, bits per sample, extra samples) -> the form; sample
-# format 1 (unsigned) unless named
+# (photometric, bits per sample, extra samples) -> the form, for sample
+# format 1 (unsigned)
 _FORMS = {
     (0, (1,), ()): "bilevel", (1, (1,), ()): "bilevel",
+    (0, (2,), ()): "gray_low", (1, (2,), ()): "gray_low",
+    (0, (4,), ()): "gray_low", (1, (4,), ()): "gray_low",
     (0, (8,), ()): "gray", (1, (8,), ()): "gray",
     (0, (16,), ()): "gray", (1, (16,), ()): "gray",
     (1, (8, 8), (2,)): "gray_alpha",
@@ -172,9 +189,20 @@ _FORMS = {
     (2, (8, 8, 8, 8), (1,)): "rgb_associated",
     (3, (1,), ()): "palette", (3, (2,), ()): "palette",
     (3, (4,), ()): "palette", (3, (8,), ()): "palette",
+    (3, (8, 8), (0,)): "palette", (3, (8, 8), (2,)): "palette",
     (5, (8, 8, 8, 8), ()): "cmyk",
     (6, (8, 8, 8), ()): "ycbcr",
+    (8, (8, 8, 8), ()): "lab",
+    (1, (32,), ()): "int",      # unsigned, little-endian only (below)
 }
+# (sample format, photometric, bits per sample) -> the form, for the
+# other sample formats (2: signed, 3: IEEE float)
+_FORMS_BY_FORMAT = {
+    (2, 1, (16,)): "int", (2, 1, (32,)): "int",
+    (3, 0, (32,)): "float", (3, 1, (32,)): "float",
+}
+# the forms PIL maps for FillOrder 1 only
+_FILL_ORDER_1 = ("int", "lab")
 
 
 class _Layout:
@@ -202,11 +230,9 @@ class _Layout:
             raise ValueError(f"TIFF compression {self.comp} is not "
                              "decodable without PIL")
         key = (self.photo, self.bps, tuple(self.extra))
-        self.form = _FORMS.get(key)
-        if self.fmt == 3 and key in ((0, (32,), ()), (1, (32,), ())):
-            self.form = "float"
-        elif self.fmt != 1:
-            self.form = None
+        self.form = (_FORMS.get(key) if self.fmt == 1 else None
+                     if self.extra else _FORMS_BY_FORMAT.get(
+                         (self.fmt, self.photo, self.bps)))
         if self.form is None or (self.form == "ycbcr" and self.comp != 7):
             raise ValueError(
                 f"TIFF with photometric {self.photo}, {self.spp} samples "
@@ -222,15 +248,27 @@ class _Layout:
                 and e == ">":
             raise ValueError("big-endian 16-bit WhiteIsZero TIFF is not "
                              "decodable without PIL (PIL refuses it too)")
+        if self.form == "int" and self.fmt == 1 and e == ">":
+            raise ValueError("big-endian unsigned 32-bit gray TIFF is not "
+                             "decodable without PIL (PIL refuses it too)")
+        if (self.form in _FILL_ORDER_1 or len(self.extra)
+                and self.form == "palette") and self.fill != 1:
+            raise ValueError(f"TIFF {self.form} with fill order "
+                             f"{self.fill} is not decodable without PIL "
+                             "(PIL refuses it too)")
+        if self.planar == 2 and self.spp == 1 and self.form in (
+                "int", "gray_low"):
+            raise ValueError(f"planar TIFF of {self.bps[0]}-bit gray is "
+                             "not decodable without PIL")
         if self.comp == 7 and (self.form not in ("rgb", "ycbcr", "gray")
                                or self.bps[0] != 8):
             raise ValueError(f"TIFF JPEG compression of photometric "
                              f"{self.photo} is not decodable without PIL")
-        if self.comp in (3, 4) and self.bps != (1,):
+        if self.comp in (2, 3, 4) and self.bps != (1,):
             raise ValueError("TIFF CCITT compression of more than one bit "
                              "a sample")
         if self.predictor == 2 and self.comp != 1 \
-                and self.bps[0] not in (8, 16):
+                and self.bps[0] not in (8, 16, 32):
             raise ValueError(f"TIFF predictor 2 with {self.bps[0]}-bit "
                              "samples is not decodable")
         if self.comp == 1:
@@ -272,16 +310,40 @@ def _chunk_samples(lay: _Layout, raw: bytes, rows: int) -> np.ndarray:
         shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
         x = ((b[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(rows, -1)
         return x[:, :cw * per].reshape(rows, cw, per)
-    dtype = {8: np.dtype(np.uint8), 16: np.dtype(lay.e + "u2"),
-             32: np.dtype(lay.e + "f4")}[bits]
+    dtype = _sample_dtype(lay)
     need = rows * cw * per * dtype.itemsize
     if len(raw) < need:
         raise ValueError("TIFF strip or tile is too short")
     x = np.frombuffer(raw, dtype, rows * cw * per).reshape(rows, cw, per)
     if lay.predictor == 2:
-        # horizontal differencing: each sample adds the one a pixel back
-        x = np.cumsum(x, axis=1, dtype=x.dtype)
+        # horizontal differencing: each sample adds the one a pixel back,
+        # as an unsigned integer of its width whatever its sample format
+        # (libtiff's horAcc32 adds float32 words as uint32)
+        acc = np.dtype(f"{lay.e}u{dtype.itemsize}")
+        native = acc.newbyteorder("=")
+        x = np.cumsum(x.view(acc).astype(native), axis=1, dtype=native) \
+            .astype(acc).view(dtype)
     return x
+
+
+def _sample_dtype(lay: _Layout) -> np.dtype:
+    """The dtype of one decompressed sample of 8 bits or more."""
+    return {8: np.dtype(np.uint8), 16: np.dtype(lay.e + "u2"),
+            32: np.dtype(lay.e + ("f4" if lay.form == "float" else "u4"))
+            }[lay.bps[0]]
+
+
+def _lzma(raw: bytes) -> bytes:
+    """TIFF LZMA (34925): libtiff writes one .xz stream a chunk."""
+    try:
+        import lzma
+    except ImportError as e:
+        raise ValueError("TIFF LZMA compression: this Python has no lzma "
+                         "module") from e
+    try:
+        return lzma.LZMADecompressor().decompress(raw)
+    except lzma.LZMAError as e:
+        raise ValueError(f"corrupt TIFF LZMA data: {e}") from e
 
 
 def _jpeg_chunk(lay: _Layout, raw: bytes) -> np.ndarray:
@@ -306,11 +368,10 @@ def _chunks(data: bytes, lay: _Layout) -> np.ndarray:
     """Every strip or tile decoded and placed: samples [planes, H, W,
     samples a plane]."""
     per = 1 if lay.planar == 2 else lay.spp
-    bits = lay.bps[0]
-    dtype = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8,
-             16: np.dtype(lay.e + "u2"), 32: np.dtype(lay.e + "f4")}[bits]
+    dtype = np.uint8 if lay.bps[0] < 8 else _sample_dtype(lay)
     out = np.zeros((lay.planes, lay.h, lay.w, per), dtype)
-    options = _one(lay.tags, 292 if lay.comp == 3 else 293, 0)
+    options = _one(lay.tags, 292 if lay.comp == 3 else 293, 0) \
+        if lay.comp in (3, 4) else 0
     k = 0
     for p in range(lay.planes):
         for ty in range(lay.down):
@@ -331,7 +392,11 @@ def _chunks(data: bytes, lay: _Layout) -> np.ndarray:
                         raw = zlib.decompressobj().decompress(raw)
                     elif lay.comp == 32773:
                         raw = _packbits(raw)
-                    elif lay.comp in (3, 4):
+                    elif lay.comp == 34925:
+                        raw = _lzma(raw)
+                    elif lay.comp == 50000:
+                        raw = zstd.decompress(raw)
+                    elif lay.comp in (2, 3, 4):
                         raw = np.packbits(fax.decode(
                             raw, lay.cw, rows, lay.comp, options),
                             axis=1).tobytes()
@@ -371,6 +436,22 @@ def _rgb(gray: np.ndarray) -> np.ndarray:
     return np.repeat(gray[..., None], 3, axis=-1)
 
 
+def _mode_i(lay: _Layout, x: np.ndarray) -> np.ndarray:
+    """Integer gray samples as PIL's mode "I" holds them, through
+    _from_pil's range rule -> uint8 or uint16 [H, W]."""
+    if lay.e == ">" and lay.comp != 1:
+        x = x.byteswap()   # host-order samples unpacked as big-endian
+    wide = lay.bps[0] == 32
+    v = x.astype(np.uint32 if wide else np.uint16) \
+        .view(np.int32 if wide else np.int16).astype(np.int32)
+    mx, mn = int(v.max(initial=0)), int(v.min(initial=0))
+    if mx > 0xFFFF or mn < 0:
+        raise ValueError(
+            f"32-bit gray image with values outside uint16 (min {mn}, max "
+            f"{mx}) is not supported")
+    return v.astype(np.uint16 if mx > 255 else np.uint8)
+
+
 def _decode(data: bytes) -> np.ndarray:
     lay = _Layout(data)
     if lay.planar == 2 and lay.comp == 1 and lay.bps[0] == 16:
@@ -382,6 +463,13 @@ def _decode(data: bytes) -> np.ndarray:
     if form == "bilevel":
         on = x[..., 0] != (lay.photo == 0)
         return _rgb(on.astype(np.uint8) * 255)
+    if form == "gray_low":
+        g = x[..., 0] * {2: 85, 4: 17}[bits]
+        return (255 - g if lay.photo == 0 else g).astype(np.uint8)
+    if form == "int":
+        return _mode_i(lay, x[..., 0])
+    if form == "lab":
+        return lab.lab_to_rgb(np.ascontiguousarray(x[..., :3]))
     if form == "gray":
         g = x[..., 0]
         if bits == 8 and lay.photo == 0:
@@ -389,7 +477,10 @@ def _decode(data: bytes) -> np.ndarray:
         return np.ascontiguousarray(g.astype(np.uint16 if bits == 16
                                              else np.uint8))
     if form == "float":
-        return _rgb(_float_to_l(x[..., 0].astype(np.float32)))
+        f = x[..., 0]
+        if lay.e == ">" and lay.comp != 1:
+            f = f.byteswap()   # host-order samples unpacked as big-endian
+        return _rgb(_float_to_l(f.astype(np.float32)))
     if form == "gray_alpha":
         return _rgb(x[..., 0])
     if form in ("rgb", "ycbcr"):
@@ -407,9 +498,11 @@ def _decode(data: bytes) -> np.ndarray:
         t = (255 - c[..., :3]) * (255 - c[..., 3:4]) + 128
         return ((t + (t >> 8)) >> 8).astype(np.uint8)
     cmap = lay.tags.get(320)
-    n = 1 << bits
-    if cmap is None or len(cmap) != 3 * n:
-        raise ValueError(f"palette TIFF without a {n}-entry ColorMap")
-    lut = (np.asarray(cmap, np.uint32).reshape(3, n).T // 256) \
-        .astype(np.uint8)
+    if cmap is None or len(cmap) % 3 or len(cmap) > 3 * 256:
+        raise ValueError("palette TIFF without a ColorMap of 3 x n "
+                         "entries, n <= 256")
+    # PIL's "RGB;L" palette: indices past a short ColorMap are black
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:len(cmap) // 3] = np.asarray(cmap, np.uint32).reshape(3, -1).T \
+        // 256
     return lut[x[..., 0]]

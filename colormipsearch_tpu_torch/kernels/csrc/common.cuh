@@ -33,6 +33,17 @@ __device__ __forceinline__ void classify(int r, int g, int b, int& cls,
     }
 }
 
+// A kernel's launch set-up (a raised shared-memory limit, its resident
+// blocks) holds for one device: caches of it are kept per device, and
+// past MAX_DEVICES it is redone on every launch.
+constexpr int MAX_DEVICES = 64;
+
+inline int current_device() {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    return dev;
+}
+
 inline int blocks_for(int64_t n, int threads) {
     return static_cast<int>((n + threads - 1) / threads);
 }

@@ -31,7 +31,7 @@ import zlib
 import numpy as np
 
 from colormipsearch_tpu_torch.constants import RAINBOW_LUT
-from colormipsearch_tpu_torch.io import fax
+from colormipsearch_tpu_torch.io import fax, zstd
 from colormipsearch_tpu_torch.io.jpeg import _QE
 from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron, Neuron
 
@@ -812,10 +812,11 @@ def encode_gif(indices: np.ndarray, palette: np.ndarray, *,
 def encode_fax(bits: np.ndarray, *, group: int = 4,
                two_d: bool = True) -> bytes:
     """CCITT fax coding of uint8 [h, w] bits (1 = black) for one TIFF
-    strip or tile: T.6 (group 4) or T.4 (group 3, an EOL before every
-    row, then with two_d a tag bit: every row but the first 2-D coded),
-    MSB first, the last byte padded with zeros. The run codes are
-    io/fax.py's tables."""
+    strip or tile: T.6 (group 4), T.4 (group 3, an EOL before every row,
+    then with two_d a tag bit: every row but the first 2-D coded) or
+    TIFF's CCITT RLE (group 2: Modified Huffman, every row 1-D and padded
+    to a byte, no EOLs), MSB first, the last byte padded with zeros. The
+    run codes are io/fax.py's tables."""
     white = {r: c for c, r in fax._run_codes(fax._WHITE).items()}
     black = {r: c for c, r in fax._run_codes(fax._BLACK).items()}
     modes = {m: c for c, m in fax._MODES.items()}
@@ -840,13 +841,15 @@ def encode_fax(bits: np.ndarray, *, group: int = 4,
             out.append("000000000001")
             if two_d:
                 out.append("1" if y == 0 else "0")
-        if group == 3 and (not two_d or y == 0):
+        if group == 2 or group == 3 and (not two_d or y == 0):
             a0, colour = 0, 0
             for c in changes + [w]:
                 run(c - a0, colour)
                 a0, colour = c, colour ^ 1
                 if c == w:
                     break
+            if group == 2:
+                out.append("0" * (-len("".join(out)) % 8))
         else:
             line = changes + [w, w]
             a0, colour = -1, 0
@@ -881,20 +884,24 @@ def encode_tiff(samples: np.ndarray, *, photometric: int,
                 colormap: np.ndarray | None = None,
                 extra_tags: dict | None = None, bits: int | None = None,
                 fill_order: int = 1) -> bytes:
-    """A strip TIFF of samples [h, w, spp] (uint8, uint16 or float32),
-    uncompressed (1) or Deflate (8, 32946), with the horizontal predictor
-    (2) and planar configuration 2 on request; `bits` < 8 packs uint8
-    samples MSB first, each row on a byte; fill_order 2 reverses the bits
-    of every byte; colormap uint16 [3, 2^bits] for a palette
-    (photometric 3); extra_tags {tag: [LONG values]}."""
+    """A strip TIFF of samples [h, w, spp] (uint8, uint16, uint32 or
+    float32), uncompressed (1), LZW (5), Deflate (8, 32946), PackBits
+    (32773), LZMA (34925) or Zstandard (50000, encode_zstd's raw and RLE
+    blocks), with the horizontal predictor (2) and planar configuration 2
+    on request; `bits` < 8 packs uint8 samples MSB first, each row on a
+    byte; fill_order 2 reverses the bits of every byte; colormap uint16
+    [3, n] for a palette (photometric 3); extra_tags {tag: [LONG
+    values]}."""
     e = ">" if big_endian else "<"
     h, w, spp = samples.shape
     bits = bits or samples.dtype.itemsize * 8
     x = samples.astype(samples.dtype.newbyteorder(e))
     if predictor == 2:
-        d = x.astype(np.int64)
-        d[:, 1:] -= x[:, :-1].astype(np.int64)
-        x = (d % (1 << bits)).astype(x.dtype)
+        # differences of the samples' bit patterns, float32 too
+        u = x.view(np.dtype(f"{e}u{x.dtype.itemsize}"))
+        d = u.astype(np.int64)
+        d[:, 1:] -= u[:, :-1].astype(np.int64)
+        x = (d % (1 << bits)).astype(u.dtype).view(x.dtype)
     planes = ([x[..., p:p + 1] for p in range(spp)] if planar == 2 else [x])
     rps = rows_per_strip or h
     strips = []
@@ -903,8 +910,7 @@ def encode_tiff(samples: np.ndarray, *, photometric: int,
             rows = plane[r0:r0 + rps]
             raw = (_pack_bits(rows, bits) if bits < 8
                    else np.ascontiguousarray(rows).tobytes())
-            strips.append(zlib.compress(raw) if compression in (8, 32946)
-                          else raw)
+            strips.append(compress_tiff_chunk(raw, compression))
     tags = {277: [spp]}
     if colormap is not None:
         tags[320] = np.asarray(colormap).reshape(-1).tolist()
@@ -917,6 +923,153 @@ def encode_tiff(samples: np.ndarray, *, photometric: int,
         strips, w=w, h=h, bits=[bits] * spp, photometric=photometric,
         compression=compression, planar=planar, big_endian=big_endian,
         chunk=(w, rps), extra_tags=tags, fill_order=fill_order)
+
+
+def compress_tiff_chunk(raw: bytes, compression: int) -> bytes:
+    """One strip or tile coded in a TIFF compression: 1, 5 (LZW), 8 and
+    32946 (Deflate), 32773 (PackBits), 34925 (LZMA: an .xz stream) or
+    50000 (encode_zstd)."""
+    if compression == 1:
+        return raw
+    if compression == 5:
+        return _lzw_encode(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw)
+    if compression == 32773:
+        return _packbits_encode(raw)
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, format=lzma.FORMAT_XZ)
+    if compression == 50000:
+        return encode_zstd(raw)
+    raise ValueError(f"no encoder for TIFF compression {compression}")
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: MSB-first codes of 9-12 bits, a
+    clear code first and whenever the table fills, the width growing when
+    the next free code passes the current width's largest, end code
+    last."""
+    bits, n_bits = [], 0
+
+    def emit(code, width):
+        nonlocal n_bits
+        bits.append((code, width))
+        n_bits += width
+
+    width, table, nxt = 9, {}, 258
+    emit(256, width)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if not w or wc in table:
+            w = wc
+            continue
+        emit(table[w] if len(w) > 1 else w[0], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4093:
+            emit(256, width)
+            width, table, nxt = 9, {}, 258
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([c])
+    if w:
+        emit(table[w] if len(w) > 1 else w[0], width)
+    emit(257, width)
+    value = 0
+    for code, wd in bits:
+        value = (value << wd) | code
+    pad = -n_bits % 8
+    return (value << pad).to_bytes((n_bits + pad) // 8, "big")
+
+
+def _packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes as (257 - n, byte), the
+    rest as literal runs of up to 128 bytes."""
+    out, i, lit = bytearray(), 0, bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            part = lit[k:k + 128]
+            out.extend(bytes([len(part) - 1]) + part)
+        lit.clear()
+
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out.extend(bytes([257 - (j - i), data[i]]))
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def encode_zstd(data: bytes, *, block_size: int = 1 << 17,
+                checksum: bool = False, content_size: bool = True,
+                single_segment: bool = False,
+                skippable: bytes | None = None) -> bytes:
+    """A Zstandard frame of raw and RLE blocks only (a run of one byte
+    value becomes an RLE block): blocks of at most `block_size` bytes,
+    with or without the frame content size (4 bytes, or 8 past 2^32) and
+    the XXH64 content checksum, in one segment (no window descriptor) on
+    request; `skippable` puts a skippable frame of those bytes first."""
+    desc = (4 if checksum else 0) | (32 if single_segment else 0)
+    head = b""
+    if not single_segment:
+        log = max(10, (max(len(data), 1) - 1).bit_length())
+        head += bytes([(log - 10) << 3])
+    if content_size or single_segment:
+        wide = len(data) >= 1 << 32
+        desc |= (3 if wide else 2) << 6
+        head += len(data).to_bytes(8 if wide else 4, "little")
+    out = bytearray()
+    if skippable is not None:
+        out += struct.pack("<II", 0x184D2A50, len(skippable)) + skippable
+    out += struct.pack("<I", 0xFD2FB528) + bytes([desc]) + head
+    starts = list(range(0, len(data), block_size)) or [0]
+    for k, at in enumerate(starts):
+        part = data[at:at + block_size]
+        last = int(k == len(starts) - 1)
+        if len(part) > 1 and part.count(part[:1]) == len(part):
+            out += (last | 2 | len(part) << 3).to_bytes(3, "little")
+            out += part[:1]
+        else:
+            out += (last | len(part) << 3).to_bytes(3, "little") + part
+    if checksum:
+        out += struct.pack("<I", zstd.xxh64(data) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def encode_zstd_sequences() -> tuple:
+    """A Zstandard frame of two compressed blocks whose sequences use RLE
+    tables for all three codes (each block's sequences share their
+    codes) -> (frame, its 26 bytes of content). Block 1: raw literals
+    "0123456789", one sequence of 10 literals and a new offset 5 of 5
+    bytes. Block 2: RLE literals "zzz" and two sequences without
+    literals: Offset_Value 3 (the first repeat offset minus one: 4),
+    then Offset_Value 2 (after no literals, the third repeat: 1), 4
+    bytes each; the content checksum last."""
+    def block(body: bytes, last: int) -> bytes:
+        return (last | 2 << 1 | len(body) << 3).to_bytes(3, "little") + body
+
+    # literals header, sequence count, modes (RLE, RLE, RLE), the LL, OF
+    # and ML codes, then the bitstream (extra bits, end mark highest)
+    first = bytes([10 << 3]) + b"0123456789" + bytes([1, 0x54, 10, 3, 2,
+                                                      0b1000])
+    second = bytes([3 << 3 | 1]) + b"z" + bytes([2, 0x54, 0, 1, 1, 0b110])
+    content = b"0123456789" + b"56789" + b"6789" + b"9999" + b"zzz"
+    frame = (struct.pack("<I", 0xFD2FB528) + bytes([2 << 6 | 32 | 4])
+             + struct.pack("<I", len(content)) + block(first, 0)
+             + block(second, 1)
+             + struct.pack("<I", zstd.xxh64(content) & 0xFFFFFFFF))
+    return frame, content
 
 
 def _pack_bits(rows: np.ndarray, bits: int) -> bytes:
@@ -1429,6 +1582,137 @@ def split_edge_case(rng: np.random.Generator, case: tuple, sg: int = 300,
     return t_gap, q_gap, t_he, q_he
 
 
+# K4 at the shapes its select, its scans and its two ordering branches
+# meet at their edges: (name, batch, T, k, scores, flags). scores:
+# "random" over a wide range, "narrow" over 0..40 (many ties, as real
+# counts), "equal" (every score of a row the same: the select falls to
+# the column order), "extremes" (INT32_MIN, INT32_MAX, -1, 0, 1 among
+# random ones). T 2,049 and 255 are no power of two, 16,384 is the cap;
+# k = T orders the whole row (the bitonic branch past 512 winners).
+TOPK_EDGE_CASES = (
+    ("t1_k1", 8, 1, 1, "random", False),
+    ("t255_k1", 8, 255, 1, "random", True),
+    ("t255_kT", 1, 255, 255, "narrow", False),
+    ("t2048_k1", 8, 2048, 1, "narrow", True),
+    ("t2048_k256", 8, 2048, 256, "random", True),
+    ("t2048_k256_narrow", 8, 2048, 256, "narrow", False),
+    ("t2048_k600", 8, 2048, 600, "random", False),
+    ("t2048_kT", 8, 2048, 2048, "narrow", True),
+    ("t2049_k256", 8, 2049, 256, "narrow", True),
+    ("t2049_kT", 1, 2049, 2049, "random", False),
+    ("t16384_k256", 8, 16384, 256, "narrow", False),
+    ("t16384_kT", 1, 16384, 16384, "random", True),
+    ("equal_rows", 8, 2048, 256, "equal", False),
+    ("equal_rows_kT", 2, 2049, 2049, "equal", True),
+    ("equal_rows_16384_k1", 1, 16384, 1, "equal", False),
+    ("int32_extremes", 8, 2048, 256, "extremes", True),
+    ("int32_extremes_kT", 1, 255, 255, "extremes", False),
+    ("batch_0", 0, 2048, 256, "random", False),
+)
+
+
+def topk_edge_inputs(rng: np.random.Generator, case: tuple, device) -> tuple:
+    """One TOPK_EDGE_CASES input on `device` for union_keys_topk: (best
+    int32 [B, T], mirrored bool [B, T], pair_flags int32 [B, T] or None,
+    k)."""
+    import torch
+
+    _, batch, t, k, scores, flags = case
+    if scores == "narrow":
+        best = rng.integers(0, 41, (batch, t))
+    elif scores == "equal":
+        best = np.repeat(rng.integers(-5, 500, (batch, 1)), t, axis=1)
+    else:
+        best = rng.integers(-(1 << 31), 1 << 31, (batch, t), dtype=np.int64)
+        if scores == "extremes":
+            special = np.array([-(1 << 31), (1 << 31) - 1, -1, 0, 1])
+            pick = rng.random((batch, t)) < 0.5
+            best[pick] = rng.choice(special, int(pick.sum()))
+    best = torch.from_numpy(best.astype(np.int32)).to(device)
+    mirrored = torch.from_numpy(rng.random((batch, t)) < 0.5).to(device)
+    pair_flags = (torch.from_numpy(rng.integers(0, 4, (batch, t))
+                                   .astype(np.int32)).to(device)
+                  if flags else None)
+    return best, mirrored, pair_flags, k
+
+
+def check_topk_edge(case: tuple, device) -> None:
+    """K4 at one TOPK_EDGE_CASES input on a CUDA `device` against its
+    plain version: the same outputs (flags included when the case has
+    them), dtypes and values. Raises AssertionError naming the case."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import pixel_match as pm
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    best, mirrored, flags, k = topk_edge_inputs(rng, case, device)
+    got = pm.union_keys_topk(best, mirrored, k, flags)
+    want = pm.union_keys_topk_plain(best, mirrored, k, flags)
+    if len(got) != len(want) or len(got) != (3 if flags is None else 4) \
+            or not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(got, want)):
+        raise AssertionError(f"K4 at edge case {case[0]} differs from its "
+                             "plain version")
+
+
+# K7 at its edges: (name, R, n, where, dtype) for every R in (1, 31, 33,
+# 1,638, 2,048), n in (1, 7, 9, a full chunk of PIXEL_MAJOR_CHUNK_BYTES),
+# the chunk written at pixel 0 or ending at the buffer's last pixel, int16
+# and uint8. R 1,638 (the engine's sorted subset of the store rows) and
+# the odd ones give dst pitches no multiple of 16 bytes (element stores);
+# n 7 and 9 give src pitches of 7-18 bytes (narrow loads).
+PIXEL_MAJOR_CHUNK_BYTES = 1 << 20
+PIXEL_MAJOR_EDGE_CASES = tuple(
+    (f"r{r}_n{n}_{where}_{dt}", r, n, where, dt)
+    for dt in ("int16", "uint8") for r in (1, 31, 33, 1638, 2048)
+    for n in (1, 7, 9, "chunk") for where in ("start", "end"))
+
+
+def pixel_major_edge_case(rng: np.random.Generator, case: tuple) -> dict:
+    """numpy inputs of K7 at one PIXEL_MAJOR_EDGE_CASES shape: the field
+    [R, n_px] (uint16 or uint8; n_px = n + 5), the chunk's n and p0 and
+    the chunk_bytes at which upload_pixel_major cuts the field into
+    chunks of n."""
+    _, n_r, n, where, dt = case
+    dtype = np.dtype(np.uint16 if dt == "int16" else np.uint8)
+    if n == "chunk":
+        n = PIXEL_MAJOR_CHUNK_BYTES // (n_r * dtype.itemsize)
+    n_px = n + 5
+    field = rng.integers(0, np.iinfo(dtype).max + 1, (n_r, n_px),
+                         dtype=np.int64).astype(dtype)
+    return {"field": field, "n": n, "p0": 0 if where == "start"
+            else n_px - n, "chunk_bytes": n_r * n * dtype.itemsize}
+
+
+def check_pixel_major_edge(case: tuple, device) -> None:
+    """K7 at one PIXEL_MAJOR_EDGE_CASES shape on a CUDA `device` against
+    its plain version, into a buffer filled with 3, from the chunk as it
+    is and from a copy one element past an aligned base (narrower loads).
+    Raises AssertionError naming the case."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    c = pixel_major_edge_case(rng, case)
+    field = c["field"].view(np.int16) if case[4] == "int16" else c["field"]
+    n, p0 = c["n"], c["p0"]
+    src = torch.from_numpy(np.ascontiguousarray(field[:, p0:p0 + n])) \
+        .to(device)
+    shifted = torch.zeros(src.numel() + 1, dtype=src.dtype,
+                          device=device)[1:].view(src.shape)
+    shifted.copy_(src)
+    for chunk in (src, shifted):
+        buf = torch.full((field.shape[1], field.shape[0]), 3,
+                         dtype=src.dtype, device=device)
+        ref = buf.clone()
+        ss.upload_pixel_major_chunk(buf, chunk, p0)
+        ss.upload_pixel_major_chunk_plain(ref, chunk, p0)
+        if not torch.equal(buf, ref):
+            raise AssertionError(f"K7 at edge shape {case[0]} differs "
+                                 "from its plain version")
+
+
 # The repository's image forms that only PIL wrote (tests/torch_forms/):
 # each file, with its PIL-decoded pixels and the matches of forms_search
 # pinned beside them in FORMS_NPZ.
@@ -1437,8 +1721,14 @@ FORMS_DIR = os.path.join(os.path.dirname(os.path.dirname(
 FORM_FILES = ("baseline.jpg", "progressive.jpg", "palette.gif",
               "palette.tif", "ccitt_g4.tif", "tiled_jpeg.tif",
               "rgba_lzw.tif", "cmyk.tif", "float.tif", "cmyk.jpg",
-              "smoothed.jpg", "arith.jpg", "lossless.jpg", "corrupt.jpg")
+              "smoothed.jpg", "arith.jpg", "lossless.jpg", "corrupt.jpg",
+              "lab.tif", "palette_alpha.tif", "int32.tif", "gray4.tif",
+              "lzma.tif", "zstd.tif", "ccitt_rle.tif")
 FORMS_NPZ = "pixels_and_matches.npz"
+# a production-size (566 x 1210) Zstandard TIFF of a synthetic CDM,
+# written by PIL (libzstd): the GPU hosts, which have no zstd encoder,
+# time the port's reader on it
+FORMS_ZSTD_TIMING = "zstd_566x1210.tif"
 FORMS_SIZE = (48, 64)   # height, width of every file and library image
 FORMS_SYNTHETIC_TARGETS = 6
 

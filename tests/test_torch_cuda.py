@@ -748,3 +748,23 @@ def test_cuda_k5_at_edge_shapes(cuda_device, case):
     assert shifted[0].data_ptr() % 16
     for a, b in zip(tss.shape_score_pairs_split(*shifted), want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.TOPK_EDGE_CASES,
+                         ids=[c[0] for c in testing.TOPK_EDGE_CASES])
+def test_cuda_k4_at_edge_shapes(cuda_device, case):
+    """K4 at testing.TOPK_EDGE_CASES (held to JAX on the CPU in
+    test_torch_k4k7_edges.py) equals its plain version, flag gather
+    included."""
+    testing.check_topk_edge(case, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.PIXEL_MAJOR_EDGE_CASES,
+                         ids=[c[0] for c in testing.PIXEL_MAJOR_EDGE_CASES])
+def test_cuda_k7_at_edge_shapes(cuda_device, case):
+    """K7 at testing.PIXEL_MAJOR_EDGE_CASES (held to JAX on the CPU in
+    test_torch_k4k7_edges.py) equals its plain version, also with the
+    chunk one element past an aligned base (narrower loads)."""
+    testing.check_pixel_major_edge(case, cuda_device)

@@ -220,6 +220,8 @@ def _form(name: str) -> bytes:
         rgb16[0, :4] = [[0] * 3, [255] * 3, [256] * 3, [65535] * 3]
         return testing.encode_tiff(rgb16.astype(np.uint16), photometric=2,
                                    big_endian=rest == "rgb16_be")
+    if kind == "tiff" and rest.split("_")[0] in _OPEN_FAULT_KINDS:
+        return _tiff_open_fault(rng, rest)
     if kind == "tiff":
         return _tiff_form(rng, rest, h, w)
     if kind == "jpeg":
@@ -472,7 +474,8 @@ def _tiff_form(rng, rest: str, h: int, w: int) -> bytes:
         return testing.encode_tiff_chunks(
             [testing.encode_fax(on, group=group, two_d=two_d)], w=fw, h=fh,
             bits=[1], photometric=int(parts[3]), compression=group,
-            extra_tags={292 if group == 3 else 293: [options]},
+            extra_tags={} if group == 2 else {
+                292 if group == 3 else 293: [options]},
             fill_order=2 if "fill2" in parts else 1)
     if parts[0] == "bilevel":
         # uncompressed 1-bit, WhiteIsZero (0) or BlackIsZero (1)
@@ -499,9 +502,14 @@ def _tiff_form(rng, rest: str, h: int, w: int) -> bytes:
     if parts[0] == "float":
         x = rng.uniform(-40, 300, (h, w, 1)).astype(np.float32)
         x[0, :6, 0] = (np.nan, np.inf, -np.inf, 254.99, 0.5, 255.0)
+        comp = 8 if "deflate" in parts else 1
+        if "be" in parts and comp != 1:
+            # PIL reads these byte-swapped: store the swapped values, so
+            # that what it reads is x
+            x = x.byteswap()
         return testing.encode_tiff(
-            x, photometric=1, big_endian="be" in parts,
-            compression=8 if "deflate" in parts else 1, rows_per_strip=5)
+            x, photometric=1, big_endian="be" in parts, compression=comp,
+            predictor=2 if "pred" in parts else 1, rows_per_strip=5)
     photo = {"gray": 1, "wiz": 0, "rgb": 2, "palette": 3}[parts[0]]
     bits = int(parts[1])
     spp = 3 if photo == 2 else 1
@@ -520,7 +528,8 @@ def _tiff_form(rng, rest: str, h: int, w: int) -> bytes:
 # PIL's names of the TIFF compressions the tests write with it
 _PIL_COMPRESSION = {"raw": None, "lzw": "tiff_lzw", "packbits": "packbits",
                     "deflate": "tiff_adobe_deflate", "g3": "group3",
-                    "g4": "group4", "jpeg": "jpeg"}
+                    "g4": "group4", "jpeg": "jpeg", "ccitt": "tiff_ccitt",
+                    "lzma": "lzma", "zstd": "zstd"}
 
 
 def _bilevel(rng, h, w):
@@ -536,6 +545,9 @@ def _bilevel(rng, h, w):
 def _tiff_image(rng, mode: str, h: int, w: int):
     if mode == "1":
         return _bilevel(rng, h, w)
+    if mode == "I":
+        return Image.fromarray(_int_samples(rng, np.int32, "u16", h, w)
+                               [..., 0], "I")
     if mode == "F":
         x = rng.uniform(-40, 300, (h, w)).astype(np.float32)
         x[0, :4] = (np.nan, np.inf, -np.inf, 255.5)
@@ -548,18 +560,25 @@ def _tiff_image(rng, mode: str, h: int, w: int):
     if mode == "CMYK":
         k = rng.integers(0, 256, (h, w, 1)).astype(np.uint8)
         return Image.fromarray(np.concatenate([rgb, k], -1), "CMYK")
+    if mode == "LAB":
+        return Image.fromarray(rng.integers(0, 256, (h, w, 3))
+                               .astype(np.uint8), "LAB")
+    if mode == "PA":
+        return Image.fromarray(rgb).quantize(40).convert("PA")
     return Image.fromarray(rgb).convert(mode)
 
 
 def _tiff_pil(rng, rest: str, h: int, w: int) -> bytes:
     """tiff-pil_<mode>[_<compression>][_<option>]: an image PIL writes in
-    that mode (1, F, LA, RGBA, CMYK, RGB, YCbCr, L, palette) and
+    that mode (1, F, LA, RGBA, CMYK, RGB, YCbCr, L, palette, LAB, PA) and
     compression; options: g3 2d and fill (Group3Options 1 and 5), strips
-    (several strips: PIL's strip_size), big (40 x 1,900)."""
+    (several strips: PIL's strip_size), big (40 x 1,900), fo2 (FillOrder
+    2), pred (the horizontal predictor)."""
     parts = rest.split("_")
     mode = {"palette": "P", "ycbcr": "YCbCr", "rgb": "RGB", "l": "L",
             "f": "F", "la": "LA", "rgba": "RGBA", "cmyk": "CMYK",
-            "1": "1"}.get(parts[0], parts[0])
+            "1": "1", "lab": "LAB", "pa": "PA", "i": "I"}.get(parts[0],
+                                                              parts[0])
     comp = _PIL_COMPRESSION[parts[1] if len(parts) > 1 else "raw"]
     kw = {} if comp is None else {"compression": comp}
     if "2d" in parts:
@@ -568,6 +587,10 @@ def _tiff_pil(rng, rest: str, h: int, w: int) -> bytes:
         kw["tiffinfo"] = {292: 5}
     if "strips" in parts:
         kw["strip_size"] = 600
+    if "fo2" in parts:
+        kw["tiffinfo"] = {266: 2}
+    if "pred" in parts:
+        kw["tiffinfo"] = {317: 2}
     if comp == "jpeg":
         kw["quality"] = 85
     big = mode == "1" and "big" in parts
@@ -638,6 +661,154 @@ def _tiff_chunked(rng, rest: str) -> bytes:
         photometric=tags[262][0],
         compression=tags[259][0], chunk=(tw, th), tiled=kind == "tile",
         extra_tags=keep, fill_order=2 if kind == "fill2" else 1)
+
+
+# tiff-<kind>_...: the forms ROADMAP listed as open faults (PIL reads
+# them, the port refused them before)
+_OPEN_FAULT_KINDS = ("lab", "pa", "px", "int", "low", "lzma", "zstd")
+# mode "I" samples: (dtype, big-endian, sample format)
+_INT_KINDS = {"16s": (np.int16, False, 2), "16s_be": (np.int16, True, 2),
+              "32u": (np.uint32, False, 1), "32s": (np.int32, False, 2),
+              "32s_be": (np.int32, True, 2), "32u_be": (np.uint32, True, 1)}
+
+
+def _int_samples(rng, dtype, what: str, h: int = 13, w: int = 11):
+    """Integer gray samples: u8 (0..255), u16 (0..65535, some above 255;
+    0..32767 for int16), out (some negative, or above 65535)."""
+    top = {"u8": 256, "u16": min(65536, np.iinfo(dtype).max + 1)}.get(what)
+    if top is not None:
+        x = rng.integers(0, top, (h, w, 1))
+        if what == "u16":
+            x[0, 0, 0] = top - 1
+        return x.astype(dtype)
+    x = rng.integers(0, 256, (h, w, 1)).astype(np.int64)
+    x[0, 0, 0] = 70000 if dtype == np.uint32 else -3
+    return x.astype(dtype)
+
+
+def _tiff_open_fault(rng, rest: str) -> bytes:
+    """tiff-lab_all: every LAB triple once (4,096 x 4,096); tiff-pa_short:
+    8-bit palette + alpha, a 16-entry ColorMap, indices up to 255;
+    tiff-px: palette + an unspecified extra sample;
+    tiff-int_<kind>_<u8|u16>_<raw|deflate>[_pred]: mode "I" samples
+    (_INT_KINDS), with the horizontal predictor on request;
+    tiff-low_<2|4>_<wiz|biz>_<compression>[_fill2]: 2- and 4-bit gray;
+    tiff-lzma_<form> and tiff-zstd_<form>: see _tiff_lzma, _tiff_zstd."""
+    parts = rest.split("_")
+    kind = parts[0]
+    if kind == "lab":
+        v = np.arange(256, dtype=np.uint8)
+        lab = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1)
+        return testing.encode_tiff(lab.reshape(4096, 4096, 3), photometric=8,
+                                   rows_per_strip=256)
+    if kind in ("pa", "px"):
+        idx = rng.integers(0, 256, (13, 11, 2)).astype(np.uint8)
+        cmap = rng.integers(0, 1 << 16, (3, 16 if kind == "pa" else 256))
+        return testing.encode_tiff(idx, photometric=3,
+                                   colormap=cmap.astype(np.uint16),
+                                   extra_tags={338: [2 if kind == "pa"
+                                                     else 0]})
+    if kind == "int":
+        pred = parts[-1] == "pred"
+        parts = parts[:-1] if pred else parts
+        name = parts[1] + ("_be" if "be" in parts else "")
+        dtype, big, fmt = _INT_KINDS[name]
+        x = _int_samples(rng, dtype, parts[-2])
+        comp = {"raw": 1, "deflate": 8, "zstd": 50000}[parts[-1]]
+        if big and comp != 1:
+            # PIL reads these byte-swapped: store the swapped values, so
+            # that what it reads lies in the range named
+            x = x.byteswap()
+        return testing.encode_tiff(
+            x.view({2: np.uint16, 4: np.uint32}[x.itemsize]),
+            photometric=1, big_endian=big, compression=comp,
+            predictor=2 if pred else 1, rows_per_strip=5,
+            extra_tags={339: [fmt]})
+    if kind == "low":
+        bits = int(parts[1])
+        x = rng.integers(0, 1 << bits, (37, 29, 1)).astype(np.uint8)
+        comp = {"raw": 1, "packbits": 32773, "lzw": 5, "deflate": 8}[parts[3]]
+        return testing.encode_tiff(
+            x, photometric=0 if parts[2] == "wiz" else 1, bits=bits,
+            compression=comp, rows_per_strip=8,
+            fill_order=2 if "fill2" in parts else 1)
+    if kind == "lzma":
+        return _tiff_lzma(rng, parts[1:])
+    return _tiff_zstd(rng, parts[1:])
+
+
+def _tiff_lzma(rng, parts) -> bytes:
+    """tiff-lzma_<rgb|gray16_pred>: LZMA strips of testing.encode_tiff
+    (RGB; 16-bit gray with the predictor)."""
+    if parts[0] == "rgb":
+        return testing.encode_tiff(_cdm_like(rng, 37, 29), photometric=2,
+                                   compression=34925, rows_per_strip=8)
+    return testing.encode_tiff(
+        rng.integers(0, 1 << 16, (37, 29, 1)).astype(np.uint16),
+        photometric=1, compression=34925, predictor=2, rows_per_strip=8)
+
+
+def _tiff_zstd(rng, parts) -> bytes:
+    """tiff-zstd_<form>: Zstandard strips. pil_*: libzstd's frames through
+    PIL (libtiff writes no content size and no checksum): cdm (566 x 1210
+    CDM-like RGB, 4-stream Huffman literals, FSE and repeated sequence
+    tables), onestrip (the same in one 2 MB strip: many blocks, treeless
+    literals), pred (the predictor), noise (incompressible: raw literals
+    and raw blocks), flat (zero strips: RLE blocks and literals), levels
+    (3 byte values: few Huffman symbols), gray16 (16-bit), small (13 x 11:
+    predefined tables), tiny4 (10 x 12 of 4 values: one Huffman stream,
+    weights written directly), four (600 x 1000 of 4 values in one strip:
+    treeless literals). enc_*: testing's encoders, for what libtiff never
+    writes: enc_check (content size and checksum, raw and RLE blocks of
+    1,000 bytes), enc_single (one segment), enc_skip (a skippable frame
+    first, no content size: libtiff stops after it, as the port does),
+    enc_sequences (testing.encode_zstd_sequences: RLE literals, RLE
+    sequence tables, the repeat offset "first minus one")."""
+    what = parts[0]
+    if what == "pil":
+        form = parts[1]
+        h, w = {"small": (13, 11), "noise": (120, 200), "flat": (300, 400),
+                "levels": (200, 300), "gray16": (200, 300),
+                "tiny4": (10, 12), "four": (600, 1000)}.get(form, (566, 1210))
+        kw = {"compression": "zstd"}
+        if form in ("tiny4", "four"):
+            img = Image.fromarray(rng.integers(0, 4, (h, w)).astype(np.uint8))
+        elif form == "noise":
+            img = Image.fromarray(rng.integers(0, 256, (h, w, 3))
+                                  .astype(np.uint8))
+        elif form == "flat":
+            x = np.zeros((h, w, 3), np.uint8)
+            x[h // 2:h // 2 + 3, :5] = 200
+            img = Image.fromarray(x)
+        elif form == "levels":
+            img = Image.fromarray(rng.choice([0, 40, 255], (h, w))
+                                  .astype(np.uint8))
+        elif form == "gray16":
+            img = Image.fromarray(rng.integers(0, 1 << 12, (h, w))
+                                  .astype(np.uint16))
+        else:
+            img = Image.fromarray(_cdm_like(rng, h, w))
+        if form == "pred":
+            kw["tiffinfo"] = {317: 2}
+        if form in ("onestrip", "four"):
+            kw["strip_size"] = 1 << 22
+        return _pil(lambda im: img, format="TIFF", **kw)
+    if parts[1] == "sequences":
+        frame, content = testing.encode_zstd_sequences()
+        return testing.encode_tiff_chunks(
+            [frame], w=13, h=2, bits=[8], photometric=1, compression=50000)
+    x = _cdm_like(rng, 37, 29)
+    x[10:30] = 0
+    raw = x.tobytes()
+    frame = {"check": lambda: testing.encode_zstd(
+                 raw, block_size=1000, checksum=True),
+             "single": lambda: testing.encode_zstd(
+                 raw, block_size=870, single_segment=True),
+             "skip": lambda: testing.encode_zstd(
+                 raw, content_size=False, skippable=b"ignored")}[parts[1]]()
+    return testing.encode_tiff_chunks(
+        [frame], w=29, h=37, bits=[8, 8, 8], photometric=2,
+        compression=50000, extra_tags={277: [3]})
 
 
 FORMS = (
@@ -755,6 +926,40 @@ FORMS = (
     # the forms the port refused before this slice, now decoded
     + [f"edge-{what}" for what in ("cmyk", "dc_only", "sof9", "tiled",
                                    "bits1", "float", "jpeg_in_tiff")]
+    # the open faults of ROADMAP section 3, now decoded: LAB (every triple,
+    # and PIL's in every compression), palette + alpha (PIL's; a short
+    # ColorMap), palette + an unspecified sample, mode "I" (five sample
+    # forms at values <= 255 and <= 65,535, raw and Deflate: big-endian
+    # Deflate is read byte-swapped, as PIL does), 2- and 4-bit gray in
+    # both photometrics and four compressions, LZMA, Zstandard, CCITT RLE
+    + ["tiff-lab_all"]
+    + [f"tiff-pil_lab{c}" for c in ("", "_lzw", "_deflate", "_lzma", "_zstd")]
+    + ["tiff-pil_pa", "tiff-pil_pa_deflate", "tiff-pil_pa_zstd",
+       "tiff-pa_short", "tiff-px"]
+    + [f"tiff-int_{k}_{r}_{c}" for k in ("16s", "16s_be", "32u", "32s",
+                                         "32s_be")
+       for r in ("u8", "u16") for c in ("raw", "deflate")]
+    + [f"tiff-low_{b}_{p}_{c}" for b in (2, 4) for p in ("wiz", "biz")
+       for c in ("raw", "packbits", "lzw", "deflate")]
+    + ["tiff-low_2_wiz_lzw_fill2", "tiff-low_4_biz_raw_fill2"]
+    + ["tiff-lzma_rgb", "tiff-lzma_gray16_pred", "tiff-pil_rgb_lzma",
+       "tiff-pil_l_lzma", "tiff-pil_1_lzma"]
+    + [f"tiff-zstd_pil_{f}" for f in ("cdm", "onestrip", "pred", "noise",
+                                      "flat", "levels", "gray16", "small",
+                                      "tiny4", "four")]
+    + [f"tiff-zstd_enc_{f}" for f in ("check", "single", "sequences")]
+    + ["tiff-pil_rgb_zstd", "tiff-pil_1_zstd", "tiff-int_32s_u16_zstd"]
+    # 32-bit samples under the horizontal predictor, summed as uint32
+    # words whatever the sample format (libtiff's horAcc32): PIL's mode
+    # "I" and "F" (little-endian), and both byte orders of int32, uint32
+    # and float32 (compressed big-endian floats PIL reads byte-swapped)
+    + ["tiff-pil_i_deflate_pred", "tiff-pil_f_deflate_pred",
+       "tiff-int_32s_u16_deflate_pred", "tiff-int_32s_be_u16_deflate_pred",
+       "tiff-int_32u_u16_deflate_pred", "tiff-float_deflate_pred",
+       "tiff-float_deflate_pred_be", "tiff-float_deflate_be"]
+    + ["tiff-pil_1_ccitt", "tiff-pil_1_ccitt_big", "tiff-pil_1_ccitt_fo2",
+       "tiff-fax_g2_1d_0_40x150", "tiff-fax_g2_1d_1_fill2_30x1900",
+       "tiff-fax_g2_1d_0_13x11"]
     # GIFs: the first frame through its table, as PIL converts it
     + [f"gif-{f}" for f in (
         "global", "local", "interlaced", "transparency", "grey_ramp",
@@ -869,6 +1074,43 @@ def _edge(what: str) -> bytes:
                 **kw)
 
 
+def _broken_tiff(what: str) -> bytes:
+    """TIFFs PIL refuses: a Zstandard strip whose first block is of the
+    reserved type, a frame whose checksum is off, one naming a
+    dictionary, one after a skippable frame (libtiff stops there); an
+    LZMA strip with a byte changed mid-stream; LAB with FillOrder 2."""
+    from colormipsearch_tpu_torch.io import tiff as ttiff
+
+    rng = np.random.default_rng(5)
+    if what in ("zstd", "lzma"):
+        data = bytearray(
+            _pil(lambda im: im.fromarray(_cdm_like(rng, 50, 60)),
+                 format="TIFF", compression="zstd")
+            if what == "zstd" else _tiff_lzma(rng, ["rgb"]))
+        _, tags = ttiff._ifd(bytes(data))
+        # libtiff's frames: magic, descriptor, window, then a block
+        at = tags[273][0] + (6 if what == "zstd" else tags[279][0] // 2)
+        if what == "zstd":
+            data[at] |= 6          # block type 3
+        else:
+            data[at] ^= 0x5A
+        return bytes(data)
+    if what == "zstd_skip":
+        return _tiff_zstd(rng, ["enc", "skip"])
+    if what == "lab_fill2":
+        return _pil(lambda im: im.fromarray(
+            rng.integers(0, 256, (5, 20, 3)).astype(np.uint8), "LAB"),
+            format="TIFF", tiffinfo={266: 2})
+    frame = bytearray(testing.encode_zstd_sequences()[0])
+    if what == "zstd_checksum":
+        frame[-1] ^= 0x10
+    else:                      # a dictionary ID byte in the header
+        frame[4] |= 1
+        frame[5:5] = b"\x07"
+    return testing.encode_tiff_chunks([bytes(frame)], w=13, h=2, bits=[8],
+                                      photometric=1, compression=50000)
+
+
 # what the port still refuses, with the words its ValueError names;
 # PIL refuses every one of these bytes too
 _REFUSED = [
@@ -889,11 +1131,20 @@ _REFUSED = [
     ("lossless JPEG with a colour transform", _edge("lossless_ycck")),
     ("truncated", _form("jpeg-pil_rgb_2_95")[:300]),
     ("big-endian 16-bit WhiteIsZero", _edge("wiz16_be")),
+    ("big-endian unsigned 32-bit", _form("tiff-int_32u_be_u8_raw")),
+    ("fill order 2", _broken_tiff("lab_fill2")),
+    ("corrupt Zstandard data", _broken_tiff("zstd")),
+    ("Zstandard content checksum mismatch", _broken_tiff("zstd_checksum")),
+    ("dictionaries are not supported", _broken_tiff("zstd_dictionary")),
+    ("too short", _broken_tiff("zstd_skip")),
+    ("corrupt TIFF LZMA data", _broken_tiff("lzma")),
 ]
 _REFUSED_IDS = ["jpeg_junk", "gif_junk", "unrecognised", "png_crc",
                 "png_ihdr", "sof3_fake", "precision12", "sof5", "sof6",
                 "sof7", "sof11", "sof13", "two_components", "lossless_ycbcr",
-                "lossless_ycck", "truncated_jpeg", "wiz16_be"]
+                "lossless_ycck", "truncated_jpeg", "wiz16_be", "u32_be",
+                "lab_fill2", "zstd_corrupt", "zstd_checksum",
+                "zstd_dictionary", "zstd_skippable_first", "lzma_corrupt"]
 
 
 @pytest.mark.parametrize("what,data", _REFUSED, ids=_REFUSED_IDS)
@@ -906,6 +1157,78 @@ def test_read_image_without_pil_names_what_it_cannot_decode(what, data,
     # PIL refuses the same bytes
     with pytest.raises(Exception):
         Image.open(io.BytesIO(data)).load()
+
+
+@pytest.mark.parametrize("form", [
+    f"tiff-int_{k}_out_{c}" for k in ("16s", "16s_be", "32u", "32s", "32s_be")
+    for c in ("raw", "deflate")])
+def test_mode_i_outside_uint16_raises_on_both_sides(form, no_pil,
+                                                    monkeypatch):
+    """Mode "I" values outside [0, 65535] (a negative one, or 70,000):
+    JAX's read_image refuses them after PIL, and the port, without PIL,
+    with the same words."""
+    data = _form(form)
+    monkeypatch.setattr(jnative, "decode_img", lambda d: None)
+    monkeypatch.setattr(tnative, "decode_img", lambda d: None)
+    with pytest.raises(ValueError) as want:
+        jimage.read_image(data)
+    with pytest.raises(ValueError) as got:
+        timage.read_image(data)
+    assert "outside uint16" in str(want.value)
+    assert str(got.value).endswith(str(want.value))
+
+
+def test_engines_skip_a_mode_i_target_outside_uint16(tmp_path, no_pil,
+                                                     monkeypatch, caplog):
+    """A signed 32-bit TIFF target with a negative value: both engines
+    skip it (the port names it) and score the other targets as without
+    it."""
+    from colormipsearch_tpu.engine import cds as jcds
+    from colormipsearch_tpu.model import neuron_from_json as jax_neuron
+    from colormipsearch_tpu_torch.engine import cds as tcds
+    from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron
+
+    rng = np.random.default_rng(61)
+    lib = testing.synthetic_library(rng, 6, 2, 48, 64, target_fg=0.1,
+                                    mask_fg=0.04)
+    masks = testing.write_neuron_images(tmp_path / "m", lib.masks, "m")
+    targets = testing.write_neuron_images(tmp_path / "t", lib.targets, "t")
+    bad = tmp_path / "t" / "int32.tif"
+    x = lib.targets[0][..., :1].astype(np.int32)
+    x[0, 0] = -1
+    bad.write_bytes(testing.encode_tiff(x.view(np.uint32), photometric=1,
+                                        extra_tags={339: [2]}))
+    extra = LMNeuron(mip_id="x-00000", library_name="synthetic",
+                     published_name="x00000")
+    extra.set_compute_file(ComputeFileType.InputColorDepthImage, str(bad))
+    kw = dict(mask_threshold=20, data_threshold=20, pix_color_fluctuation=1.0,
+              xy_shift=2, mirror_mask=True, pct_positive_pixels=0.0)
+
+    def run(engine, tgts):
+        return sorted((m.mask_image.mip_id, m.matched_image.mip_id,
+                       m.matching_pixels, m.mirrored)
+                      for m in engine.find_all_matches(masks, tgts))
+
+    port = tcds.CDSearchEngine(tcds.CDSParams(**kw), device="cpu",
+                               decode_concurrency=1)
+    want = run(port, targets)
+    caplog.set_level(logging.WARNING, logger=tcds.LOG.name)
+    assert run(port, targets + [extra]) == want and want
+    named = [r.getMessage() for r in caplog.records
+             if str(bad) in r.getMessage()]
+    assert len(named) == 1 and "outside uint16" in named[0], caplog.text
+    jax_engine = jcds.CDSearchEngine(jcds.CDSParams(**kw), use_mesh=False,
+                                     decode_concurrency=1)
+
+    def run_jax(tgts):
+        return sorted(
+            (m.mask_image.mip_id, m.matched_image.mip_id, m.matching_pixels,
+             m.mirrored)
+            for m in jax_engine.find_all_matches(
+                [jax_neuron(n.to_json()) for n in masks],
+                [jax_neuron(n.to_json()) for n in tgts]))
+
+    assert run_jax(targets + [extra]) == run_jax(targets) == want
 
 
 def test_engine_names_every_skipped_target(tmp_path, no_pil, monkeypatch,
@@ -949,6 +1272,21 @@ def test_engine_names_every_skipped_target(tmp_path, no_pil, monkeypatch,
     assert len(named) == 1 and "JPEG" in named[0], caplog.text
     assert any("skipped 1 target" in r.getMessage()
                for r in caplog.records), caplog.text
+
+
+@pytest.mark.parametrize("data,want", [
+    (b"", 0xEF46DB3751D8E999), (b"a", 0xD24EC4F1A98C6E5B),
+    (b"abc", 0x44BC2CF5AD770999), (bytes(range(31)), 0xC346D2B59B4D8EE1),
+    (bytes(range(32)), 0xCBF59C5116FF32B4),
+    (bytes(range(100)), 0x6AC1E58032166597),
+    (bytes(range(256)) * 9, 0xB6BC56AC49FE30E6)],
+    ids=["0", "1", "3", "31", "32", "100", "2304"])
+def test_zstd_checksum_hash_is_xxh64(data, want):
+    """The content checksum's XXH64 at the lengths its stripes and tails
+    meet (the values of the reference implementation)."""
+    from colormipsearch_tpu_torch.io import zstd
+
+    assert zstd.xxh64(data) == want
 
 
 def _pil_decoded(path) -> np.ndarray:
@@ -1015,6 +1353,19 @@ def test_pinned_forms_agree_with_pil_and_the_engine(tmp_path, monkeypatch):
     np.testing.assert_array_equal(matches, pinned["matches"])
 
 
+def test_zstd_timing_file_agrees_with_pil(no_pil, monkeypatch):
+    """tests/torch_forms' production-size Zstandard TIFF, which
+    chip_smoke.py times the reader on, decodes without PIL to PIL's
+    pixels."""
+    monkeypatch.setattr(tnative, "decode_img", lambda d: None)
+    path = f"{testing.FORMS_DIR}/{testing.FORMS_ZSTD_TIMING}"
+    want = jimage.read_image(path)
+    got = timage.read_image(path)
+    assert got.type.value == want.type.value == "rgb"
+    assert got.pixels.shape == (566, 1210, 3)
+    np.testing.assert_array_equal(got.pixels, want.pixels)
+
+
 def _pinned_form(name: str, rng) -> bytes:
     """The bytes of one tests/torch_forms file: PIL's for the forms PIL
     writes, testing's encoders' for the others; each from rng."""
@@ -1068,6 +1419,27 @@ def _pinned_form(name: str, rng) -> bytes:
                                    sampling=((2, 2), (1, 1), (1, 1)))
     if name == "lossless.jpg":
         return testing.encode_jpeg_lossless(cdm, predictor=4)
+    if name == "lab.tif":
+        # the CDM's bytes read as L, a*, b*
+        return _pil(lambda im: Image.fromarray(cdm, "LAB"), format="TIFF",
+                    compression="tiff_adobe_deflate")
+    if name == "palette_alpha.tif":
+        return _pil(lambda im: img.quantize(48).convert("PA"), format="TIFF")
+    if name == "int32.tif":
+        return testing.encode_tiff(
+            cdm[..., 1:2].astype(np.int32).view(np.uint32), photometric=1,
+            big_endian=True, extra_tags={339: [2]})
+    if name == "gray4.tif":
+        return testing.encode_tiff((cdm[..., :1] >> 4).astype(np.uint8),
+                                   photometric=0, bits=4, compression=5)
+    if name == "lzma.tif":
+        return _pil(lambda im: img, format="TIFF", compression="lzma")
+    if name == "zstd.tif":
+        return _pil(lambda im: img, format="TIFF", compression="zstd",
+                    tiffinfo={317: 2})
+    if name == "ccitt_rle.tif":
+        return _pil(lambda im: Image.fromarray(cdm.max(-1) > 40),
+                    format="TIFF", compression="tiff_ccitt")
     if name == "corrupt.jpg":
         data = bytearray(_pil(lambda im: img, format="JPEG", quality=90,
                               restart_marker_blocks=4))
@@ -1081,8 +1453,9 @@ def _pinned_form(name: str, rng) -> bytes:
 
 def write_pinned_forms() -> None:
     """Write tests/torch_forms/: each of testing.FORM_FILES from seed 7
-    (see _pinned_form) and the .npz of their pixels as PIL decodes them
-    and of the engine's matches over them."""
+    (see _pinned_form), the .npz of their pixels as PIL decodes them and
+    of the engine's matches over them, and testing.FORMS_ZSTD_TIMING from
+    seed 8."""
     rng = np.random.default_rng(7)
     pinned = {}
     for name in testing.FORM_FILES:
@@ -1098,6 +1471,10 @@ def write_pinned_forms() -> None:
              for n in testing.FORM_FILES}, work, "cpu")
     np.savez_compressed(f"{testing.FORMS_DIR}/{testing.FORMS_NPZ}",
                         **pinned)
+    cdm = testing.synthetic_cdm(np.random.default_rng(8), 566, 1210)
+    with open(f"{testing.FORMS_DIR}/{testing.FORMS_ZSTD_TIMING}", "wb") as f:
+        f.write(_pil(lambda im: im.fromarray(cdm), format="TIFF",
+                     compression="zstd"))
 
 
 if __name__ == "__main__":

@@ -21,8 +21,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      targets; rows 13 and 14, the qkey wire form, on K3's batch; row 18b
      in both modes on the dense packs of the first cut mask's support,
      both orientations and 2,048 targets; row 15 on the 2,048-target
-     stack; K4's flag gather on K9's batch): exact equality (K9's and
-     K11's ambiguity flags included),
+     stack and on a dense [64, 566 x 1210] stack of uniform random RGB
+     with no black pixel; K4's flag gather on K9's batch): exact equality
+     (K9's and K11's ambiguity flags included),
      the median time of each kernel, of its plain version and of the one
      PyTorch call that computes the same function where there is one,
      and each kernel's bound; and each re-encoding against what it
@@ -48,7 +49,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      beside an empty kernel's launch; K4 at every testing.TOPK_EDGE_CASES
      input and K7 at every testing.PIXEL_MAJOR_EDGE_CASES shape (aligned
      and shifted sources); K7's uint8 mode on the whole tfg field (one
-     [2,048, ceil(P / 8)] chunk) beside its int16 chunk;
+     [2,048, ceil(P / 8)] chunk) beside its int16 chunk; row 15 at every
+     testing.SLICE_NUMBERS_EDGE_CASES input and K8's split mode at every
+     testing.PACK_SPLIT_EDGE_CASES input, both over every (class, p, s)
+     and channel tie; both alone (no wrapper) beside their wrapper's
+     time;
   3. drives colorDepthSearch end to end through the CLI entry point on a
      synthetic library written as PNGs (default 2,048 targets x 32
      masks, production flags), requires every pixel-match kernel's
@@ -1005,14 +1010,35 @@ def check_dense_shape_kernels(lib, variants, device, ref: dict):
     return out, {"rows": rows, "q2": q2}
 
 
-def check_slice_numbers(lib, device) -> dict:
+def slice_numbers_alone(rgb, out, timer=None) -> float:
+    """Row 15's time with no wrapper: the library's entry point into an
+    output allocated once, with the LUT tensors made once."""
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    lib = kbuild.load_library()
+    rows, starts, lens = ss._lut_tensors(rgb.device)
+
+    def launch():
+        kbuild.check(lib.cmst_slice_numbers(
+            rgb.data_ptr(), out.numel(), rows.data_ptr(), starts.data_ptr(),
+            lens.data_ptr(), rows.shape[1], out.data_ptr(),
+            kbuild.stream_of(rgb)), "row 15 alone")
+
+    return (timer or timed)(launch, 5)
+
+
+def check_slice_numbers(lib, device, seed: int) -> dict:
     """Phase 2, row 15: slice numbers of the 2,048-target stack against the
     plain version, and against the float64 slice table everywhere but at
-    exact ties of two LUT distances (counted). Returns {kernel:
-    entry(...)}."""
+    exact ties of two LUT distances (counted); the kernel alone; then a
+    dense stack, [64, P, 3] uniform random RGB from the seed with no black
+    pixel, against the plain version, timed through the wrapper and alone
+    beside its bytes bound. Returns {kernel: entry(...)}."""
     import numpy as np
     import torch
 
+    from colormipsearch_tpu_torch import testing
     from colormipsearch_tpu_torch.kernels import build as kbuild
     from colormipsearch_tpu_torch.ops import shape_score as ss
     from colormipsearch_tpu_torch.ops.slice_lut import get_slice_lut
@@ -1040,11 +1066,36 @@ def check_slice_numbers(lib, device) -> dict:
         err, timed(lambda: ss.slice_numbers_device(rgb), 5),
         timed(lambda: ss.slice_numbers_device_plain(rgb), 1),
         bound(nbytes(rgb, got), 10 * got.numel() + 224 * non_black))}
+    alone = slice_numbers_alone(rgb, got)
     print(f"row 15 slice_numbers_device: {got.numel()} pixels "
           f"({non_black} not black); {ties} differ from the float64 slice "
-          "table, every one an exact tie of two LUT distances", flush=True)
+          "table, every one an exact tie of two LUT distances; kernel "
+          f"alone {alone:.3f} ms, through the wrapper "
+          f"{out['slice_numbers_device']['ms']:.3f} ms", flush=True)
     report(out)
     del rgb, got, table, flat, got_f
+    sync()
+    free_cached()
+
+    rng = np.random.default_rng([seed, 15])
+    dense = rng.integers(0, 256, (64, H * W, 3), dtype=np.uint8)
+    dense[dense.max(2) == 0, 0] = 1
+    classes = np.unique(testing.slice_class(dense[0]))
+    rgb = torch_from(dense, device)
+    del dense
+    got = ss.slice_numbers_device(rgb)
+    require_equal(f"row 15 on a dense stack {tuple(rgb.shape)} (classes "
+                  f"{classes.tolist()}) vs its plain version", [got],
+                  [ss.slice_numbers_device_plain(rgb)])
+    ms = timed(lambda: ss.slice_numbers_device(rgb), 10)
+    alone = slice_numbers_alone(rgb, got, lambda f, _: timed(f, 10))
+    bytes_ms = nbytes(rgb, got) / HBM_BYTES_PER_S * 1e3
+    print(f"row 15 on the dense stack: {got.numel()} pixels, none black; "
+          f"kernel {ms:.4f} ms through the wrapper, {alone:.4f} ms alone; "
+          f"bytes bound {bytes_ms:.4f} ms (no share: the operation count "
+          "of the kernels line counts the 56-step scan, which the binary "
+          "search no longer runs)", flush=True)
+    del rgb, got
     sync()
     free_cached()
     kbuild.reset_launches()
@@ -1077,6 +1128,23 @@ def _exact_ties(rgb, got, ref) -> int:
             raise AssertionError(f"slice number of {(r, g, b)}: {a}, the "
                                  f"float64 table's {w}, and not a tie")
     return len(got)
+
+
+def pack_split_alone(rgb, split8) -> float:
+    """K8's split mode with no wrapper: the library's entry point into the
+    planes `split8` (threshold 20, t_pad their width)."""
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+
+    lib = kbuild.load_library()
+    n_t, n_px, t_pad = rgb.shape[0], split8[0].shape[0], split8[0].shape[1]
+
+    def launch():
+        kbuild.check(lib.cmst_pack_planes(
+            rgb.data_ptr(), n_t, n_px, t_pad, 20, 2, None,
+            split8[0].data_ptr(), split8[1].data_ptr(),
+            kbuild.stream_of(rgb)), "K8 split alone")
+
+    return timed(launch, 5)
 
 
 def check_classic_kernels(lib, device, k1: dict) -> dict:
@@ -1131,7 +1199,9 @@ def check_classic_kernels(lib, device, k1: dict) -> dict:
         bound(nbytes(rgb, *split8), k8_ops))
     print(f"K8 pack_planes: stack {tuple(rgb.shape)} -> summary planes "
           f"{tuple(planes.shape)}, key planes {tuple(keys.shape)}, split "
-          f"planes {tuple(split8[0].shape)}", flush=True)
+          f"planes {tuple(split8[0].shape)}; split mode alone "
+          f"{pack_split_alone(rgb, split8):.3f} ms, through the wrapper "
+          f"{out['pack_target_planes_split']['ms']:.3f} ms", flush=True)
     require_equal("K8 key planes vs K1's", [keys], [k1["planes"]])
     del rgb
     sync()
@@ -1409,6 +1479,7 @@ def check_edge_shapes(lib, device) -> None:
         free_cached()
     check_shape_edge_shapes(device)
     check_topk_pixel_major_edge_shapes(device)
+    check_slice_pack_split_edge_shapes(device)
     kbuild.reset_launches()
 
 
@@ -1431,6 +1502,43 @@ def check_topk_pixel_major_edge_shapes(device) -> None:
           f"{len(testing.PIXEL_MAJOR_EDGE_CASES)} edge shapes (R 1, 31, 33, "
           "1,638, 2,048; n 1, 7, 9, a chunk; at pixel 0 and at the end; "
           "int16 and uint8; aligned and shifted sources)", flush=True)
+    sync()
+
+
+def check_slice_pack_split_edge_shapes(device) -> None:
+    """Phase 2, row 15 at every testing.SLICE_NUMBERS_EDGE_CASES input and
+    K8's split mode at every testing.PACK_SPLIT_EDGE_CASES input, then
+    both over testing.slice_class_triples (every class, p and s, every
+    channel tie): each equal to its plain version."""
+    import torch
+
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.ops import common, shape_score as ss
+
+    for case in testing.SLICE_NUMBERS_EDGE_CASES:
+        testing.check_slice_numbers_edge(case, device)
+    print(f"row 15 equals its plain version at "
+          f"{len(testing.SLICE_NUMBERS_EDGE_CASES)} edge cases "
+          f"({', '.join(c[0] for c in testing.SLICE_NUMBERS_EDGE_CASES)})",
+          flush=True)
+    for case in testing.PACK_SPLIT_EDGE_CASES:
+        testing.check_pack_split_edge(case, device)
+    print(f"K8's split mode equals its plain version at "
+          f"{len(testing.PACK_SPLIT_EDGE_CASES)} edge cases "
+          f"({', '.join(c[0] for c in testing.PACK_SPLIT_EDGE_CASES)})",
+          flush=True)
+    px = torch.from_numpy(testing.slice_class_triples()).to(device)
+    require_equal(f"row 15 over every (class, p, s) and tie ({px.shape[0]} "
+                  "pixels) vs its plain version",
+                  [ss.slice_numbers_device(px)],
+                  [ss.slice_numbers_device_plain(px)])
+    stack = px[:px.shape[0] // 8 * 8].reshape(8, -1, 1, 3)
+    for thr in (0, 20, 254):
+        require_equal(f"K8's split mode over the same pixels, threshold "
+                      f"{thr}, vs its plain version",
+                      common.pack_target_planes_split(stack, thr, t_pad=16),
+                      common.pack_target_planes_split_plain(stack, thr,
+                                                            t_pad=16))
     sync()
 
 
@@ -2516,7 +2624,7 @@ def main() -> int:
     dense_out, dense_ref = check_dense_shape_kernels(lib, variants, device,
                                                      shape_ref)
     checks.update(dense_out)
-    checks.update(check_slice_numbers(lib, device))
+    checks.update(check_slice_numbers(lib, device, args.seed))
     checks.update(check_classic_kernels(lib, device, k1))
     check_edge_shapes(lib, device)
     phases["2 kernel checks"] = time.time() - t0

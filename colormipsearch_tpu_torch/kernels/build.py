@@ -66,7 +66,7 @@ _SIGNATURES = {
                                _P, _P, _P, _P],
     "cmst_topk": [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
     "cmst_shape_dense": [_P, _P, _I32, _I64, _I64, _P, _P],
-    "cmst_slice_numbers": [_P, _I64, _P, _P, _I32, _P, _P],
+    "cmst_slice_numbers": [_P, _I64, _P, _P, _P, _I32, _P, _P],
     "cmst_shape_split": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _P, _P],
     "cmst_shape_tile": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32,
                         _I32, _I32, _I32, _I32, _P, _P, _P],

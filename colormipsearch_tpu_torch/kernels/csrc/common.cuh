@@ -48,6 +48,42 @@ inline int blocks_for(int64_t n, int threads) {
     return static_cast<int>((n + threads - 1) / threads);
 }
 
+// The widest of 16, 8, 4, 2, 1 bytes that divides both values (a pitch
+// and a base address): the access width a launch can take.
+inline int widest(int64_t a, int64_t b) {
+    for (int w = 16; w > 1; w >>= 1)
+        if (a % w == 0 && b % w == 0) return w;
+    return 1;
+}
+
+// The blocks of `kernel` (at `threads` a block and `smem` bytes of
+// dynamic shared memory, the kernel's limit raised to it) that the
+// current device holds at once, the grid of a persistent kernel; cached
+// per device in `cache`, one static array for each kernel instance.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                            int (&cache)[MAX_DEVICES], int& resident) {
+    const int dev = current_device();
+    if (dev < MAX_DEVICES && cache[dev] > 0) {
+        resident = cache[dev];
+        return cudaSuccess;
+    }
+    cudaError_t err = smem == 0 ? cudaSuccess : cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    int per_sm = 0, sms = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+    if (dev < MAX_DEVICES) cache[dev] = resident;
+    return cudaSuccess;
+}
+
 namespace {
 
 // The variant reduction of reduce_variants_device (the JAX package's

@@ -133,13 +133,6 @@ pixel_major_kernel(const T* __restrict__ src, int64_t n_r, int64_t n,
     }
 }
 
-int num_sms() {
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                           cmst::current_device());
-    return sms > 0 ? sms : 1;
-}
-
 template <typename T, int LW, bool VSTORE>
 cudaError_t launch_as(const T* src, int64_t n_r, int64_t n, T* dst,
                       int64_t p0, cudaStream_t st) {
@@ -148,33 +141,15 @@ cudaError_t launch_as(const T* src, int64_t n_r, int64_t n, T* dst,
     const int64_t tiles_c = (n + TILE - 1) / TILE;
     const int64_t n_tiles = tiles_c * ((n_r + TILE - 1) / TILE);
     auto kernel = pixel_major_kernel<T, LW, VSTORE>;
-    // blocks each device holds at once (its raised limit set with it)
     static int resident_on[cmst::MAX_DEVICES] = {};
-    const int dev = cmst::current_device();
-    int resident = dev < cmst::MAX_DEVICES ? resident_on[dev] : 0;
-    if (resident == 0) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(SMEM));
-        if (err != cudaSuccess) return err;
-        int per_sm = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, THREADS, SMEM);
-        if (err != cudaSuccess) return err;
-        resident = std::max(per_sm, 1) * num_sms();
-        if (dev < cmst::MAX_DEVICES) resident_on[dev] = resident;
-    }
+    int resident = 0;
+    cudaError_t err = cmst::resident_blocks(kernel, THREADS, SMEM,
+                                            resident_on, resident);
+    if (err != cudaSuccess) return err;
     const int64_t grid = std::min<int64_t>(n_tiles, resident);
     kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, st>>>(
         src, n_r, n, dst, p0, tiles_c, n_tiles);
     return cudaGetLastError();
-}
-
-// the widest of 16, 8, 4, 2, 1 bytes that divides every value
-int widest(int64_t a, int64_t b) {
-    for (int w = 16; w > 1; w >>= 1)
-        if (a % w == 0 && b % w == 0) return w;
-    return 1;
 }
 
 template <typename T>
@@ -183,10 +158,10 @@ cudaError_t launch(const void* src_v, int64_t n_r, int64_t n, void* dst_v,
     const T* src = static_cast<const T*>(src_v);
     T* dst = static_cast<T*>(dst_v);
     const int lw = std::max<int>(
-        widest(n * sizeof(T), reinterpret_cast<uintptr_t>(src)), sizeof(T));
-    const bool vstore = widest(n_r * sizeof(T),
-                               reinterpret_cast<uintptr_t>(dst + p0 * n_r))
-        == 16;
+        cmst::widest(n * sizeof(T), reinterpret_cast<uintptr_t>(src)),
+        sizeof(T));
+    const bool vstore = cmst::widest(
+        n_r * sizeof(T), reinterpret_cast<uintptr_t>(dst + p0 * n_r)) == 16;
 #define CMST_PM(LW)                                                        \
     return vstore ? launch_as<T, LW, true>(src, n_r, n, dst, p0, st)       \
                   : launch_as<T, LW, false>(src, n_r, n, dst, p0, st)

@@ -257,6 +257,8 @@ def _pack_planes(rgb_stack, data_threshold, t_pad, mode: str,
     else:
         rows = n_px + 1 if mode == "keys" else n_px
         out = (torch.empty((rows, t_pad), dtype=torch.int32, device=dev),)
+    if not out[0].numel():
+        return out if mode == "split" else out[0]
     thr = -1 if data_threshold is None else int(data_threshold)
     lib = kbuild.load_library()
     kbuild.check(lib.cmst_pack_planes(

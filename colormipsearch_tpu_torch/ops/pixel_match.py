@@ -1560,6 +1560,12 @@ def union_keys_topk_plain(best, mirrored, k: int, pair_flags=None):
     return out + (torch.gather(pair_flags, 1, idx),)
 
 
+@functools.lru_cache(maxsize=None)
+def _topk_max_cols(lib) -> int:
+    """K4's column cap (topk.cu MAX_COLS), asked of each library once."""
+    return int(lib.cmst_topk_max_cols())
+
+
 def union_keys_topk(best, mirrored, k: int, pair_flags=None):
     """K4: per-mask top-k of best int32 [B, T] -> (scores_k int32 [B, k],
     idx_k int32 [B, k], mirr_k bool [B, k]) in jax.lax.top_k's order, and
@@ -1582,15 +1588,18 @@ def union_keys_topk(best, mirrored, k: int, pair_flags=None):
         return union_keys_topk_plain(best, mirrored, k, pair_flags)
     kbuild.require_cuda(best)
     lib = kbuild.load_library()
-    if n_cols > lib.cmst_topk_max_cols():
+    max_cols = _topk_max_cols(lib)
+    if n_cols > max_cols:
         raise ValueError(f"union_keys_topk: {n_cols} columns exceed the "
-                         f"kernel's {lib.cmst_topk_max_cols()}")
-    dev = best.device
-    scores_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
-    idx_k = torch.empty((batch, k), dtype=torch.int32, device=dev)
-    mirr_k = torch.empty((batch, k), dtype=torch.bool, device=dev)
-    flags_k = (torch.empty((batch, k), dtype=torch.int32, device=dev)
-               if extra else None)
+                         f"kernel's {max_cols}")
+    # the int32 outputs (scores, columns[, flags]) as views of one
+    # allocation (carving the bool output from it too costs more host time
+    # in dtype views than its own allocation)
+    scores_k, idx_k, *flags = torch.empty(
+        (3 if extra else 2, batch, k), dtype=torch.int32,
+        device=best.device).unbind(0)
+    flags_k = flags[0] if extra else None
+    mirr_k = torch.empty((batch, k), dtype=torch.bool, device=best.device)
     kbuild.check(lib.cmst_topk(
         best.data_ptr(), mirrored.data_ptr(),
         pair_flags.data_ptr() if extra else None, batch, n_cols, k,

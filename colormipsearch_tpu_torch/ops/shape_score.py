@@ -20,7 +20,8 @@ plain PyTorch version:
     of ``pack_targets`` / ``pack_target_rows`` (shape_dense.cu); only the
     mesh's shape step (parallel/mesh.make_sharded_shape_step) runs it,
   * row 15 ``slice_numbers_device``: z-slice numbers of RGB pixels by the
-    exact integer LUT scan (slice_numbers.cu); no engine path runs it
+    exact integer LUT scan, a binary search on the card
+    (slice_numbers.cu); no engine path runs it
     (both engines read the slice table, ops/slice_lut.py).
 
 Planes that hold uint32 bits travel as int32 tensors with the same bits,
@@ -33,6 +34,7 @@ fold) and :221-238 (high-expression fold); mirror selection :172-179.
 
 from __future__ import annotations
 
+import functools
 import typing
 
 import numpy as np
@@ -72,8 +74,10 @@ def _lut_tables():
         |s/p - S_i/255|  ->  argmin_i |255*s - S_i*p|
     is EXACT in int32 (max magnitude 255*255*255 ~ 1.66e7), reproducing
     the float64 oracle's first-minimum tie-breaks except at exact
-    rational ties. Returns (secondaries int32 [6, L] padded with 2^20,
-    starts int32 [6])."""
+    rational ties. Every row is strictly monotone (asserted below), which
+    the kernel's binary search needs. Returns (secondaries int32 [6, L]
+    padded with 2^20, starts int32 [6]); the true row lengths are
+    _lut_lengths()."""
     lut = RAINBOW_LUT
     r, g, b = lut[:, 0], lut[:, 1], lut[:, 2]
     r_dom = (r >= g) & (r >= b)
@@ -82,16 +86,34 @@ def _lut_tables():
     sec = np.where(r_dom, np.maximum(g, b),
                    np.where(g_dom, np.maximum(r, b), np.maximum(r, g)))
     rows, starts = [], []
-    max_len = max(hi - lo + 1 for lo, hi in SLICE_LUT_RANGES.values())
+    max_len = max(_lut_lengths())
     for cid in range(1, 7):
         lo, hi = SLICE_LUT_RANGES[cid]
         assert (prim[lo:hi + 1] == 255).all(), \
             "LUT dominant channel must be 255 for the exact integer scan"
         s_row = sec[lo:hi + 1].astype(np.int64)
+        step = np.diff(s_row)
+        assert (step > 0).all() or (step < 0).all(), \
+            "LUT rows must be strictly monotone for the kernel's search"
         pad = np.full(max_len - s_row.size, 1 << 20, np.int64)
         rows.append(np.concatenate([s_row, pad]))
         starts.append(lo)
     return (np.asarray(rows, np.int32), np.asarray(starts, np.int32))
+
+
+def _lut_lengths() -> list[int]:
+    """The true lengths of the six class rows of _lut_tables."""
+    return [hi - lo + 1 for lo, hi in (SLICE_LUT_RANGES[c]
+                                       for c in range(1, 7))]
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_tensors(device: torch.device) -> tuple:
+    """(rows, starts, lengths) int32 tensors of _lut_tables on `device`,
+    made once per device (the kernel's wrapper is called per stack)."""
+    rows, starts = _lut_tables()
+    return tuple(torch.from_numpy(np.asarray(a, np.int32)).to(device)
+                 for a in (rows, starts, _lut_lengths()))
 
 
 def slice_numbers_device_plain(rgb: torch.Tensor, *,
@@ -143,14 +165,15 @@ def slice_numbers_device(rgb: torch.Tensor) -> torch.Tensor:
     if rgb.device.type == "cpu":
         return slice_numbers_device_plain(rgb)
     kbuild.require_cuda(rgb)
-    rows, starts = (torch.from_numpy(a).to(rgb.device)
-                    for a in _lut_tables())
+    rows, starts, lens = _lut_tensors(rgb.device)
     out = torch.empty(rgb.shape[:-1], dtype=torch.int32, device=rgb.device)
+    if not out.numel():
+        return out
     lib = kbuild.load_library()
     kbuild.check(lib.cmst_slice_numbers(
         rgb.data_ptr(), out.numel(), rows.data_ptr(), starts.data_ptr(),
-        rows.shape[1], out.data_ptr(), kbuild.stream_of(rgb)),
-        "slice_numbers_device")
+        lens.data_ptr(), rows.shape[1], out.data_ptr(),
+        kbuild.stream_of(rgb)), "slice_numbers_device")
     kbuild.count_launch("slice_numbers_device")
     return out
 

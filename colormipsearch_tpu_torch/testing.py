@@ -1713,6 +1713,203 @@ def check_pixel_major_edge(case: tuple, device) -> None:
                                  "from its plain version")
 
 
+# Row 15 at its edges: (name, pixel shape without the channel axis,
+# content, shift). content: "random" (uniform RGB), "black", "sparse"
+# (runs of colour in black, as a CDM: whole warps of black pixels and
+# warps that mix both), "class1".."class6" (only pixels of that >=-tie
+# class), "dense" (uniform, no black pixel). shift k: the pixels start k
+# pixels (3k bytes) into their buffer, so the kernel's 16-byte loads
+# narrow to 1, 2, 4 or 8 bytes. n 0-17 cross one 16-pixel group and its
+# tail.
+SLICE_NUMBERS_EDGE_CASES = (
+    ("n0", (0,), "random", 0),
+    ("n1", (1,), "random", 0),
+    ("n15", (15,), "random", 0),
+    ("n16", (16,), "random", 0),
+    ("n17", (17,), "random", 0),
+    ("shift3_bytes", (4099,), "random", 1),
+    ("shift6_bytes", (4099,), "random", 2),
+    ("shift12_bytes", (4099,), "random", 4),
+    ("shift24_bytes", (4099,), "random", 8),
+    ("shift3_bytes_n17", (17,), "random", 1),
+    ("leading_2x5x7", (2, 5, 7), "random", 0),
+    ("all_black", (4105,), "black", 0),
+    ("sparse", (40_003,), "sparse", 0),
+    *((f"class{c}", (4099,), f"class{c}", 0) for c in range(1, 7)),
+    ("dense", (24_581,), "dense", 0),
+)
+
+
+def slice_class(rgb: np.ndarray) -> np.ndarray:
+    """The >=-tie class (1..6, R, G, B priority) of uint8 [..., 3] pixels,
+    as slice_numbers_device classifies them."""
+    r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
+    r_dom = (r >= g) & (r >= b)
+    g_dom = ~r_dom & (g >= r) & (g >= b)
+    return np.where(r_dom, np.where(g >= b, 5, 6),
+                    np.where(g_dom, np.where(r >= b, 4, 3),
+                             np.where(r >= g, 1, 2)))
+
+
+def slice_numbers_edge_pixels(rng: np.random.Generator,
+                              case: tuple) -> np.ndarray:
+    """numpy uint8 [*shape, 3] pixels of one SLICE_NUMBERS_EDGE_CASES
+    case."""
+    _, shape, content, _ = case
+    n = int(np.prod(shape))
+    if content == "black":
+        rgb = np.zeros((n, 3), np.uint8)
+    elif content.startswith("class"):
+        pool = rng.integers(1, 256, (16 * n + 64, 3)).astype(np.uint8)
+        rgb = pool[slice_class(pool) == int(content[5:])][:n]
+    elif content == "sparse":
+        rgb = np.zeros((n, 3), np.uint8)
+        for _ in range(40):
+            at, run = rng.integers(0, n), rng.integers(1, 700)
+            rgb[at:at + run] = rng.integers(0, 256, (len(rgb[at:at + run]),
+                                                     3))
+    else:
+        rgb = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+        if content == "dense":
+            rgb[rgb.max(1) == 0, 0] = 1
+    return rgb.reshape(*shape, 3)
+
+
+def slice_numbers_edge_input(rng: np.random.Generator, case: tuple,
+                             device):
+    """(numpy pixels, the same pixels as a uint8 tensor on `device` that
+    starts the case's shift of pixels into its buffer)."""
+    import torch
+
+    rgb = slice_numbers_edge_pixels(rng, case)
+    shift = case[3]
+    buf = torch.zeros((rgb[..., 0].size + shift, 3), dtype=torch.uint8,
+                      device=device)
+    buf[shift:] = torch.from_numpy(rgb.reshape(-1, 3)).to(device)
+    return rgb, buf[shift:].view(rgb.shape)
+
+
+def check_slice_numbers_edge(case: tuple, device) -> None:
+    """Row 15 at one SLICE_NUMBERS_EDGE_CASES input on a CUDA `device`
+    against its plain version: the same shape and values. Raises
+    AssertionError naming the case."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import shape_score as ss
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    _, rgb = slice_numbers_edge_input(rng, case, device)
+    got = ss.slice_numbers_device(rgb)
+    want = ss.slice_numbers_device_plain(rgb)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"row 15 at edge case {case[0]} differs from "
+                             "its plain version")
+
+
+def slice_class_triples() -> np.ndarray:
+    """uint8 [N, 3]: one pixel of every (class, p, s) that the >=-tie
+    classification produces (p 1-255, s 0-p; the third channel 0), every
+    pixel with a two-way or a three-way channel tie, and every pixel of
+    0, 1, 254 and 255."""
+    out = []
+    for p in range(1, 256):
+        s = np.arange(p + 1)
+        z = np.zeros_like(s)
+        pp = np.full_like(s, p)
+        out += [np.stack([pp, s, z], 1),             # class 5
+                np.stack([pp, z, s], 1)[1:],         # class 6: s >= 1
+                np.stack([s, pp, z], 1)[:-1],        # class 4: s < p
+                np.stack([z, pp, s], 1)[1:],         # class 3: s >= 1
+                np.stack([s, z, pp], 1)[:-1],        # class 1: s < p
+                np.stack([z, s, pp], 1)[1:-1]]       # class 2: 1 <= s < p
+    a, b = (x.ravel() for x in np.meshgrid(np.arange(256), np.arange(256)))
+    out += [np.stack([a, a, b], 1), np.stack([a, b, a], 1),
+            np.stack([b, a, a], 1)]
+    ext = np.array([0, 1, 254, 255])
+    out.append(np.stack(np.meshgrid(ext, ext, ext), -1).reshape(-1, 3))
+    return np.concatenate(out).astype(np.uint8)
+
+
+# K8's split mode at its edges: (name, T, t_pad, h, w, threshold, base).
+# P = h * w, and 3P mod 16 (the step of a target row's base) is 4 (the
+# production image's), 8, 12 or 0 (aligned loads); t_pad = T (odd), T +
+# 1, 2T, or a multiple of 16 (vector stores) with padding columns; T
+# past one 128-target tile; n_px 1 and ragged (not a multiple of the
+# 16-pixel run); threshold 0 and 255 (every pixel dead). base "target":
+# the stack is a view one target into a larger one; "byte": one byte
+# into its buffer.
+PACK_SPLIT_EDGE_CASES = (
+    ("t1", 1, 1, 10, 14, 20, None),
+    ("t1_pad2", 1, 2, 10, 14, 20, None),
+    ("t33", 33, 33, 10, 14, 20, None),
+    ("t33_pad34", 33, 34, 10, 14, 20, None),
+    ("t33_pad66", 33, 66, 10, 14, 20, None),
+    ("t33_pad48", 33, 48, 10, 14, 20, None),
+    ("t130_pad144", 130, 144, 8, 16, 20, None),
+    ("n_px1", 5, 16, 1, 1, 20, None),
+    ("n_px_ragged", 7, 16, 7, 13, 20, None),
+    ("thr0", 33, 48, 11, 12, 0, None),
+    ("thr255", 33, 48, 11, 12, 255, None),
+    ("view_one_target", 33, 48, 10, 14, 20, "target"),
+    ("view_one_byte", 33, 48, 8, 16, 20, "byte"),
+    ("p140_3p_4", 17, 32, 10, 14, 20, None),
+    ("p136_3p_8", 17, 32, 8, 17, 20, None),
+    ("p132_3p_12", 17, 32, 11, 12, 20, None),
+    ("p128_3p_0", 17, 32, 8, 16, 20, None),
+)
+
+
+def pack_split_edge_stack(rng: np.random.Generator,
+                          case: tuple) -> np.ndarray:
+    """numpy uint8 [T, h, w, 3] stack of one PACK_SPLIT_EDGE_CASES case:
+    random colours, ~40% black, ~15% with two equal channels (class 0
+    when they are the largest)."""
+    _, t, _, h, w, _, _ = case
+    stack = rng.integers(0, 256, (t, h, w, 3)).astype(np.uint8)
+    stack[rng.random((t, h, w)) < 0.4] = 0
+    tie = rng.random((t, h, w)) < 0.15
+    stack[tie, 1] = stack[tie, 0]
+    return stack
+
+
+def pack_split_edge_input(rng: np.random.Generator, case: tuple, device):
+    """(numpy stack, the same stack as a uint8 tensor on `device` at the
+    case's base, threshold, t_pad)."""
+    import torch
+
+    stack = pack_split_edge_stack(rng, case)
+    base, shape = case[6], stack.shape
+    if base == "target":
+        buf = torch.zeros((shape[0] + 1, *shape[1:]), dtype=torch.uint8,
+                          device=device)
+        view = buf[1:]
+    elif base == "byte":
+        buf = torch.zeros(stack.size + 1, dtype=torch.uint8, device=device)
+        view = buf[1:].view(shape)
+    else:
+        view = torch.empty(shape, dtype=torch.uint8, device=device)
+    view.copy_(torch.from_numpy(stack))
+    return stack, view, case[5], case[2]
+
+
+def check_pack_split_edge(case: tuple, device) -> None:
+    """K8's split mode at one PACK_SPLIT_EDGE_CASES input on a CUDA
+    `device` against its plain version: both planes, dtypes and values.
+    Raises AssertionError naming the case."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import common
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    _, rgb, thr, t_pad = pack_split_edge_input(rng, case, device)
+    got = common.pack_target_planes_split(rgb, thr, t_pad=t_pad)
+    want = common.pack_target_planes_split_plain(rgb, thr, t_pad=t_pad)
+    if not all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K8's split mode at edge case {case[0]} "
+                             "differs from its plain version")
+
+
 # The repository's image forms that only PIL wrote (tests/torch_forms/):
 # each file, with its PIL-decoded pixels and the matches of forms_search
 # pinned beside them in FORMS_NPZ.

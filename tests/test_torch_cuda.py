@@ -768,3 +768,43 @@ def test_cuda_k7_at_edge_shapes(cuda_device, case):
     test_torch_k4k7_edges.py) equals its plain version, also with the
     chunk one element past an aligned base (narrower loads)."""
     testing.check_pixel_major_edge(case, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.SLICE_NUMBERS_EDGE_CASES,
+                         ids=[c[0] for c in testing.SLICE_NUMBERS_EDGE_CASES])
+def test_cuda_row15_at_edge_shapes(cuda_device, case):
+    """Row 15 at testing.SLICE_NUMBERS_EDGE_CASES (held to JAX on the CPU
+    in test_torch_row15_k8split_edges.py) equals its plain version:
+    ragged tails, bases 3-24 bytes in (narrower loads), all-black warps,
+    every class, dense pixels."""
+    testing.check_slice_numbers_edge(case, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.PACK_SPLIT_EDGE_CASES,
+                         ids=[c[0] for c in testing.PACK_SPLIT_EDGE_CASES])
+def test_cuda_k8_split_at_edge_shapes(cuda_device, case):
+    """K8's split mode at testing.PACK_SPLIT_EDGE_CASES (held to JAX on the
+    CPU in test_torch_row15_k8split_edges.py) equals its plain version:
+    every t_pad and base alignment, ragged pixels, both thresholds."""
+    testing.check_pack_split_edge(case, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_row15_and_k8_split_over_every_class_p_s(cuda_device):
+    """Row 15 and K8's split mode equal their plain versions on every
+    (class, p, s), tie and extreme of testing.slice_class_triples."""
+    from colormipsearch_tpu_torch.ops import shape_score as tss
+
+    px = torch.from_numpy(testing.slice_class_triples()).to(cuda_device)
+    assert torch.equal(tss.slice_numbers_device(px),
+                       tss.slice_numbers_device_plain(px))
+    n = px.shape[0] // 8 * 8
+    stack = px[:n].reshape(8, -1, 1, 3)
+    for thr in (0, 20, 254):
+        for a, b in zip(tcommon.pack_target_planes_split(stack, thr,
+                                                         t_pad=16),
+                        tcommon.pack_target_planes_split_plain(
+                            stack, thr, t_pad=16)):
+            assert torch.equal(a, b), thr

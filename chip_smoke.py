@@ -114,7 +114,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      pinned matches; each reader's time for one 566 x 1210 image (CCITT,
      tiled JPEG in TIFF, arithmetic, block smoothing, lossless, LZMA,
      Zstandard (a file libzstd wrote, tests/torch_forms) and CIELab among
-     them).
+     them);
+  9. the file pipeline with the port's CLI alone, on phase 3's library:
+     (a) createColorDepthSearchDataInput over the targets (with their
+     grad/ and zgap/ variants) and the masks writes the compute files
+     write_library recorded, and a colorDepthSearch from those inputs on
+     the first 8 masks finds phase 3's matches; (b)
+     normalizeGradientScores over phase 4's store run writes
+     oracle/shape.normalized_score of each file's eligible rows and
+     changes no other field; (c) createColorDepthSearchJSONInput, then
+     searchFromJSON (8 masks x every target) must launch K1-K4 and find
+     (a)'s matches; (d) searchLocalFiles --with-grad-scores must launch
+     K1-K5, find (c)'s matches, and 16 sampled rows' shape scores must
+     equal the float64 ShapeMatchOracle's; (e) gradientScore over (c)'s
+     files must launch K5, 16 sampled rows must equal the oracle's and
+     every row (d)'s; (f) searchFromJSON over the two halves of the
+     target list, then mergeResults of both, must give (c)'s rows. Each
+     step prints its wall seconds, its rate and its launches; phase 9's
+     launches stay out of the kernels line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -220,6 +237,8 @@ MESH_SHARDS = 4         # phase 7: target shards of the mesh, one card
 MESH_MASKS = 16         # phase 7 (b): masks of the engine runs
 MESH_RESCORE_MASKS = 8  # phase 7 (b): the packed and split runs (rescore)
 MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
+P9_MASKS = 8            # phase 9: masks of the file-pipeline searches
+P9_SAMPLES = 16         # phase 9 (d), (e): rows held to ShapeMatchOracle
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
 # operations over their issue rate (NVIDIA H100 SXM: 3.35 TB/s; 132 SMs at
 # up to 1.98 GHz, each issuing 128 f32 and 64 int32 lane operations a
@@ -2558,6 +2577,287 @@ def run_mesh_engines(lib, work: str) -> dict:
     return launches
 
 
+def _require_same(what: str, got: dict, want: dict) -> None:
+    """Raise unless the two {key: value} results are equal, naming the
+    first keys that differ."""
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+        raise AssertionError(f"{what}: {len(diff)} entries differ, first "
+                             f"{[(k, got.get(k), want.get(k)) for k in diff[:3]]}")
+    if not got:
+        raise AssertionError(f"{what}: nothing to compare")
+    print(f"{what}: {len(got)} entries equal", flush=True)
+
+
+def _cli_step(step: str, argv: list, kernels=(), unit: str = "pairs",
+              count=None) -> dict:
+    """Phase 9: one command of the port's CLI with fresh launch counts;
+    it must exit 0 and launch every kernel in `kernels`. Prints its wall
+    seconds, its rate in `unit` (count(), read after the run) and its
+    launches on a line of its own; returns the launches."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+
+    argv = [str(a) for a in argv]
+    kbuild.reset_launches()
+    t0 = time.time()
+    rc = cli_main.main(argv)
+    seconds = time.time() - t0
+    launches = {k: v for k, v in kbuild.launches.items() if v}
+    if rc != 0:
+        raise AssertionError(f"phase 9 {step}: {argv[0]} exited {rc}")
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 9 {step}: {argv[0]} never launched "
+                             f"{missing}")
+    n = count() if count is not None else 0
+    print(f"phase 9 {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
+          f"{n / seconds:.0f} {unit}/s; launches {launches}", flush=True)
+    free_cached()
+    return launches
+
+
+def _v3_pairs(root: str) -> dict:
+    """{(mask file, target file): (matchingPixels, mirrored)} of a v3
+    per-mask result directory."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        with open(os.path.join(root, name)) as f:
+            doc = json.load(f)
+        mask = doc["inputImage"]["computeFiles"]["InputColorDepthImage"]
+        for r in doc["results"]:
+            target = r["image"]["computeFiles"]["InputColorDepthImage"]
+            out[mask, target] = (r["matchingPixels"], r.get("mirrored",
+                                                            False))
+    return out
+
+
+def _v2_rows(root: str) -> dict:
+    """{(mask file, target file): row} of the per-mask files of a v2
+    result directory (its cds parameters record left out)."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name)
+        if not name.endswith(".json") or name.endswith("cdsparams.json"):
+            continue
+        with open(path) as f:
+            for r in json.load(f)["results"]:
+                out[r["sourceImageName"], r["imageName"]] = r
+    return out
+
+
+def _v2_pairs(root: str) -> dict:
+    """{(mask file, target file): (matchingPixels, mirrored)} of a v2
+    result directory."""
+    return {k: (r["matchingPixels"], r.get("mirrored", False))
+            for k, r in _v2_rows(root).items()}
+
+
+def _image_index(path: str) -> int:
+    """The library index of a phase-3 PNG (t00012.png, m00003.png)."""
+    return int(os.path.basename(path)[1:6])
+
+
+def _check_shape_rows(lib, variants, rows: dict, rng, what: str) -> None:
+    """P9_SAMPLES rows of a v2 result (each with shape scores) against
+    the float64 ShapeMatchOracle, exactly."""
+    from colormipsearch_tpu_torch.engine.cds import CDSParams
+    from colormipsearch_tpu_torch.oracle.shape import ShapeMatchOracle
+
+    region = CDSParams(mask_threshold=20, with_name_label_region=True,
+                       with_color_scale_region=True) \
+        .shape_excluded_region(H, W)
+    keys = sorted(k for k, r in rows.items()
+                  if r.get("gradientAreaGap", -1) >= 0)
+    if not keys:
+        raise AssertionError(f"phase 9 {what}: no row has shape scores")
+    picks = [keys[int(i)] for i in rng.choice(
+        len(keys), min(P9_SAMPLES, len(keys)), replace=False)]
+    oracles = {mask: ShapeMatchOracle(lib.masks[_image_index(mask)], 20,
+                                      mirror=True, excluded_region=region)
+               for mask in sorted({m for m, _ in picks})}
+
+    def score(key):
+        ti = _image_index(key[1])
+        g, z = variants[ti]
+        res = oracles[key[0]].score(lib.targets[ti], g, z)
+        return res.gradient_area_gap, res.high_expression_area
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for key, want in zip(picks, pool.map(score, picks)):
+            got = (rows[key]["gradientAreaGap"],
+                   rows[key]["highExpressionArea"])
+            if got != want:
+                raise AssertionError(f"phase 9 {what}: {key} shape scores "
+                                     f"{got}, oracle {want}")
+    print(f"phase 9 {what}: {len(picks)} sampled rows of {len(keys)} equal "
+          "the float64 ShapeMatchOracle", flush=True)
+
+
+def run_file_pipeline(lib, variants, work: str, rng) -> None:
+    """Phase 9: the file-pipeline commands of the port's CLI on phase 3's
+    library, on the card: (a) the neuron JSONs made by
+    createColorDepthSearchDataInput and a colorDepthSearch from them,
+    (b) normalizeGradientScores over phase 4's store run, (c) the v2 MIP
+    lists and searchFromJSON, (d) searchLocalFiles with the fused shape
+    pass, (e) gradientScore over (c)'s files, (f) searchFromJSON over the
+    two halves of the targets and mergeResults."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch.oracle.shape import (
+        negative_score,
+        normalized_score,
+    )
+
+    p9 = os.path.join(work, "p9")
+    targets, masks = os.path.join(work, "targets"), \
+        os.path.join(work, "masks")
+    variant_flags = ["-gp", os.path.join(targets, "grad"),
+                     "-zgp", os.path.join(targets, "zgap")]
+    n_targets = len(lib.targets)
+    pairs = P9_MASKS * n_targets
+    mask_files = {os.path.join(masks, f"m{i:05d}.png")
+                  for i in range(P9_MASKS)}
+
+    # (a) inputs by the port's command, then a search from them
+    made = os.path.join(p9, "in")
+
+    def n_neurons(name):
+        return lambda: len(json.load(open(os.path.join(made, name))))
+
+    _cli_step("(a)", ["createColorDepthSearchDataInput", "-i", targets,
+                      "--gradients-location", os.path.join(targets, "grad"),
+                      "--zgap-location", os.path.join(targets, "zgap"),
+                      "-od", made, "--output-filename", "targets.json"],
+              unit="neurons", count=n_neurons("targets.json"))
+    _cli_step("(a)", ["createColorDepthSearchDataInput", "-i", masks,
+                      "-od", made, "--output-filename", "masks.json"],
+              unit="neurons", count=n_neurons("masks.json"))
+    for name in ("targets.json", "masks.json"):
+        files = []
+        for root in (made, work):
+            with open(os.path.join(root, name)) as f:
+                files.append({n["computeFiles"]["InputColorDepthImage"]:
+                              n["computeFiles"] for n in json.load(f)})
+        _require_same(f"phase 9 (a): the compute files of {name} vs "
+                      "write_library's", *files)
+    _cli_step("(a)", ["colorDepthSearch", "-m",
+                      f"{os.path.join(made, 'masks.json')}:0:{P9_MASKS}",
+                      "-i", os.path.join(made, "targets.json"), "--device",
+                      DEVICE, "-od", os.path.join(p9, "cds"),
+                      "--perMaskSubdir", "masks", *FLAGS],
+              CDS_KERNELS, count=lambda: pairs)
+    cds = _v3_pairs(os.path.join(p9, "cds", "masks"))
+    phase3 = {k: v for k, v in _v3_pairs(os.path.join(work, "out", "masks"))
+              .items() if k[0] in mask_files}
+    _require_same("phase 9 (a): the search from the command's inputs vs "
+                  "phase 3", cds, phase3)
+
+    # (b) normalize phase 4's store run
+    norm = os.path.join(p9, "norm")
+    shutil.copytree(os.path.join(work, "gs_store"), norm)
+    before = _read_results(os.path.join(norm, "masks"))
+    _cli_step("(b)", ["normalizeGradientScores", "--matches",
+                      os.path.join(norm, "masks"), "-od", norm,
+                      "--perMaskSubdir", "masks"], unit="rows",
+              count=lambda: sum(map(len, before.values())))
+    after = _read_results(os.path.join(norm, "masks"))
+    n_rows = 0
+    for mip, rows in before.items():
+        eligible = [r for r in rows if r.get("gradientAreaGap", -1) >= 0]
+        max_px = max(r["matchingPixels"] or -1 for r in eligible)
+        max_neg = max(negative_score(r["gradientAreaGap"],
+                                     r["highExpressionArea"])
+                      for r in eligible)
+        got = {r["image"]["mipId"]: r for r in after[mip]}
+        if set(got) != {r["image"]["mipId"] for r in eligible}:
+            raise AssertionError(f"phase 9 (b): {mip} holds other rows")
+        for r in eligible:
+            g = got[r["image"]["mipId"]]
+            want = float(np.float32(normalized_score(
+                r["matchingPixels"], r["gradientAreaGap"],
+                r["highExpressionArea"], max_px, max_neg)))
+            if g["normalizedScore"] != want or \
+                    {k: v for k, v in g.items() if k != "normalizedScore"} \
+                    != {k: v for k, v in r.items()
+                        if k != "normalizedScore"}:
+                raise AssertionError(f"phase 9 (b): {mip} x "
+                                     f"{r['image']['mipId']}: {g}, want "
+                                     f"normalizedScore {want} and the "
+                                     f"other fields of {r}")
+            n_rows += 1
+    print(f"phase 9 (b): {n_rows} normalized scores of {len(before)} mask "
+          "files equal oracle/shape.normalized_score; every other field "
+          "unchanged", flush=True)
+
+    # (c) the v2 lists and searchFromJSON
+    lists = os.path.join(p9, "lists")
+    for name, src in (("targets", targets), ("masks", masks)):
+        _cli_step("(c)", ["createColorDepthSearchJSONInput", "-i", src,
+                          "-od", lists], unit="MIPs",
+                  count=lambda: len(json.load(open(
+                      os.path.join(lists, f"{name}.json")))))
+    mask_list = f"{os.path.join(lists, 'masks.json')}:0:{P9_MASKS}"
+    target_list = os.path.join(lists, "targets.json")
+    _cli_step("(c)", ["searchFromJSON", "-m", mask_list, "-i", target_list,
+                      "--device", DEVICE, "-od", os.path.join(p9, "json"),
+                      *FLAGS], CDS_KERNELS, count=lambda: pairs)
+    v2_json = _v2_rows(os.path.join(p9, "json"))
+    _require_same("phase 9 (c): searchFromJSON vs (a)'s colorDepthSearch",
+                  _v2_pairs(os.path.join(p9, "json")), cds)
+
+    # (d) searchLocalFiles with the fused shape pass
+    local = os.path.join(p9, "local")
+    _cli_step("(d)", ["searchLocalFiles", "-m", f"{masks}:0:{P9_MASKS}",
+                      "-i", targets, "--with-grad-scores", *variant_flags,
+                      "--device", DEVICE, "-od", local, *FLAGS],
+              (*CDS_KERNELS, "shape_score_pairs_split"),
+              count=lambda: pairs)
+    v2_local = _v2_rows(local)
+    _require_same("phase 9 (d): searchLocalFiles vs (c)'s searchFromJSON",
+                  _v2_pairs(local), _v2_pairs(os.path.join(p9, "json")))
+    _check_shape_rows(lib, variants, v2_local, rng, "(d)")
+
+    # (e) gradientScore over (c)'s files
+    rescored = os.path.join(p9, "gs")
+    _cli_step("(e)", ["gradientScore", "-rd", os.path.join(p9, "json"),
+                      *variant_flags, "--maskThreshold", "20",
+                      "--mirrorMask", "--device", DEVICE, "-od", rescored],
+              ("shape_score_pairs_split",), unit="rows",
+              count=lambda: len(v2_json))
+    v2_gs = _v2_rows(rescored)
+    _check_shape_rows(lib, variants, v2_gs, rng, "(e)")
+
+    def shape(rows):
+        return {k: (r.get("gradientAreaGap"), r.get("highExpressionArea"))
+                for k, r in rows.items()}
+    _require_same("phase 9 (e): gradientScore vs (d)'s fused pass",
+                  shape(v2_gs), shape(v2_local))
+
+    # (f) the two halves of the targets, merged
+    half = n_targets // 2
+    for i, spec in enumerate((f"{target_list}:0:{half}",
+                              f"{target_list}:{half}:{n_targets - half}")):
+        _cli_step("(f)", ["searchFromJSON", "-m", mask_list, "-i", spec,
+                          "--device", DEVICE,
+                          "-od", os.path.join(p9, f"half{i}"), *FLAGS],
+                  CDS_KERNELS, count=lambda: P9_MASKS * half)
+    merged = os.path.join(p9, "merged")
+    _cli_step("(f)", ["mergeResults", "-rd", os.path.join(p9, "half0"),
+                      os.path.join(p9, "half1"), "-od", merged],
+              unit="rows", count=lambda: len(_v2_rows(merged)))
+
+    def scores(rows):
+        return {k: (r["matchingPixels"], r.get("mirrored", False),
+                    r["matchingRatio"], r["normalizedScore"])
+                for k, r in rows.items()}
+    _require_same("phase 9 (f): the merged halves vs (c)'s whole run",
+                  scores(_v2_rows(merged)), scores(v2_json))
+    print(f"phase 9: (c) {len(v2_json)} rows, (d) and (e) shape scores "
+          f"equal, (f) the merged halves equal (c)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -2668,6 +2968,12 @@ def main() -> int:
         t0 = time.time()
         readers = check_pil_free_readers(device, os.path.join(work, "forms"))
         phases["8 readers"] = time.time() - t0
+        # phase 9
+        t0 = time.time()
+        run_file_pipeline(lib, variants, work, rng)
+        phases["9 file pipeline"] = time.time() - t0
+        print(f"phase 9 seconds: {phases['9 file pipeline']:.1f}",
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,9 +1,15 @@
-"""CLI subcommands of the port: colorDepthSearch
-(cmd/ColorDepthSearchCmd.java:52-440) and gradientScores
-(cmd/CalculateGradientScoresCmd.java:67-461).
+"""CLI subcommands of the port (FS/JSON storage backend).
 
-The same flags and file formats as the JAX package's commands, plus
-``--device {cuda,cpu}``; the FS (JSON) storage backend only.
+Each command mirrors its reference counterpart's flags and file formats:
+  * colorDepthSearch            — cmd/ColorDepthSearchCmd.java:52-440
+  * gradientScores              — cmd/CalculateGradientScoresCmd.java:67-461
+  * normalizeGradientScores     — cmd/NormalizeGradientScoresCmd.java:92-239
+  * createColorDepthSearchDataInput — cmd/CreateCDSDataInputCmd.java (offline mode)
+  * searchFromJSON / searchLocalFiles — cmd_v2/ColorDepthSearch*Cmd.java
+  * mergeResults                — cmd_v2/MergeResultsCmd.java
+
+The same flags and file formats as the JAX package's commands; the
+commands that run the device also take ``--device {cuda,cpu}``.
 """
 
 from __future__ import annotations
@@ -12,16 +18,19 @@ import argparse
 import json
 import logging
 import os
+import re
 from pathlib import Path
 
 import torch
 
 from colormipsearch_tpu_torch.cli import common
+from colormipsearch_tpu_torch.dataio import v2_io
 from colormipsearch_tpu_torch.dataio.json_io import (
     JSONMatchesReader,
     JSONMatchesWriter,
     read_neurons_json,
     write_cds_session,
+    write_neurons_json,
 )
 from colormipsearch_tpu_torch.engine.cds import (
     CDSParams,
@@ -32,7 +41,9 @@ from colormipsearch_tpu_torch.io import mips as mips_io
 from colormipsearch_tpu_torch.io.mips import ListArg
 from colormipsearch_tpu_torch.model import (
     ComputeFileType,
+    EMNeuron,
     FileData,
+    LMNeuron,
     Neuron,
     ProcessingType,
 )
@@ -141,14 +152,16 @@ def _cds_params(args) -> CDSParams:
     )
 
 
-def _out_dirs(args):
-    if not args.outputDir:
-        # without this the JSON writer is a silent no-op and a long
-        # search would be discarded after computing
-        raise ValueError(
-            "--outputDir is required with --results-storage FS "
-            "(results would be written nowhere)")
-    out = Path(args.outputDir)
+def _out_dirs(args, *, required: bool = False):
+    out = Path(args.outputDir) if args.outputDir else None
+    if out is None:
+        if required:
+            # without this the JSON writer is a silent no-op and a long
+            # search would be discarded after computing
+            raise ValueError(
+                "--outputDir is required with --results-storage FS "
+                "(results would be written nowhere)")
+        return None, None
     per_mask = out / args.perMaskSubdir if args.perMaskSubdir else out
     per_target = out / args.perTargetSubdir if args.perTargetSubdir else None
     return per_mask, per_target
@@ -283,8 +296,7 @@ def _read_neuron_sources(specs, index, length, tags, names,
 def cmd_color_depth_search(args) -> int:
     if args.mipsStorage == "DB" or args.resultsStorage == "DB":
         raise not_ported("the DB storage backend (--mips-storage DB / "
-                          "--results-storage DB)",
-                          "host-only CLI commands")
+                         "--results-storage DB)", 4)
     device = torch.device(args.device)
     masks = _read_neuron_sources(
         args.masks, args.masks_index, args.masks_length,
@@ -320,7 +332,7 @@ def cmd_color_depth_search(args) -> int:
     # streaming result writes: flush every --write-batch-size matches
     # instead of holding the full match set in RAM (the reference writes
     # in partitions too — ColorDepthSearchCmd.java:297-316)
-    per_mask, per_target = _out_dirs(args)
+    per_mask, per_target = _out_dirs(args, required=True)
     write_cds_session(args.outputDir, [str(s) for s in args.masks],
                       [str(s) for s in args.targets], params.as_map(),
                       pretty=not args.noPrettyPrint)
@@ -423,7 +435,7 @@ def cmd_gradient_scores(args) -> int:
 
     if args.resultsStorage == "DB":
         raise not_ported("the DB storage backend (--results-storage DB)",
-                         "host-only CLI commands")
+                         4)
     params = _cds_params(args)
     pack_store = args.packStore or os.environ.get("CDS_SHAPE_PACK_DIR") \
         or None
@@ -434,7 +446,7 @@ def cmd_gradient_scores(args) -> int:
         pack_store=pack_store)
     locations = JSONMatchesReader.list_matches_locations(
         args.matches, args.matches_index, args.matches_length)
-    per_mask, _ = _out_dirs(args)
+    per_mask, _ = _out_dirs(args, required=True)
     writer = JSONMatchesWriter(
         per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
         ordering=lambda m: -(m.normalized_score or 0.0))
@@ -480,4 +492,522 @@ def cmd_gradient_scores(args) -> int:
                                 [args.processingTag])
             writer.write_updates(scored)
     LOG.info("gs stage seconds: %s", json.dumps(stage_seconds("gs")))
+    return 0
+
+
+# -------------------------------------------------------------------------
+# v3: normalizeGradientScores
+# -------------------------------------------------------------------------
+
+
+def configure_normalize_scores(sp):
+    # NormalizeGradientScoresArgs extends AbstractGradientScoresArgs
+    # extends AbstractColorDepthMatchArgs, so the normalize command
+    # accepts the full CDS-param + selector surface
+    # (cmd/NormalizeGradientScoresCmd.java:62)
+    sp.add_argument("--matches", "--masks-libraries", "-md", nargs="+",
+                    required=True, dest="matches",
+                    help="mask match sources, lib[:offset[:length]]: "
+                         "match files/dirs")
+    sp.add_argument("--processing-tag", dest="processingTag", default="")
+    common.add_gradient_selector_args(sp)
+    _add_cds_params(sp)
+    _add_output_args(sp)
+
+
+def cmd_normalize_scores(args) -> int:
+    """Recompute normalizedScore against per-mask maxima
+    (cmd/NormalizeGradientScoresCmd.java:92-239)."""
+    from colormipsearch_tpu_torch.engine.gradscore import (
+        update_normalized_scores,
+    )
+
+    if args.resultsStorage == "DB":
+        raise not_ported("the DB storage backend (--results-storage DB)",
+                         4)
+    locations = JSONMatchesReader.list_matches_locations(args.matches)
+    per_mask, _ = _out_dirs(args, required=True)
+    writer = JSONMatchesWriter(
+        per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
+        ordering=lambda m: -(m.normalized_score or 0.0))
+    for loc in locations:
+        matches = JSONMatchesReader.read_matches(loc)
+        eligible = [m for m in matches
+                    if m.gradient_area_gap is not None
+                    and m.gradient_area_gap >= 0
+                    and (m.matching_pixels_ratio or 0)
+                    >= args.pctPositivePixels / 100]
+        if not eligible:
+            continue
+        update_normalized_scores(eligible)
+        writer.write_updates(eligible)
+    return 0
+
+
+# -------------------------------------------------------------------------
+# v3: createColorDepthSearchDataInput (offline/local mode)
+# -------------------------------------------------------------------------
+
+
+def configure_create_data_input(sp):
+    sp.add_argument("-i", "--input", required=False, default=None,
+                    help="image library location (dir or zip), "
+                         "location[:offset[:length]]")
+    sp.add_argument("--jacs-url", "--jacsURL", "--data-url",
+                    dest="jacsURL", default=None,
+                    help="JACS config server URL to ingest a library from "
+                         "instead of local files (not ported yet)")
+    sp.add_argument("--authorization", default=None,
+                    help="bearer token for the JACS server")
+    sp.add_argument("--libraries-variants", "--librariesVariants",
+                    "--libraryVariants", dest="librariesVariants",
+                    nargs="*", default=[],
+                    help="variantType:location[:suffix] mappings for "
+                         "JACS ingest (e.g. GradientImage:/grad:_gradient)")
+    sp.add_argument("-l", "--library", default=None,
+                    help="library name recorded on the neurons")
+    sp.add_argument("--alignment-space", "-as", default=None)
+    sp.add_argument("--type", choices=["em", "lm", "auto"], default="auto")
+    sp.add_argument("--gradients-location", nargs="*", default=[])
+    sp.add_argument("--gradient-suffix", default="_gradient")
+    sp.add_argument("--zgap-location", nargs="*", default=[])
+    sp.add_argument("--zgap-suffix", default="_20pxRGB")
+    sp.add_argument("--segmented-mips", nargs="*", default=[],
+                    help="segmented/searchable image locations; each "
+                         "matching image becomes a searchable neuron "
+                         "entry (MIPsHandlingUtils.lookupSearchable...)")
+    sp.add_argument("--segmentation-channel-base", type=int, default=1)
+    sp.add_argument("--match-neuron-state", action="store_true")
+    sp.add_argument("--tag", nargs="*", default=[],
+                    help="tags stamped on every created neuron")
+    sp.add_argument("--datasets", nargs="*", default=[],
+                    help="JACS dataset filter for the ingest query")
+    sp.add_argument("--releases", "-r", nargs="*", default=[],
+                    help="JACS release filter for the ingest query")
+    sp.add_argument("--mips", nargs="*", default=[],
+                    help="only create inputs for these specific mip ids")
+    sp.add_argument("--included-libraries", nargs="*", default=[],
+                    help="MIPs must also be in ALL these libraries "
+                         "(CreateCDSDataInputCmd.checkLibraries)")
+    sp.add_argument("--excluded-libraries", nargs="*", default=[],
+                    help="MIPs must not be in ANY of these libraries")
+    sp.add_argument("--for-update", dest="forUpdate",
+                    action="store_true",
+                    help="merge into an existing output file instead of "
+                         "overwriting")
+    sp.add_argument("--excluded-neurons", nargs="*", default=[],
+                    help="mip ids / published names to skip")
+    sp.add_argument("--included-neurons", "--included-published-names",
+                    dest="includedNeurons", nargs="*", default=[],
+                    help="only ingest these mip ids / published names")
+    sp.add_argument("--output-filename", default=None)
+    sp.add_argument("--mips-storage", dest="mipsStorage",
+                    choices=["FS", "DB"], default="FS")
+    _add_output_args(sp)
+
+
+def cmd_create_data_input(args) -> int:
+    if args.jacsURL:
+        raise not_ported("the JACS input (--jacs-url)", 7)
+    if args.mipsStorage == "DB":
+        raise not_ported("the DB storage backend (--mips-storage DB)", 4)
+    if not args.input:
+        raise SystemExit("either -i/--input or --jacs-url is required")
+    arg = ListArg.parse(args.input)
+    files = arg.apply(mips_io.list_image_files(arg.location))
+    lib = args.library or os.path.basename(arg.location.rstrip("/"))
+    cls = {"em": EMNeuron, "lm": LMNeuron, "auto": None}[args.type]
+    neurons = mips_io.neurons_from_image_files(
+        files, library_name=lib, alignment_space=args.alignment_space,
+        neuron_cls=cls)
+    if args.segmented_mips:
+        # expand each source MIP into one searchable neuron per matching
+        # segmented image (CreateCDSDataInputCmd --segmented-mips)
+        import dataclasses as _dc
+
+        from colormipsearch_tpu_torch.io import naming
+
+        index = naming.index_segmented_images(args.segmented_mips)
+        expanded = []
+        for n in neurons:
+            src = n.compute_file(ComputeFileType.InputColorDepthImage)
+            n.set_compute_file(
+                ComputeFileType.SourceColorDepthImage, src)
+            found = naming.lookup_searchable_images(
+                n, index, channel_base=args.segmentation_channel_base,
+                match_neuron_state=args.match_neuron_state)
+            if not found:
+                expanded.append(n)
+                continue
+            for fd2 in found:
+                dup = _dc.replace(
+                    n, compute_files=dict(n.compute_files),
+                    tags=set(n.tags))
+                dup.set_compute_file(
+                    ComputeFileType.InputColorDepthImage, fd2)
+                expanded.append(dup)
+        neurons = expanded
+    for n in neurons:
+        fd = n.compute_file(ComputeFileType.InputColorDepthImage)
+        if args.gradients_location:
+            g = mips_io.find_variant(fd, args.gradients_location,
+                                     args.gradient_suffix)
+            if g is not None:
+                n.set_compute_file(ComputeFileType.GradientImage, g)
+        if args.zgap_location:
+            z = mips_io.find_variant(fd, args.zgap_location,
+                                     args.zgap_suffix)
+            if z is not None:
+                n.set_compute_file(ComputeFileType.ZGapImage, z)
+    return _write_data_input(args, neurons, lib)
+
+
+def _write_data_input(args, neurons, lib) -> int:
+    # neuron include/exclude filters + created-neuron tags
+    # (CreateCDSDataInputCmd --excluded-neurons/--included-neurons/--tag)
+    excluded = set(args.excluded_neurons)
+    included = set(args.includedNeurons)
+    if excluded:
+        neurons = [n for n in neurons
+                   if n.mip_id not in excluded
+                   and (n.published_name or "") not in excluded]
+    if included:
+        neurons = [n for n in neurons
+                   if n.mip_id in included
+                   or (n.published_name or "") in included]
+    only_mips = set(args.mips)
+    if only_mips:
+        neurons = [n for n in neurons if n.mip_id in only_mips]
+    for tag in args.tag:
+        for n in neurons:
+            n.tags.add(tag)
+    out_name = args.output_filename or f"{lib}.json"
+    out_dir = args.outputDir or "."
+    out_path = Path(out_dir) / out_name
+    if args.forUpdate and out_path.exists():
+        # --for-update: merge into the existing file, replacing entries
+        # with the same mipId (CreateCDSDataInputCmd args.forUpdate)
+        merged = {n.mip_id: n for n in read_neurons_json(out_path)}
+        merged.update({n.mip_id: n for n in neurons})
+        neurons = list(merged.values())
+    write_neurons_json(neurons, out_path, pretty=not args.noPrettyPrint)
+    LOG.info("wrote %d neurons to %s", len(neurons), out_path)
+    return 0
+
+
+# -------------------------------------------------------------------------
+# v2: searchFromJSON / searchLocalFiles
+# -------------------------------------------------------------------------
+
+
+def _add_v2_variant_args(sp):
+    """v2 variant lookup + fused shape scoring flags
+    (cmd_v2/AbstractColorDepthMatchArgs.java:42-63)."""
+    sp.add_argument("--with-grad-scores", dest="withGradScores",
+                    action="store_true",
+                    help="also compute negative/shape scores in the same "
+                         "pass when gradient images are available")
+    sp.add_argument("--gradientPath", "-gp", nargs="*", default=[])
+    sp.add_argument("--gradientSuffix", default="_gradient")
+    sp.add_argument("--zgapPath", "-zgp", nargs="*", default=[])
+    sp.add_argument("--zgapSuffix", default="_20pxRGB")
+    sp.add_argument("--librarySuffix", default=None,
+                    help="suffix stripped from the library image name "
+                         "before appending the variant suffix")
+    sp.add_argument("--gradientVariant", default="gradient",
+                    help="variant-dictionary key for gradient images")
+    sp.add_argument("--zgapVariant", default="zgap",
+                    help="variant-dictionary key for zgap images")
+    sp.add_argument("--perLibrarySubdir", default=None,
+                    help="also write results grouped per matched target "
+                         "(cmd_v2 AbstractColorDepthMatchArgs:88-92)")
+
+
+def configure_search_from_json(sp):
+    sp.add_argument("-m", "--masks", nargs="+", required=True,
+                    help="v2 MIP-list JSON file(s), location[:offset[:length]]")
+    sp.add_argument("-i", "--images", "--targets", dest="targets", nargs="+",
+                    required=True)
+    sp.add_argument("--masks-index", type=int, default=0,
+                    help="start offset applied to mask lists without an "
+                         "inline :offset (ColorDepthSearchJSONInputCmd)")
+    sp.add_argument("--masks-length", type=int, default=0)
+    sp.add_argument("--images-index", type=int, default=0,
+                    help="start offset applied to target lists without "
+                         "an inline :offset")
+    sp.add_argument("--images-length", type=int, default=0)
+    _add_device_arg(sp)
+    _add_cds_params(sp)
+    _add_v2_variant_args(sp)
+    _add_output_args(sp)
+
+
+def configure_search_local_files(sp):
+    sp.add_argument("-m", "-q", "--queries", dest="masks", nargs="+",
+                    required=True, help="mask images location (dir/zip/file)")
+    sp.add_argument("-i", "-t", "--targets", dest="targets", nargs="+",
+                    required=True, help="target images location")
+    sp.add_argument("--search-name", dest="searchName", default=None,
+                    help="name for the saved cds parameters record "
+                         "(default <masks>-<targets>-cdsparams.json)")
+    sp.add_argument("--viewableTargets", nargs="*", default=[],
+                    help="accepted for reference parity; viewable image "
+                         "substitution happens at export time")
+    _add_device_arg(sp)
+    _add_cds_params(sp)
+    _add_v2_variant_args(sp)
+    _add_output_args(sp)
+
+
+def _mip_to_neuron(mip: v2_io.MIPMetadata) -> Neuron:
+    lib = (mip.libraryName or "").lower()
+    cls = EMNeuron if ("flyem" in lib or "_em_" in lib) else LMNeuron
+    n = cls(mip_id=mip.id, library_name=mip.libraryName,
+            published_name=mip.publishedName,
+            alignment_space=mip.alignmentSpace)
+    n.set_compute_file(ComputeFileType.InputColorDepthImage, mip.file_data())
+    return n
+
+
+def _neuron_to_mip(n: Neuron) -> v2_io.MIPMetadata:
+    fd = n.compute_file(ComputeFileType.InputColorDepthImage)
+    m = v2_io.MIPMetadata(
+        id=n.mip_id, publishedName=n.published_name,
+        libraryName=n.library_name, alignmentSpace=n.alignment_space)
+    if fd is not None:
+        if fd.is_zip_entry:
+            m.imageArchivePath = fd.file_name
+            m.imageName = fd.entry_name
+            m.imageType = "zipEntry"
+        else:
+            m.imageName = fd.file_name
+            m.imageType = "file"
+    return m
+
+
+def _cds_name(args) -> str:
+    """v2 cds parameters record name
+    (ColorDepthSearchLocalMIPsCmd.getCDSName:193-200)."""
+    if getattr(args, "searchName", None):
+        return args.searchName
+    def stem(specs):
+        return "+".join(Path(ListArg.parse(s).location).stem
+                        for s in specs)
+    return f"{stem(args.masks)}-{stem(args.targets)}-cdsparams.json"
+
+
+def _run_v2_search(args, masks, targets, mip_by_key) -> int:
+    params = _cds_params(args)
+    device = torch.device(args.device)
+    engine = CDSearchEngine(
+        params, device=device,
+        use_key_planes=getattr(args, "use_key_planes", None),
+        use_union_keys=getattr(args, "use_union_keys", None))
+    if getattr(args, "outputDir", None):
+        out_dir = Path(args.outputDir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / _cds_name(args), "w") as f:
+            json.dump(params.as_map(), f, indent=2)
+    LOG.info("v2 search: %d masks x %d targets on %s", len(masks),
+             len(targets), device)
+    matches = engine.find_all_matches(masks, targets)
+
+    # fused pixel + shape pass (v2 PixelMatchWithNegativeScore
+    # ColorDepthSearchAlgorithm:53-63): when requested and gradient
+    # variants can be located, the matches found by the pixel pass get
+    # their negative scores in the same run
+    if getattr(args, "withGradScores", False) and args.gradientPath:
+        from colormipsearch_tpu_torch.engine.gradscore import (
+            GradScoreEngine,
+        )
+
+        for m in matches:
+            t_fd = m.matched_image.compute_file(
+                ComputeFileType.InputColorDepthImage)
+            if t_fd is None:
+                continue
+            g = mips_io.find_variant(t_fd, args.gradientPath,
+                                     args.gradientSuffix,
+                                     cdm_suffix=args.librarySuffix)
+            if g is not None:
+                m.matched_image.set_compute_file(
+                    ComputeFileType.GradientImage, g)
+            z = mips_io.find_variant(t_fd, args.zgapPath, args.zgapSuffix,
+                                     cdm_suffix=args.librarySuffix)
+            if z is not None:
+                m.matched_image.set_compute_file(
+                    ComputeFileType.ZGapImage, z)
+        GradScoreEngine(
+            params, device=device,
+            decode_workers=getattr(args, "cdsConcurrency", 0) or None,
+        ).score_matches(matches)
+
+    rows = []
+    for m in matches:
+        src = mip_by_key.get(id(m.mask_image)) or _neuron_to_mip(m.mask_image)
+        tgt = mip_by_key.get(id(m.matched_image)) \
+            or _neuron_to_mip(m.matched_image)
+        row = v2_io.V2Match(
+            source=src, target=tgt,
+            matchingPixels=m.matching_pixels or 0,
+            matchingRatio=m.matching_pixels_ratio or 0.0,
+            mirrored=m.mirrored)
+        if m.gradient_area_gap is not None and m.gradient_area_gap >= 0:
+            row.gradientAreaGap = m.gradient_area_gap
+            row.highExpressionArea = m.high_expression_area
+            row.normalizedGapScore = m.normalized_score
+        rows.append(row)
+    per_mask, _ = _out_dirs(args)
+    if per_mask is None:
+        per_mask = Path(".")
+
+    def write_groups(groups, out_dir):
+        for g in groups:
+            name = g.maskId or g.maskPublishedName or "results"
+            name = re.sub(r"[^A-Za-z0-9._-]", "_", name)
+            v2_io.write_cds_matches(g, out_dir / f"{name}.json",
+                                    pretty=not args.noPrettyPrint)
+        LOG.info("wrote %d v2 result files to %s", len(groups), out_dir)
+
+    write_groups(v2_io.group_matches_by_source(rows), per_mask)
+    if getattr(args, "perLibrarySubdir", None) and args.outputDir:
+        write_groups(v2_io.group_matches_by_target(rows),
+                     Path(args.outputDir) / args.perLibrarySubdir)
+    return 0
+
+
+def cmd_search_from_json(args) -> int:
+    mip_by_key: dict[int, v2_io.MIPMetadata] = {}
+
+    def load(specs, index=0, length=0):
+        neurons = []
+        for spec in specs:
+            arg = ListArg.parse(spec)
+            offset = arg.offset if arg.offset > 0 else index
+            n_items = arg.length if arg.length > 0 else length
+            for mip in v2_io.read_mips_json(arg.location, offset,
+                                            n_items):
+                n = _mip_to_neuron(mip)
+                mip_by_key[id(n)] = mip
+                neurons.append(n)
+        return neurons
+
+    return _run_v2_search(
+        args,
+        _neuron_name_filter(
+            load(args.masks, args.masks_index, args.masks_length),
+            args.masksFilter),
+        _neuron_name_filter(
+            load(args.targets, args.images_index, args.images_length),
+            args.libraryFilter),
+        mip_by_key)
+
+
+def cmd_search_local_files(args) -> int:
+    def load(specs):
+        neurons = []
+        for spec in specs:
+            arg = ListArg.parse(spec)
+            files = arg.apply(mips_io.list_image_files(arg.location))
+            neurons.extend(mips_io.neurons_from_image_files(
+                files, library_name=os.path.basename(arg.location.rstrip("/"))))
+        return neurons
+
+    return _run_v2_search(
+        args,
+        _neuron_name_filter(load(args.masks), args.masksFilter),
+        _neuron_name_filter(load(args.targets), args.libraryFilter),
+        {})
+
+
+# -------------------------------------------------------------------------
+# v2: mergeResults
+# -------------------------------------------------------------------------
+
+
+def configure_merge_results(sp):
+    sp.add_argument("-rd", "--resultsDir", nargs="*", default=[],
+                    help="directories of per-mask result files to merge")
+    sp.add_argument("-rf", "--resultsFile", nargs="*", default=[],
+                    help="explicit result files to merge (files with the "
+                         "same basename combine into one output)")
+    sp.add_argument("--pctPositivePixels", type=float, default=0.0,
+                    help="only keep results with matchingRatio*100 > pct")
+    sp.add_argument("-cleanup", "--cleanup", dest="cleanup",
+                    action="store_true",
+                    help="strip internal image-path/sampleRef fields "
+                         "(ColorMIPSearchMatchMetadata.createReleaseCopy)")
+    sp.add_argument("--excluded-names", nargs="*", default=[],
+                    help="published names excluded from the merge")
+    _add_output_args(sp)
+
+
+def _release_copy(r: "v2_io.V2Match") -> "v2_io.V2Match":
+    """Strip non-production fields
+    (ColorMIPSearchMatchMetadata.createReleaseCopy:24-40)."""
+    import dataclasses as _dc
+
+    r = _dc.replace(r, source=_dc.replace(r.source),
+                    target=_dc.replace(r.target))
+    for side in (r.source, r.target):
+        side.cdmPath = None
+        side.imageType = None
+        side.imageName = None
+        side.imageArchivePath = None
+    # only the target-side sampleRef is reset; sourceSampleRef survives
+    # (ColorMIPSearchMatchMetadata.createReleaseCopy:24-40)
+    r.target.sampleRef = None
+    return r
+
+
+def cmd_merge_results(args) -> int:
+    """Merge per-mask result files across libraries, deduping pairs and
+    keeping the best score (cmd_v2/MergeResultsCmd.java)."""
+    if not args.resultsDir and not args.resultsFile:
+        raise SystemExit("either --resultsDir or --resultsFile required")
+    by_name: dict[str, list[Path]] = {}
+    if args.resultsFile:
+        # -rf takes precedence over -rd (MergeResultsCmd:106-110)
+        for f in args.resultsFile:
+            p = Path(f)
+            by_name.setdefault(p.name, []).append(p)
+    else:
+        for d in args.resultsDir:
+            for f in sorted(Path(d).glob("*.json")):
+                by_name.setdefault(f.name, []).append(f)
+    excluded = set(args.excluded_names or ())
+    per_mask, _ = _out_dirs(args)
+    if per_mask is None:
+        per_mask = Path(".")
+    for name, paths in by_name.items():
+        merged: dict[tuple, v2_io.V2Match] = {}
+        header = None
+        for p in paths:
+            g = v2_io.read_cds_matches(p)
+            if header is None:
+                header = g
+            for r in g.results:
+                # unconditional ratio gate (MergeResultsCmd:144):
+                # matchingRatio 0 rows drop even at the 0.0 default
+                if not r.matchingRatio * 100 > args.pctPositivePixels:
+                    continue
+                if excluded and (r.source.publishedName in excluded
+                                 or r.target.publishedName in excluded):
+                    continue
+                if args.cleanup:
+                    r = _release_copy(r)
+                key = (r.source.id, r.target.id)
+                cur = merged.get(key)
+                # duplicates resolve by normalized score (gap score when
+                # present), MergeResultsCmd's selectTopRankedElements
+                if cur is None or r.normalized_score > \
+                        cur.normalized_score:
+                    merged[key] = r
+        if header is None:
+            continue
+        header.results = sorted(merged.values(),
+                                key=lambda r: -r.normalized_score)
+        v2_io.write_cds_matches(header, per_mask / name,
+                                pretty=not args.noPrettyPrint)
+    LOG.info("merged %d result files", len(by_name))
     return 0

@@ -5,8 +5,9 @@
     python -m colormipsearch_tpu_torch.cli.main gradientScores \\
         --matches results/masks --device cuda ...
 
-``colorDepthSearch`` and ``gradientScores`` are ported; the flags and
-the FS (JSON) result files are those of the JAX package's commands.
+The subcommands, flags and FS (JSON) result files are those of the JAX
+package's CLI; the commands that run the device also take ``--device
+{cuda,cpu}`` (cuda by default).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import argparse
 import logging
 import sys
 
-from colormipsearch_tpu_torch.cli import commands, common
+from colormipsearch_tpu_torch.cli import commands, commands_v2, common
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -30,18 +31,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-side decode concurrency (0 = auto)")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
-    sp = sub.add_parser(
-        "colorDepthSearch",
+
+    def add(name, fn, configure, help=None, aliases=()):
+        sp = sub.add_parser(name, help=help, aliases=list(aliases))
+        configure(sp)
+        # every reference command delegates to one CommonArgs
+        # (cmd/AbstractCmdArgs.java:15-17); guarantee the same surface
+        common.ensure_common_args(sp)
+        sp.set_defaults(func=fn)
+        return sp
+
+    # ---- v3 commands (cmd/Main.java:25-36) ----
+    add("colorDepthSearch", commands.cmd_color_depth_search,
+        commands.configure_color_depth_search,
         help="all-pairs color depth search (pixel-match pass)")
-    commands.configure_color_depth_search(sp)
-    common.ensure_common_args(sp)
-    sp.set_defaults(func=commands.cmd_color_depth_search)
-    sp = sub.add_parser(
-        "gradientScores",
-        help="shape (gradient-area-gap) rescoring of CDS matches")
-    commands.configure_gradient_scores(sp)
-    common.ensure_common_args(sp)
-    sp.set_defaults(func=commands.cmd_gradient_scores)
+    add("gradientScores", commands.cmd_gradient_scores,
+        commands.configure_gradient_scores,
+        help="gradient/shape rescoring of existing matches")
+    add("normalizeGradientScores", commands.cmd_normalize_scores,
+        commands.configure_normalize_scores,
+        # the reference registers the typo'd name (cmd/Main.java:29) and
+        # its README run-book still calls the pre-v3 "normalizeScores"
+        aliases=["mormalizeGradientScores", "normalizeScores"],
+        help="re-normalize gradient scores per mask")
+    add("createColorDepthSearchDataInput", commands.cmd_create_data_input,
+        commands.configure_create_data_input,
+        help="create neuron metadata input from a library of images")
+
+    # ---- v2 commands (cmd_v2/Main.java:26-52) ----
+    add("searchFromJSON", commands.cmd_search_from_json,
+        commands.configure_search_from_json,
+        help="v2 search using JSON MIP lists")
+    add("searchLocalFiles", commands.cmd_search_local_files,
+        commands.configure_search_local_files,
+        help="v2 search over local image files/zips")
+    add("gradientScore", commands_v2.cmd_gradient_score_v2,
+        commands_v2.configure_gradient_score_v2,
+        help="v2 shape rescoring of result files")
+    add("gradientScoresFromMatchedResults", commands_v2.cmd_reverse_transfer,
+        commands_v2.configure_reverse_transfer,
+        help="transfer negative scores from reverse search results")
+    add("mergeResults", commands.cmd_merge_results,
+        commands.configure_merge_results,
+        help="merge per-mask result files across libraries")
+    add("createColorDepthSearchJSONInput",
+        commands_v2.cmd_create_json_input_v2,
+        commands_v2.configure_create_json_input_v2,
+        help="v2 MIP list creation from local images")
     return p
 
 

@@ -63,8 +63,7 @@ def _require_single_process() -> None:
         from colormipsearch_tpu_torch.engine.cds import not_ported
 
         raise not_ported("a mesh across processes (torch.distributed with "
-                         f"{dist.get_world_size()} ranks)",
-                         "cross-process mesh")
+                         f"{dist.get_world_size()} ranks)", 2)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -275,3 +275,121 @@ def test_db_storage_raises(tmp_path):
         with pytest.raises(NotImplementedError):
             torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
                              "-od", str(tmp_path / "o"), flag, "DB"])
+
+
+def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
+    """In a process where jax and PIL cannot be imported, the port alone
+    makes its inputs, searches, rescores and normalizes (v3), then makes
+    the v2 lists, searches from them, rescores, transfers the scores of
+    the reverse files and merges: the whole file pipeline on the CPU."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        sys.modules["jax"] = None
+        sys.modules["PIL"] = None
+        sys.path.insert(0, {str(REPO)!r})
+        import numpy as np
+        from colormipsearch_tpu_torch import testing
+        from colormipsearch_tpu_torch.cli.main import main
+
+        os.chdir({str(tmp_path)!r})
+        rng = np.random.default_rng(49)
+        lib = testing.synthetic_library(rng, 6, 2, 40, 56, target_fg=0.08,
+                                        mask_fg=0.03)
+        testing.write_neuron_images(
+            "targets", lib.targets, "t",
+            gradients=[testing.synthetic_gradient(rng, t)
+                       for t in lib.targets],
+            zgaps=[testing.synthetic_zgap(t, radius=4) for t in lib.targets],
+            threads=2)
+        testing.write_neuron_images("masks", lib.masks, "m", threads=2)
+        cds = {FLAGS[:10]!r} + ["--no-name-labels", "--no-colormap-labels",
+                                "--device", "cpu"]
+        gs = ["--maskThreshold", "20", "--mirrorMask", "--no-name-labels",
+              "--no-colormap-labels", "--negativeRadius", "4"]
+        variants = ["-gp", "targets/grad", "-zgp", "targets/zgap"]
+        steps = [
+            ["createColorDepthSearchDataInput", "-i", "targets",
+             "--gradients-location", "targets/grad", "--zgap-location",
+             "targets/zgap", "-od", "in"],
+            ["createColorDepthSearchDataInput", "-i", "masks", "-od", "in"],
+            ["colorDepthSearch", "-m", "in/masks.json", "-i",
+             "in/targets.json", *cds, "--pctPositivePixels", "0",
+             "-od", "v3", "--perMaskSubdir", "masks"],
+            ["gradientScores", "--matches", "v3/masks", *gs, "--device",
+             "cpu", "-od", "v3", "--perMaskSubdir", "masks"],
+            ["normalizeGradientScores", "--matches", "v3/masks",
+             "--pctPositivePixels", "1", "-od", "v3",
+             "--perMaskSubdir", "masks"],
+            ["createColorDepthSearchJSONInput", "-i", "targets", "-od",
+             "lists"],
+            ["createColorDepthSearchJSONInput", "-i", "masks", "-od",
+             "lists"],
+            ["searchFromJSON", "-m", "lists/masks.json", "-i",
+             "lists/targets.json:0:3", *cds, "-od", "a"],
+            ["searchFromJSON", "-m", "lists/masks.json", "-i",
+             "lists/targets.json:3:3", *cds, "-od", "b"],
+            ["searchLocalFiles", "-m", "masks", "-i", "targets", *cds,
+             "--with-grad-scores", *variants, "--perLibrarySubdir",
+             "bylib", "-od", "fused"],
+            ["gradientScore", "-rd", "a", *variants, *gs, "--device", "cpu",
+             "-od", "a_gs"],
+            ["gradientScoresFromMatchedResults", "-rd", "b", "-revd",
+             "fused/bylib", "-od", "b_rev"],
+            ["mergeResults", "-rd", "a_gs", "b_rev", "-od", "merged"],
+        ]
+        for argv in steps:
+            rc = main(argv)
+            if rc:
+                sys.exit(f"{{argv[0]}} exited {{rc}}")
+        assert not any(m == "jax" or m.startswith(("jax.", "PIL",
+                                                    "colormipsearch_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("STEPS", len(steps))
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split("STEPS")[1]) == 13
+    v3 = list((tmp_path / "v3" / "masks").glob("*.json"))
+    assert v3 and any(b'"normalizedScore"' in p.read_bytes() for p in v3)
+    assert list((tmp_path / "fused" / "bylib").glob("*.json"))
+    merged = list((tmp_path / "merged").glob("*.json"))
+    assert merged and all(b'"results"' in p.read_bytes() for p in merged)
+
+
+@pytest.mark.parametrize("path", [
+    ("mesh", None, 2),
+    ("colorDepthSearch", "--mips-storage", 4),
+    ("colorDepthSearch", "--results-storage", 4),
+    ("gradientScores", "--results-storage", 4),
+    ("normalizeGradientScores", "--results-storage", 4),
+    ("createColorDepthSearchDataInput", "--mips-storage", 4),
+    ("createColorDepthSearchDataInput", "--jacs-url", 7),
+    ("createColorDepthSearchJSONInput", "--jacs-url", 7),
+], ids=lambda p: f"{p[0]}{p[1] or ''}")
+def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
+    """Every configuration the port raises NotImplementedError for names
+    its item of ROADMAP.md §1: the cross-process mesh (2), the DB storage
+    (4), the JACS input (7)."""
+    command, flag, item = path
+    match = rf"ROADMAP\.md §1, port item {item}\)"
+    if command == "mesh":
+        import torch.distributed as dist
+
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+        with pytest.raises(NotImplementedError, match=match):
+            CDSearchEngine(CDSParams(), device="cpu",
+                           use_mesh=True).find_all_matches([], [])
+        return
+    value = "http://localhost:1" if flag == "--jacs-url" else "DB"
+    argv = {"colorDepthSearch": _inputs(tmp_path, seed=45, n_targets=2,
+                                        n_masks=1) + ["--device", "cpu"],
+            "gradientScores": ["--matches", str(tmp_path), "--device",
+                               "cpu"],
+            "normalizeGradientScores": ["--matches", str(tmp_path)],
+            }.get(command, ["-i", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match=match):
+        torch_main.main([command, *argv, flag, value,
+                         "-od", str(tmp_path / "o")])

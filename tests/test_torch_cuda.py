@@ -808,3 +808,51 @@ def test_cuda_row15_and_k8_split_over_every_class_p_s(cuda_device):
                         tcommon.pack_target_planes_split_plain(
                             stack, thr, t_pad=16)):
             assert torch.equal(a, b), thr
+
+
+@pytest.mark.cuda
+def test_cuda_v2_commands_write_the_cpu_files(cuda_device, tmp_path):
+    """searchLocalFiles --with-grad-scores and gradientScore on the card
+    (K1-K5) write the files of the same commands with --device cpu. K4
+    runs only under a positive --pctPositivePixels and where its k (256)
+    is below the shard's width: 320 targets."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+
+    rng = np.random.default_rng(67)
+    lib = testing.synthetic_library(rng, 320, 4, 48, 72, target_fg=0.08,
+                                    mask_fg=0.03)
+    testing.write_neuron_images(
+        tmp_path / "targets", lib.targets, "t",
+        gradients=[testing.synthetic_gradient(rng, t) for t in lib.targets],
+        zgaps=[testing.synthetic_zgap(t, radius=4) for t in lib.targets],
+        threads=2)
+    testing.write_neuron_images(tmp_path / "masks", lib.masks, "m",
+                                threads=2)
+    flags = ["--maskThreshold", "20", "--dataThreshold", "20",
+             "--pixColorFluctuation", "1.0", "--xyShift", "2",
+             "--mirrorMask", "--no-name-labels", "--no-colormap-labels",
+             "--negativeRadius", "4", "--pctPositivePixels", "1.0"]
+    variants = ["-gp", str(tmp_path / "targets" / "grad"),
+                "-zgp", str(tmp_path / "targets" / "zgap")]
+    trees = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        kbuild.reset_launches()
+        assert cli_main.main([
+            "searchLocalFiles", "-m", str(tmp_path / "masks"), "-i",
+            str(tmp_path / "targets"), *flags, "--with-grad-scores",
+            *variants, "--device", device, "-od", str(out / "search")]) == 0
+        assert cli_main.main([
+            "gradientScore", "-rd", str(out / "search"), *variants,
+            "--maskThreshold", "20", "--mirrorMask", "--no-name-labels",
+            "--no-colormap-labels", "--negativeRadius", "4",
+            "--device", device, "-od", str(out / "gs")]) == 0
+        if device == "cuda":
+            assert all(kbuild.launches[k] > 0 for k in (
+                "scatter_key_planes", "expand_union_tables_from_pos",
+                "score_query_batch_union_keys", "union_keys_topk",
+                "shape_score_pairs_split"))
+        trees[device] = {str(p.relative_to(out)): p.read_bytes()
+                         for p in sorted(out.rglob("*.json"))}
+    assert any(k.startswith("gs/") for k in trees["cpu"])
+    assert trees["cuda"] == trees["cpu"]

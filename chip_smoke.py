@@ -131,7 +131,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      every row (d)'s; (f) searchFromJSON over the two halves of the
      target list, then mergeResults of both, must give (c)'s rows. Each
      step prints its wall seconds, its rate and its launches; phase 9's
-     launches stay out of the kernels line.
+     launches stay out of the kernels line;
+ 10. the mesh across processes (parallel/mesh.py over torch.distributed,
+     each rank started by parallel/launch.py): (a) the launcher's
+     selftest under NCCL at world size 1 with 4 local shards of cuda:0
+     and (b) under gloo at 2 ranks x 2 shards of cuda:0, at phase 2's
+     shapes: every sharded step (dense and with a per-shard top-k) equal
+     to the single-device kernels in every rank, the collective counters
+     grown, gloo's host staging counted; (c) colorDepthSearch through the
+     launcher at 2 ranks on phase 9 (a)'s inputs: each rank writes a
+     part, the union equals phase 9 (a)'s matches, each rank launched
+     K1-K4 and ran its collectives. Each step prints its wall seconds,
+     each rank's peak GiB and the step times beside phase 7's; a failing
+     rank fails the phase. Phase 10's launches stay out of the kernels
+     line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -239,6 +252,16 @@ MESH_RESCORE_MASKS = 8  # phase 7 (b): the packed and split runs (rescore)
 MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
 P9_MASKS = 8            # phase 9: masks of the file-pipeline searches
 P9_SAMPLES = 16         # phase 9 (d), (e): rows held to ShapeMatchOracle
+P10_TIMEOUT = 300       # phase 10: the launcher's collective timeout, s
+# phase 10: the selftest's steps whose times phase 7 took (its keys)
+P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
+                    "batch_split": "batch_split (K11)",
+                    "batch_keys": "batch_keys (K10)",
+                    "batch_union_keys_full": "batch_union_keys (K3)",
+                    "batch_union_qkeys": "batch_union_qkeys (row 14)",
+                    "shape": "shape (row 18b)",
+                    "shape_both": "shape_both (row 18b)",
+                    "shape_split": "shape_split (K5)"}
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
 # operations over their issue rate (NVIDIA H100 SXM: 3.35 TB/s; 132 SMs at
 # up to 1.98 GHz, each issuing 128 f32 and 64 int32 lane operations a
@@ -2858,6 +2881,169 @@ def run_file_pipeline(lib, variants, work: str, rng) -> None:
           f"equal, (f) the merged halves equal (c)", flush=True)
 
 
+def _launch_ranks(what: str, n_ranks: int, backend: str, devices: str,
+                  rank_args) -> tuple[list, float]:
+    """Phase 10: n_ranks processes of the port's launcher
+    (parallel/launch.py) on this card; rank_args(rank) gives each rank's
+    arguments after the group options. Waits for all of them (killing
+    every survivor at the deadline) and raises unless every rank exits 0.
+    Returns ([stderr tail of each rank], wall seconds)."""
+    import socket
+
+    if n_ranks == 1:
+        init = f"file://{os.path.join(REPO, 'build', 'p10_rendezvous')}"
+        if os.path.exists(init[len("file://"):]):
+            os.remove(init[len("file://"):])
+    else:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            init = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "colormipsearch_tpu_torch.parallel.launch",
+         "--init-method", init, "--world-size", str(n_ranks), "--rank",
+         str(r), "--backend", backend, "--local-devices", devices,
+         "--timeout", str(P10_TIMEOUT), *[str(a) for a in rank_args(r)]],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(n_ranks)]
+    tails, failed = [], []
+    try:
+        for r, proc in enumerate(procs):
+            _out, err = proc.communicate(timeout=P10_TIMEOUT + 120)
+            tails.append(err[-4000:])
+            if proc.returncode != 0:
+                failed.append((r, proc.returncode))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.time() - t0
+    if failed:
+        raise AssertionError(f"phase 10 {what}: ranks (rank, exit code) "
+                             f"{failed} failed:\n" + "\n".join(tails))
+    return tails, seconds
+
+
+def run_cross_process(work: str, card: str, mesh_times: dict) -> None:
+    """Phase 10: the mesh across processes (parallel/mesh.py over
+    torch.distributed, started by parallel/launch.py) on this one card:
+    (a) the launcher's selftest under NCCL at world size 1 with
+    MESH_SHARDS local shards of cuda:0, (b) the same selftest under gloo
+    at 2 ranks x 2 shards of cuda:0 (CUDA tensors staged through the
+    host), both at phase 2's shapes (production image, 2,048 targets, 8
+    masks), every step equal to the single-device kernels in every rank;
+    (c) colorDepthSearch through the launcher at 2 ranks (gloo, 2 shards
+    of cuda:0 each) on phase 9 (a)'s inputs: each rank writes a part, the
+    union of the two trees equals phase 9 (a)'s matches, and each rank
+    launched K1-K4 and ran its collectives. NCCL refuses two ranks on one
+    card, so NCCL across ranks is not run here."""
+    p10 = os.path.join(work, "p10")
+    os.makedirs(p10, exist_ok=True)
+    free_cached()
+    selftests = {}
+    for label, n_ranks, backend, devices in (
+            ("(a) NCCL, 1 rank x 4 shards", 1, "nccl",
+             ",".join([f"{DEVICE}:0"] * MESH_SHARDS)),
+            ("(b) gloo, 2 ranks x 2 shards", 2, "gloo",
+             f"{DEVICE}:0,{DEVICE}:0")):
+        tag = backend
+        _tails, seconds = _launch_ranks(
+            label, n_ranks, backend, devices,
+            lambda r: ["--selftest", os.path.join(p10, f"{tag}{r}.json"),
+                       "--selftest-size", "production"])
+        docs = []
+        for r in range(n_ranks):
+            with open(os.path.join(p10, f"{tag}{r}.json")) as f:
+                docs.append(json.load(f))
+        for doc in docs:
+            bad = [k for k, v in doc["checks"].items() if not v]
+            idle = [k for k, v in doc["step_calls"].items() if not v]
+            colls = doc["collective_calls"]
+            if not doc["ok"] or bad or idle or not colls["all_reduce"] \
+                    or not colls["all_gather"]:
+                raise AssertionError(f"phase 10 {label}: rank "
+                                     f"{doc['rank']} failed {bad}, never "
+                                     f"ran {idle}, collectives {colls}")
+            if (backend == "gloo") != bool(colls["host_staged"]):
+                raise AssertionError(f"phase 10 {label}: host staging "
+                                     f"{colls['host_staged']} on {backend}")
+        if any(d["outputs"] != docs[0]["outputs"] for d in docs):
+            raise AssertionError(f"phase 10 {label}: the ranks' whole "
+                                 "outputs differ")
+        selftests[backend] = docs[0]["ms"]
+        launched = {k: v for k, v in docs[0]["launches"].items() if v}
+        print(f"phase 10 {label}: {len(docs[0]['checks'])} step checks "
+              f"equal the single-device kernels in every rank, "
+              f"{docs[0]['n_global_shards']} global shards, t_pad "
+              f"{docs[0]['t_pad']}, top-k {docs[0]['top_k']}; "
+              f"{seconds:.2f}s wall (each rank's own: "
+              f"{[round(d['seconds'], 2) for d in docs]}, set-up "
+              f"{[round(d['setup_seconds'], 2) for d in docs]}); peak GiB "
+              f"{[round(d['peak_gib'], 2) for d in docs]}; collectives "
+              f"{[d['collective_calls'] for d in docs]}; rank 0 step calls "
+              f"{docs[0]['step_calls']}; launches {launched} ({card})",
+              flush=True)
+    rows = {name: (round(selftests["nccl"][name], 3),
+                   round(selftests["gloo"][name], 3),
+                   *(round(x, 3) for x in mesh_times[key]))
+            for name, key in P10_PHASE7_STEPS.items()}
+    print("phase 10 step ms (NCCL 1 x 4; gloo 2 x 2, rank 0; phase 7 mesh "
+          f"4 shards in one process; single device): {json.dumps(rows)}; "
+          f"top-k steps (NCCL; gloo): "
+          f"""{json.dumps({k: (round(v, 3), round(selftests['gloo'][k], 3))
+                           for k, v in selftests['nccl'].items()
+                           if k.endswith('_topk')})} ({card})""",
+          flush=True)
+
+    # (c) colorDepthSearch through the launcher at 2 ranks
+    made = os.path.join(work, "p9", "in")
+    args = ["--", "colorDepthSearch", "-m",
+            f"{os.path.join(made, 'masks.json')}:0:{P9_MASKS}", "-i",
+            os.path.join(made, "targets.json"), "--device", DEVICE,
+            "--perMaskSubdir", "masks", *FLAGS]
+    _tails, seconds = _launch_ranks(
+        "(c) colorDepthSearch", 2, "gloo", f"{DEVICE}:0,{DEVICE}:0",
+        lambda r: ["--counts", os.path.join(p10, f"cds{r}.json"), *args,
+                   "-od", os.path.join(p10, f"cds{r}")])
+    want = _v3_pairs(os.path.join(work, "p9", "cds", "masks"))
+    merged, parts, counts = {}, [], []
+    for r in range(2):
+        got = _v3_pairs(os.path.join(p10, f"cds{r}", "masks"))
+        if set(got) & set(merged):
+            raise AssertionError("phase 10 (c): both ranks wrote the pairs "
+                                 f"{sorted(set(got) & set(merged))[:3]}")
+        merged.update(got)
+        parts.append(len(got))
+        with open(os.path.join(p10, f"cds{r}.json")) as f:
+            counts.append(json.load(f))
+    _require_same("phase 10 (c): the union of the 2 ranks' matches vs "
+                  "phase 9 (a)", merged, want)
+    if not all(0 < n < len(want) for n in parts):
+        raise AssertionError(f"phase 10 (c): the ranks wrote {parts} of "
+                             f"{len(want)} matches")
+    for c in counts:
+        missing = [k for k in CDS_KERNELS if not c["launches"][k]]
+        colls = c["collective_calls"]
+        if missing or not colls["all_reduce"] or not colls["all_gather"]:
+            raise AssertionError(f"phase 10 (c): rank {c['rank']} never "
+                                 f"launched {missing}; collectives {colls}")
+    pairs = P9_MASKS * len(json.load(open(os.path.join(made,
+                                                        "targets.json"))))
+    print(f"phase 10 (c): colorDepthSearch at 2 ranks x 2 shards (gloo), "
+          f"{P9_MASKS} x {pairs // P9_MASKS} in {seconds:.2f}s wall = "
+          f"{pairs / seconds:.0f} pairs/s (each rank's own "
+          f"{[round(c['seconds'], 2) for c in counts]} s; peak GiB "
+          f"{[round(c['peak_gib'], 2) for c in counts]}); rows per rank "
+          f"{parts}; launches "
+          f"{[{k: v for k, v in c['launches'].items() if v} for c in counts]}"
+          f"; step calls "
+          f"{[{k: v for k, v in c['step_calls'].items() if v} for c in counts]}"
+          f"; collectives {[c['collective_calls'] for c in counts]} ({card})",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -2973,6 +3159,12 @@ def main() -> int:
         run_file_pipeline(lib, variants, work, rng)
         phases["9 file pipeline"] = time.time() - t0
         print(f"phase 9 seconds: {phases['9 file pipeline']:.1f}",
+              flush=True)
+        # phase 10
+        t0 = time.time()
+        run_cross_process(work, card, mesh_times)
+        phases["10 cross-process mesh"] = time.time() - t0
+        print(f"phase 10 seconds: {phases['10 cross-process mesh']:.1f}",
               flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -28,7 +28,11 @@ per-pair threaded loop
   * with a device mesh (``use_mesh``, parallel/mesh.py) each target shard's
     planes are cut into D contiguous column shards, one a mesh device,
     and the sharded steps score every mask batch against all of them; a
-    per-mask top-k is then taken per column shard and merged,
+    per-mask top-k is then taken per column shard and merged. A mesh
+    across processes (parallel.mesh.init_distributed) holds in each
+    process only its block of columns, and each process emits only the
+    matches of its own columns (per-process sharded writes, as the JAX
+    engine does under jax.distributed),
   * matches are assembled into CDMatch entities with the semantics of
     AbstractColorMIPSearchProcessor.findPixelMatch:59-90 (matchingPixels,
     matchingPixelsRatio == initial normalizedScore, mirrored, isMatch
@@ -75,8 +79,7 @@ LOG = logging.getLogger(__name__)
 
 # the items of ROADMAP.md §1 ("Modules still to port") that a caller of
 # not_ported can name
-ROADMAP_ITEMS = {2: "the cross-process mesh",
-                 4: "the DB storage backend",
+ROADMAP_ITEMS = {4: "the DB storage backend",
                  7: "the network clients"}
 
 
@@ -998,9 +1001,18 @@ class CDSearchEngine:
                 getattr(plans[0], "ztol_den", None))
         n_straight = getattr(plans[0], "n_straight", None)
         # the mesh steps need the padded width to divide over the mesh;
-        # otherwise the batch runs on the engine's device alone
+        # otherwise the batch runs on the engine's device alone, which a
+        # mesh across processes must not do (every rank would write every
+        # column). Every branch below is taken alike in every rank: each
+        # decision reads values the steps reduced or gathered.
         on_mesh = self._mesh is not None \
             and shard.t_pad % self._mesh.size == 0
+        if self._mesh is not None and self._mesh.world_size > 1 \
+                and not on_mesh:
+            raise ValueError(
+                f"{shard.t_pad} padded target columns do not divide over "
+                f"the {self._mesh.size} shards of a mesh across "
+                f"{self._mesh.world_size} processes")
         if use_split:
             t_sp, t_c8 = self._split_planes(shard, on_mesh)
             if on_mesh:
@@ -1105,6 +1117,7 @@ class CDSearchEngine:
         # split path keeps the summary planes for it.
         neg_plans = [e[4] for e in batch]
         neg_best = neg_flags = None
+        pull = pmesh.pull_target_cols
         if neg_plans[0] is not None:
             ref = neg_plans[0]
             neg_on_mesh = on_mesh and shard.device_planes is not None
@@ -1129,14 +1142,17 @@ class CDSearchEngine:
                         shard.planes, *neg_args, target_threshold=thr,
                         ztol_num=neg_ztol[0], ztol_den=neg_ztol[1],
                         n_straight=ref.n_straight)
-                neg_flags = nf[:, :shard.count].cpu().numpy()
-            neg_best = np.maximum(nb[:, :shard.count].cpu().numpy(), 0)
+                neg_flags = pull(nf)[:, :shard.count]
+            neg_best = np.maximum(pull(nb), 0)[:, :shard.count]
 
-        # drop the zero-padded target columns (see _target_bucket)
-        best = best[:, :shard.count].cpu().numpy()
-        mirrored = mirrored[:, :shard.count].cpu().numpy()
+        # drop the zero-padded target columns (see _target_bucket); across
+        # processes the pull keeps only this process's target columns
+        # (zeros elsewhere), so each process emits its own share of the
+        # matches and rescores only its own flagged pairs
+        best = pull(best)[:, :shard.count]
+        mirrored = pull(mirrored)[:, :shard.count]
         pair_flags = (np.zeros_like(best) if pair_flags is None
-                      else pair_flags[:, :shard.count].cpu().numpy())
+                      else pull(pair_flags)[:, :shard.count])
         _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
         t_emit0 = time.time()
 
@@ -1168,14 +1184,19 @@ class CDSearchEngine:
 
     def _emit_from_topk(self, batch, shard, scores_k, idx_k, mirr_k,
                         flags_k, tags, session_ref_id) -> list[CDMatch]:
-        """Emit from the per-mask top-k candidates [B, k]."""
+        """Emit from the per-mask top-k candidates [B, k]. The mesh's
+        candidates are every process's, so across processes each keeps
+        only those of its own target columns (per-process sharded writes,
+        as the dense pull)."""
         out: list[CDMatch] = []
         t_emit0 = time.time()
+        lmask = pmesh.local_target_mask(None, shard.t_pad)
         for b, (mask, mask_rgb, region, plan, _neg) in enumerate(batch):
             best = np.zeros(shard.count, scores_k.dtype)
             mirrored = np.zeros(shard.count, bool)
             flags = np.zeros(shard.count, flags_k.dtype)
-            keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0)
+            keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0) \
+                & lmask[np.clip(idx_k[b], 0, shard.t_pad - 1)]
             ti = idx_k[b][keep]
             best[ti] = scores_k[b][keep]
             mirrored[ti] = mirr_k[b][keep].astype(bool)

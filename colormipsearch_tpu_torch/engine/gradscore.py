@@ -90,6 +90,13 @@ class GradScoreEngine:
             raise ValueError(f"unsupported device {self.device}")
         from colormipsearch_tpu_torch.parallel import mesh as pmesh
 
+        if use_device and pmesh.world_size() > 1:
+            # the JAX engine meshes across processes, then fails to pull
+            # the sharded result on the host (its ops/shape_score.py:955)
+            raise NotImplementedError(
+                f"gradientScores across processes ({pmesh.world_size()} "
+                "ranks): the JAX package has no cross-process shape pass "
+                "either (ROADMAP.md §3); run it in one process")
         self._mesh = (pmesh.resolve_mesh(use_mesh, self.device)
                       if use_device else None)
         self._shape_split_step = None

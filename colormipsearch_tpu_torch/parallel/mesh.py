@@ -1,30 +1,42 @@
 """Target sharding of the all-pairs search over a 1-D device mesh, driven
-by one process.
+by one process or by several (torch.distributed).
 
-The port of the JAX package's parallel/mesh.py for a single process. The
-target library (the packed planes, [..., T]) is cut along its trailing
-target axis into D contiguous shards, each a copy on its mesh device;
-the query arguments are replicated to every shard's device; each step
-launches its per-shard kernel on each shard's device, on that device's
-current stream. The collectives of the JAX steps become reductions over
-the D per-shard results on the mesh's first device: ``pmax`` a max,
-``psum`` a sum, the tiled ``all_gather`` a concatenation in shard order,
-so every step returns what the JAX step returns, with the same shapes and
-the same layout of the gathered axis (a sharded [B, T] output is one
-tensor on ``mesh.devices[0]``).
+The port of the JAX package's parallel/mesh.py. The target library (the
+packed planes, [..., T]) is cut along its trailing target axis into D
+contiguous shards, each a copy on its mesh device; the query arguments
+are replicated to every shard's device; each step launches its per-shard
+kernel on each shard's device, on that device's current stream.
 
-A mesh may name one device several times: D shards on one card (or on
-the CPU, where the wrappers run their plain versions), as the JAX tests
-run their mesh on eight virtual CPU devices.
+One process: the collectives of the JAX steps become reductions over the
+D per-shard results on the mesh's first device: ``pmax`` a max, ``psum``
+a sum, the tiled ``all_gather`` a concatenation in shard order, so every
+step returns what the JAX step returns, with the same shapes and the
+same layout of the gathered axis (a sharded [B, T] output is one tensor
+on ``mesh.devices[0]``). A mesh may name one device several times: D
+shards on one card (or on the CPU, where the wrappers run their plain
+versions), as the JAX tests run their mesh on eight virtual CPU devices.
 
-Across processes (torch.distributed with a world size above 1) nothing
-is ported yet: every entry point raises NotImplementedError there.
+Several processes (``init_distributed``; the launcher is
+parallel/launch.py): every rank passes the same number of local devices,
+and the global mesh orders its shards rank-major, so rank r holds global
+shards r * n_local .. (r + 1) * n_local - 1, a contiguous block of the
+target columns. Every process holds the full host planes and keeps only
+its own shards (JAX ``make_array_from_callback``). A step reduces its
+local shards as above, then across processes: the maxima by
+``all_reduce(MAX)``, the flagged-pair counts by ``all_reduce(SUM)``, the
+per-shard top-k by ``all_gather`` in rank order, so both are replicated
+in every rank; a dense [.., T] output comes back full width with only
+this rank's columns filled and zeros elsewhere (JAX pull_target_cols),
+which is what each process then emits: per-process sharded writes. NCCL
+reduces CUDA tensors in place; under gloo, CUDA tensors are staged
+through the host explicitly (counted as ``host_staged``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import threading
 
 import numpy as np
@@ -33,52 +45,67 @@ import torch
 from colormipsearch_tpu_torch.ops import pixel_match, shape_score
 
 TARGET_AXIS = "targets"
+BACKENDS = ("nccl", "gloo")
 
 # One plain integer per step, incremented each time the step is called,
 # so a run can show that it went through the mesh (the per-shard kernels
-# count their own launches in kernels/build.launches).
+# count their own launches in kernels/build.launches); beside them, the
+# cross-process collectives the steps issued, and how many of them staged
+# a CUDA tensor through the host (gloo).
 STEPS = ("search", "batch", "batch_split", "batch_keys", "batch_union_keys",
          "batch_union_qkeys", "shape", "shape_both", "shape_split")
 step_calls = dict.fromkeys(STEPS, 0)
+collective_calls = dict.fromkeys(("all_reduce", "all_gather", "host_staged"),
+                                 0)
 _count_lock = threading.Lock()
 
 
-def _count(name: str) -> None:
+def _count(name: str, counts: dict = step_calls) -> None:
     with _count_lock:
-        step_calls[name] += 1
+        counts[name] += 1
 
 
 def reset_step_calls() -> None:
+    """Set every step count and every collective count to 0."""
     with _count_lock:
-        for name in step_calls:
-            step_calls[name] = 0
-
-
-def _require_single_process() -> None:
-    """The cross-process mesh is the next slice of the port."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        from colormipsearch_tpu_torch.engine.cds import not_ported
-
-        raise not_ported("a mesh across processes (torch.distributed with "
-                         f"{dist.get_world_size()} ranks)", 2)
+        for counts in (step_calls, collective_calls):
+            for name in counts:
+                counts[name] = 0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """An ordered tuple of torch devices: shard s of every sharded array
-    lives on devices[s]. A device may repeat."""
+    """An ordered tuple of torch devices, this process's shards of the
+    mesh: its shard s (global shard ``first_shard + s``) lives on
+    devices[s]. A device may repeat. ``backend`` is set on the global mesh
+    of a process group (init_distributed), whose ``world_size`` ranks each
+    hold ``len(devices)`` shards; a mesh of one process has none."""
     devices: tuple
+    rank: int = 0
+    world_size: int = 1
+    backend: str | None = None
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        if self.backend is not None and self.size & (self.size - 1):
+            # the engines pad the target axis to a power of two
+            # (_target_bucket), which no other mesh size divides: every
+            # process would then score and write every column
+            raise ValueError(
+                f"a mesh across processes needs a power-of-two size: "
+                f"{self.world_size} ranks x {len(self.devices)} devices = "
+                f"{self.size} shards")
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The number of shards of the whole mesh (every process's)."""
+        return self.world_size * len(self.devices)
+
+    @property
+    def first_shard(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * len(self.devices)
 
 
 def _device(d) -> torch.device:
@@ -96,13 +123,94 @@ def _device(d) -> torch.device:
     return d
 
 
+# the global mesh of the process group init_distributed made
+_GROUP: dict = {}
+
+
+def world_size() -> int:
+    """The number of processes of the torch.distributed group (1 without
+    one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def init_distributed(init_method: str, world_size: int, rank: int,
+                     backend: str, local_devices, *,
+                     timeout: float = 120.0) -> Mesh:
+    """Join the process group and return its global mesh.
+
+    init_method: ``tcp://host:port`` or ``file:///path``; backend:
+    "nccl" (CUDA devices) or "gloo"; local_devices: this process's mesh
+    devices, the same number in every rank. Nothing is read from the
+    environment. Collectives and the rendezvous give up after `timeout`
+    seconds. Raises ValueError (in every rank) when the ranks pass
+    different numbers of devices or the global size is not a power of
+    two."""
+    import torch.distributed as dist
+
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    devices = tuple(_device(d) for d in local_devices)
+    if not devices:
+        raise ValueError("init_distributed needs at least one local device")
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1 or (backend == "nccl" and kinds != {"cuda"}):
+        raise ValueError(f"local devices {[str(d) for d in devices]} for "
+                         f"the {backend} backend (nccl takes CUDA devices "
+                         "only; the devices of a process share one type)")
+    if _GROUP:
+        raise RuntimeError("init_distributed was already called")
+    if devices[0].type == "cuda":
+        torch.cuda.set_device(devices[0])
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout))
+    # every rank learns every rank's device count before any mesh exists
+    counts = [None] * world_size
+    dist.all_gather_object(counts, len(devices))
+    if len(set(counts)) != 1:
+        raise ValueError(f"the ranks pass different numbers of local "
+                         f"devices: {counts}")
+    mesh = Mesh(devices, rank, world_size, backend)
+    _GROUP.update(backend=backend, devices=devices)
+    return mesh
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group init_distributed joined (a no-op without
+    one)."""
+    import torch.distributed as dist
+
+    _GROUP.clear()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def global_mesh() -> Mesh:
+    """The mesh over every process's devices (init_distributed)."""
+    import torch.distributed as dist
+
+    if not _GROUP:
+        raise RuntimeError(
+            "no process group from parallel.mesh.init_distributed: the "
+            "mesh does not know this process's devices")
+    return Mesh(_GROUP["devices"], dist.get_rank(), dist.get_world_size(),
+                _GROUP["backend"])
+
+
 def create_mesh(devices=None) -> Mesh:
     """1-D mesh over `devices` (torch devices or their names, in shard
-    order; one may repeat), or over every visible CUDA card when None. On
-    a host without CUDA, None is an error: the mesh never falls back to
-    the CPU unless it is given CPU devices."""
-    _require_single_process()
+    order; one may repeat), a mesh of this process alone. With None: the
+    global mesh when init_distributed made a process group, else a mesh
+    over every visible CUDA card. On a host without CUDA, None is an
+    error: the mesh never falls back to the CPU unless it is given CPU
+    devices."""
     if devices is None:
+        if _GROUP or world_size() > 1:
+            return global_mesh()
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "create_mesh() spans every visible CUDA card, and CUDA is "
@@ -113,20 +221,33 @@ def create_mesh(devices=None) -> Mesh:
 
 
 def resolve_mesh(use_mesh, device: torch.device) -> Mesh | None:
-    """The engines' ``use_mesh`` rule. None: a mesh over every card when
-    `device` is CUDA and more than one card is visible, else none; False:
-    none; True: create_mesh(); a Mesh: as given. The mesh's devices must
-    be of the engine device's type (a CUDA mesh never runs on the CPU)."""
+    """The engines' ``use_mesh`` rule. None: with a process group, its
+    global mesh when that has more than one shard (JAX counts global
+    devices), else a mesh over every card when `device` is CUDA and more
+    than one card is visible, else none; False: none; True:
+    create_mesh(); a Mesh: as given. The mesh's devices must be of the
+    engine device's type (a CUDA mesh never runs on the CPU). With more
+    than one process, only the global mesh is accepted: any other choice
+    would score and write every target column in every process."""
     if isinstance(use_mesh, Mesh):
-        _require_single_process()
         mesh = use_mesh
     else:
         if use_mesh is None:
-            use_mesh = device.type == "cuda" \
-                and torch.cuda.device_count() > 1
-        if not use_mesh:
-            return None
-        mesh = create_mesh()
+            if _GROUP:
+                use_mesh = global_mesh().size > 1
+            else:
+                use_mesh = device.type == "cuda" \
+                    and torch.cuda.device_count() > 1
+        mesh = create_mesh() if use_mesh else None
+    n_proc = world_size()
+    if n_proc > 1 and (mesh is None or mesh.backend is None):
+        raise ValueError(
+            f"{n_proc} processes share the targets only over the global "
+            "mesh of parallel.mesh.init_distributed (use_mesh None or "
+            "True); a process-local mesh, or none, would score and write "
+            "every target column in every process")
+    if mesh is None:
+        return None
     kinds = {d.type for d in mesh.devices}
     if kinds != {device.type}:
         raise ValueError(f"a mesh over {sorted(kinds)} devices for an "
@@ -142,23 +263,27 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
-def shard_target_planes(mesh: Mesh, planes) -> tuple:
-    """Cut [..., T] planes (a tensor, or a host numpy array of the
-    package's plane types) along the trailing T axis into mesh.size
-    contiguous shards, shard s a copy on mesh.devices[s]; works for
-    [P, T] planes and the shape pass's stacked [2, S, T] planes alike.
-    T must divide by the mesh size. A host array uploads shard by shard
-    (convert.as_tensor: uint32 planes become int32 with the same bits)."""
-    from colormipsearch_tpu_torch import convert
-
-    _require_single_process()
-    t = planes.shape[-1]
+def _shard_width(mesh: Mesh, t: int) -> int:
     if t % mesh.size:
         raise ValueError(f"{t} target columns do not divide over "
                          f"{mesh.size} shards")
-    w = t // mesh.size
+    return t // mesh.size
+
+
+def shard_target_planes(mesh: Mesh, planes) -> tuple:
+    """Cut [..., T] planes (a tensor, or a host numpy array of the
+    package's plane types) along the trailing T axis into mesh.size
+    contiguous shards and return this process's: shard s a copy on
+    mesh.devices[s] (every process holds the full planes and copies only
+    its own columns); works for [P, T] planes and the shape pass's
+    stacked [2, S, T] planes alike. T must divide by the mesh size. A
+    host array uploads shard by shard (convert.as_tensor: uint32 planes
+    become int32 with the same bits)."""
+    from colormipsearch_tpu_torch import convert
+
+    w = _shard_width(mesh, planes.shape[-1])
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in enumerate(mesh.devices, mesh.first_shard):
         part = planes[..., s * w:(s + 1) * w]
         if isinstance(part, torch.Tensor):
             copy = torch.empty(part.shape, dtype=part.dtype, device=dev)
@@ -172,28 +297,124 @@ def shard_target_planes(mesh: Mesh, planes) -> tuple:
 
 def local_target_mask(arr, t_pad: int) -> np.ndarray:
     """bool [t_pad]: the trailing-axis columns of a target-sharded array
-    that this process's devices hold: all of them with one process (the
-    only form ported)."""
-    _require_single_process()
-    return np.ones(t_pad, bool)
+    (`arr`, kept for JAX's signature) that this process's devices hold:
+    all of them with one process, else this rank's contiguous block of
+    t_pad / world_size columns. The per-process write split derives from
+    this mask."""
+    n_proc = world_size()
+    mask = np.zeros(t_pad, bool)
+    if n_proc == 1:
+        mask[:] = True
+        return mask
+    import torch.distributed as dist
+
+    if t_pad % n_proc:
+        raise ValueError(f"{t_pad} target columns do not divide over "
+                         f"{n_proc} processes")
+    w = t_pad // n_proc
+    mask[dist.get_rank() * w:(dist.get_rank() + 1) * w] = True
+    return mask
 
 
 def pull_target_cols(arr) -> np.ndarray:
-    """A target-sharded result (one tensor in its global layout) as a
-    host array. With one process this is a plain pull."""
-    _require_single_process()
-    if isinstance(arr, torch.Tensor):
-        return arr.cpu().numpy()
-    return np.asarray(arr)
+    """A target-sharded result (one tensor in its global layout, [.., T])
+    as a host array. With one process a plain pull; with several, the
+    full width with only this process's columns kept and zeros elsewhere
+    (score 0 and flag 0 emit nothing), which is what the mesh steps
+    already return: per-process sharded writes."""
+    out = arr.cpu().numpy() if isinstance(arr, torch.Tensor) \
+        else np.array(arr)
+    if world_size() > 1:
+        out[..., ~local_target_mask(out, out.shape[-1])] = 0
+    return out
+
+
+def process_allgather(mesh: Mesh, arr: torch.Tensor) -> torch.Tensor:
+    """A dense [.., T] step output, this rank's columns filled, made whole
+    in every rank: each rank's block of columns gathered in rank order
+    (JAX multihost_utils.process_allgather(x, tiled=True)). With one
+    process the input itself."""
+    w = arr.shape[-1] // mesh.world_size
+    return _gather_ranks(mesh, arr[..., mesh.rank * w:(mesh.rank + 1) * w])
+
+
+def barrier(mesh: Mesh) -> None:
+    """An all-reduce that every process of the mesh must reach (a no-op
+    with one process); it fails once a peer has failed and closed its
+    connections."""
+    _reduce_ranks(mesh, torch.zeros(1, dtype=torch.int32,
+                                    device=mesh.devices[0]), "max")
+
+
+# --- the collectives across processes ---------------------------------------
+
+
+def _wire(backend: str, x: torch.Tensor) -> torch.Tensor:
+    """`x` as the collective takes it: bools as uint8 (NCCL has no bool),
+    CUDA tensors on the host under gloo (counted)."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    if backend == "gloo" and x.device.type == "cuda":
+        _count("host_staged", collective_calls)
+        x = x.cpu()
+    return x.contiguous()
+
+
+def _unwire(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return x.to(device=like.device, dtype=like.dtype)
+
+
+def _reduce_ranks(mesh: Mesh, x: torch.Tensor, op: str) -> torch.Tensor:
+    """all_reduce of `x` over the mesh's processes ("max" or "sum"); with
+    one process, `x`."""
+    if mesh.backend is None:
+        return x
+    import torch.distributed as dist
+
+    wire = _wire(mesh.backend, x)
+    if wire is x:
+        wire = x.clone()
+    dist.all_reduce(wire, op={"max": dist.ReduceOp.MAX,
+                              "sum": dist.ReduceOp.SUM}[op])
+    _count("all_reduce", collective_calls)
+    return _unwire(wire, x)
+
+
+def _gather_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """all_gather of `x` from every process, concatenated along its last
+    axis in rank order (every rank's `x` has the same shape); with one
+    process, `x`."""
+    if mesh.backend is None:
+        return x
+    import torch.distributed as dist
+
+    wire = _wire(mesh.backend, x)
+    parts = [torch.empty_like(wire) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, wire)
+    _count("all_gather", collective_calls)
+    return _unwire(torch.cat(parts, dim=-1), x)
+
+
+def _place_cols(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+    """This process's [.., n_local * w] block of a dense output as the
+    global [.., T] tensor: zeros outside its columns (one process: the
+    block itself)."""
+    if mesh.backend is None:
+        return local
+    n = local.shape[-1]
+    out = torch.zeros(local.shape[:-1] + (n * mesh.world_size,),
+                      dtype=local.dtype, device=local.device)
+    out[..., mesh.rank * n:(mesh.rank + 1) * n] = local
+    return out
 
 
 # --- helpers of the steps -------------------------------------------------
 
 
 def _check_shards(mesh: Mesh, shards, name: str) -> None:
-    if len(shards) != mesh.size:
+    if len(shards) != len(mesh.devices):
         raise ValueError(f"{name}: {len(shards)} shards for a mesh of "
-                         f"{mesh.size} devices")
+                         f"{len(mesh.devices)} devices in this process")
     for x, dev in zip(shards, mesh.devices):
         if x.device != dev:
             raise ValueError(f"{name}: a shard on {x.device}, its mesh "
@@ -226,34 +447,39 @@ def _cat(mesh: Mesh, parts, dim: int) -> torch.Tensor:
 def _finish_batched_step(mesh: Mesh, per_shard: list, top_k: int):
     """Shared tail of the batched sharded steps (JAX _finish_batched_step).
 
-    per_shard: [(best, mirrored, pair_flags) [B, w]] in shard order.
-    Returns (best, mirrored, pair_flags [B, T], global_max [B]) with
-    top_k <= 0, else the merged per-shard top-k: (scores, idx, mirrored,
-    flags [B, D*k], global_max [B], n_flagged [B]) with k = min(top_k,
-    w), each shard's k candidates in jax.lax.top_k's order (score
-    descending, lower column first), their indices offset by shard * w,
-    and n_flagged the count of flagged pairs over all shards (the engine
-    pulls dense when flagged pairs fall outside the selection)."""
+    per_shard: [(best, mirrored, pair_flags) [B, w]] of this process's
+    shards, in shard order. Returns (best, mirrored, pair_flags [B, T],
+    global_max [B]) with top_k <= 0 (across processes, only this rank's
+    columns filled), else the merged per-shard top-k: (scores, idx,
+    mirrored, flags [B, D*k], global_max [B], n_flagged [B]) with k =
+    min(top_k, w), each shard's k candidates in jax.lax.top_k's order
+    (score descending, lower column first), their indices offset by the
+    global shard * w, and n_flagged the count of flagged pairs over all
+    shards (the engine pulls dense when flagged pairs fall outside the
+    selection); across processes all of these are every rank's."""
     dev0 = mesh.devices[0]
-    global_max = torch.stack([best.max(dim=-1).values.to(dev0)
-                              for best, _, _ in per_shard]).max(0).values
+    global_max = _reduce_ranks(mesh, torch.stack([
+        best.max(dim=-1).values.to(dev0)
+        for best, _, _ in per_shard]).max(0).values, "max")
     if top_k <= 0:
-        return tuple(_cat(mesh, [p[i] for p in per_shard], 1)
+        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per_shard],
+                                            1))
                      for i in range(3)) + (global_max,)
     w = per_shard[0][0].shape[1]
     k = min(top_k, w)
     parts = []
     n_flagged = None
     for s, ((best, mirrored, flags), dev) in enumerate(
-            zip(per_shard, mesh.devices)):
+            zip(per_shard, mesh.devices), mesh.first_shard):
         with _on(dev):
             sk, ik, mk, fk = pixel_match.union_keys_topk(best, mirrored, k,
                                                          flags)
             parts.append((sk, ik + s * w, mk, fk))
             count = (flags > 0).sum(dim=1, dtype=torch.int32).to(dev0)
         n_flagged = count if n_flagged is None else n_flagged + count
-    return tuple(_cat(mesh, [p[i] for p in parts], 1)
-                 for i in range(4)) + (global_max, n_flagged)
+    return tuple(_gather_ranks(mesh, _cat(mesh, [p[i] for p in parts], 1))
+                 for i in range(4)) + (global_max,
+                                       _reduce_ranks(mesh, n_flagged, "sum"))
 
 
 def _no_flags(best: torch.Tensor) -> torch.Tensor:
@@ -271,7 +497,8 @@ def make_sharded_search_step(mesh: Mesh, *, target_threshold: int,
     Returns fn(planes shards [P, w], pos [V, Q], q_cls [Q], q_s [Q],
     q_p [Q]) -> (best [T], mirrored [T], pair_flags [T], global_max [])
     and, with top_k > 0, also (topk_scores [D*k], topk_idx [D*k]): each
-    shard's top min(top_k, w) scores and their global target indices."""
+    shard's top min(top_k, w) scores and their global target indices
+    (every process's shards)."""
 
     def step(planes, pos, q_cls, q_s, q_p):
         _count("search")
@@ -284,19 +511,23 @@ def make_sharded_search_step(mesh: Mesh, *, target_threshold: int,
                 n_straight=n_straight)))
         best, mirrored, flags = (_cat(mesh, [p[i] for p in per], 0)
                                  for i in range(3))
-        global_max = best.max()
+        global_max = _reduce_ranks(mesh, best.max(), "max")
+        best, mirrored, flags = (_place_cols(mesh, x)
+                                 for x in (best, mirrored, flags))
         if top_k <= 0:
             return best, mirrored, flags, global_max
         w = per[0][0].shape[0]
         k = min(top_k, w)
         scores, idx = [], []
-        for s, ((b, m, _f), dev) in enumerate(zip(per, mesh.devices)):
+        for s, ((b, m, _f), dev) in enumerate(zip(per, mesh.devices),
+                                              mesh.first_shard):
             with _on(dev):
                 sk, ik, _mk = pixel_match.union_keys_topk(b[None], m[None], k)
             scores.append(sk[0])
             idx.append(ik[0] + s * w)
-        return (best, mirrored, flags, global_max, _cat(mesh, scores, 0),
-                _cat(mesh, idx, 0))
+        return (best, mirrored, flags, global_max,
+                _gather_ranks(mesh, _cat(mesh, scores, 0)),
+                _gather_ranks(mesh, _cat(mesh, idx, 0)))
 
     return step
 
@@ -419,7 +650,8 @@ def make_sharded_shape_step(mesh: Mesh, *, both: bool = False):
     """Sharded dense-row shape pass (row 18b per shard): the packed target
     planes sharded on T, the packed query replicated. Scores are per
     (query, target), so nothing is reduced across shards: the outputs
-    are the shards' concatenated.
+    are the shards' concatenated (across processes, this rank's columns
+    of the full width).
 
     both=False: fn(t_pack shards [P, w], q [P]) -> 3 x int32 [T].
     both=True:  fn(t_pack2 shards [2, S, w], q2 [2, S]) -> 3 x int32
@@ -432,7 +664,8 @@ def make_sharded_shape_step(mesh: Mesh, *, both: bool = False):
         _count(name)
         _check_shards(mesh, t_pack, "t_pack")
         per = _per_shard(mesh, t_pack, (q_pack,), pairs)
-        return tuple(_cat(mesh, [p[i] for p in per], 1 if both else 0)
+        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per],
+                                            1 if both else 0))
                      for i in range(3))
 
     return step
@@ -452,6 +685,7 @@ def make_sharded_shape_split_step(mesh: Mesh):
             mesh, tuple(zip(t_gap, t_he)), (q_gap, q_he),
             lambda pair, qg, qh: shape_score.shape_score_pairs_split(
                 pair[0], qg, pair[1], qh))
-        return tuple(_cat(mesh, [p[i] for p in per], 1) for i in range(3))
+        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per], 1))
+                     for i in range(3))
 
     return step

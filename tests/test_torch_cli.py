@@ -195,12 +195,14 @@ def test_device_cuda_without_gpu_is_an_error(tmp_path):
     dict(env=[("CDS_SPLIT_PLANES", "1"), ("CDS_UNION_KEYS", "0")]),
 ])
 def test_outside_the_slice_raises(setting, tmp_path, monkeypatch):
-    """A mesh across processes (torch.distributed with more than one
-    rank) is outside the slice and raises; the single-process mesh is
-    inside it (tests/test_torch_engine_mesh.py). CDS_SPLIT_PLANES=1 on
-    the packed path without a top-k (chosen by use_key_planes=False or by
-    CDS_UNION_KEYS=0) is inside it too: the engine runs the split-plane
-    kernel and finds the JAX engine's matches."""
+    """A group of processes that parallel.mesh.init_distributed did not
+    make raises: the mesh would not know this process's devices, and
+    without the global mesh every rank would write every column (the
+    mesh across processes: tests/test_torch_multiprocess.py).
+    CDS_SPLIT_PLANES=1 on the packed path without a top-k (chosen by
+    use_key_planes=False or by CDS_UNION_KEYS=0) is inside the slice: the
+    engine runs the split-plane kernel and finds the JAX engine's
+    matches."""
     setting = dict(setting)
     env = setting.pop("env", [])
     if setting.get("use_mesh"):
@@ -208,9 +210,11 @@ def test_outside_the_slice_raises(setting, tmp_path, monkeypatch):
 
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(RuntimeError, match="init_distributed"):
             CDSearchEngine(CDSParams(), device="cpu",
                            **setting).find_all_matches([], [])
+        with pytest.raises(ValueError, match="global mesh"):
+            CDSearchEngine(CDSParams(), device="cpu", use_mesh=False)
         return
     calls = _split_on(monkeypatch)
     for name, value in [env] if isinstance(env, tuple) else env:
@@ -359,7 +363,7 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
 
 
 @pytest.mark.parametrize("path", [
-    ("mesh", None, 2),
+    ("mesh", None, 3),
     ("colorDepthSearch", "--mips-storage", 4),
     ("colorDepthSearch", "--results-storage", 4),
     ("gradientScores", "--results-storage", 4),
@@ -370,18 +374,22 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
 ], ids=lambda p: f"{p[0]}{p[1] or ''}")
 def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
     """Every configuration the port raises NotImplementedError for names
-    its item of ROADMAP.md §1: the cross-process mesh (2), the DB storage
-    (4), the JACS input (7)."""
+    its item of ROADMAP.md §1: the DB storage (4), the JACS input (7). The
+    cross-process mesh is ported; the shape pass across processes, which
+    the JAX package fails too, names ROADMAP.md §3."""
     command, flag, item = path
     match = rf"ROADMAP\.md §1, port item {item}\)"
     if command == "mesh":
         import torch.distributed as dist
 
+        from colormipsearch_tpu_torch.engine.gradscore import (
+            GradScoreEngine,
+        )
+
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match=match):
-            CDSearchEngine(CDSParams(), device="cpu",
-                           use_mesh=True).find_all_matches([], [])
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §3"):
+            GradScoreEngine(CDSParams(), device="cpu")
         return
     value = "http://localhost:1" if flag == "--jacs-url" else "DB"
     argv = {"colorDepthSearch": _inputs(tmp_path, seed=45, n_targets=2,

@@ -515,8 +515,9 @@ def test_engine_equals_jax(shape_library, tmp_path, monkeypatch, mode):
 
 
 def test_engine_refuses_what_is_not_ported(monkeypatch):
-    """A mesh across processes (torch.distributed with more than one rank)
-    is not ported; a CUDA engine without a GPU is an error."""
+    """The shape pass across processes (torch.distributed with more than
+    one rank) raises, as the JAX package has none either (ROADMAP.md §3);
+    a CUDA engine without a GPU is an error."""
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)

@@ -144,7 +144,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      K1-K4 and ran its collectives. Each step prints its wall seconds,
      each rank's peak GiB and the step times beside phase 7's; a failing
      rank fails the phase. Phase 10's launches stay out of the kernels
-     line.
+     line;
+ 11. the DB pipeline (persist/: one sqlite store under build/) with the
+     port's CLI on phase 3's library: (a) createColorDepthSearchDataInput
+     --mips-storage DB over the targets (with their variants) and the
+     masks stores phase 9 (a)'s neurons; (b) colorDepthSearch
+     --mips-storage DB --results-storage DB on the first 4 of phase 4's
+     masks with phase 3's flags must launch K1-K4 and store phase 3's
+     matches, then with phase 4's (--pctPositivePixels 0, no emit top-k)
+     K1-K3 and phase 4's candidates, the first run's rows keeping their
+     ids; (c)
+     gradientScores --results-storage DB with phase 4's packed-variant
+     store and the device-resident store and a processing tag must
+     launch K5-K7, store phase 4's shape scores and tag exactly the
+     scored matches' neurons; (d) normalizeGradientScores
+     --results-storage DB must store phase 9 (b)'s normalized scores.
+     Each step prints its wall seconds, rows/s, the store's size, the
+     seconds of its store writes and reads, its peak GiB and launches;
+     the launches of (b) and (c) are added to the kernels line.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -253,6 +270,11 @@ MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
 P9_MASKS = 8            # phase 9: masks of the file-pipeline searches
 P9_SAMPLES = 16         # phase 9 (d), (e): rows held to ShapeMatchOracle
 P10_TIMEOUT = 300       # phase 10: the launcher's collective timeout, s
+# phase 11 (b)-(d): the first 4 of phase 4's 16 masks (~6,600 stored
+# matches): the store commits every row (~3 ms each on an H100 host),
+# and at 8 masks phase 11 took 223 s of a 913 s run there
+P11_MASKS = 4
+P11_TAG = "p11"         # phase 11 (c): the shape pass's processing tag
 # phase 10: the selftest's steps whose times phase 7 took (its keys)
 P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
                     "batch_split": "batch_split (K11)",
@@ -3044,6 +3066,191 @@ def run_cross_process(work: str, card: str, mesh_times: dict) -> None:
           flush=True)
 
 
+def _db_step(step: str, argv: list, store: str, kernels=(),
+             unit: str = "rows", count=None) -> dict:
+    """Phase 11: one command of the port's CLI on the DB store with fresh
+    launch counts, stage timers and peak memory; it must exit 0 and
+    launch every kernel in `kernels`. Prints its wall seconds, its rate
+    in `unit` (count(), read after the run), the store's size, the
+    seconds of the store's writes (each with its commit) and reads
+    (persist/store.py), the peak GiB and the launches on a line of its
+    own; returns the launches."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    argv = [str(a) for a in argv] + ["--config", store + ".properties"]
+    GLOBAL.reset()
+    reset_peak()
+    kbuild.reset_launches()
+    t0 = time.time()
+    rc = cli_main.main(argv)
+    seconds = time.time() - t0
+    launches = {k: v for k, v in kbuild.launches.items() if v}
+    if rc != 0:
+        raise AssertionError(f"phase 11 {step}: {argv[0]} exited {rc}")
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 11 {step}: {argv[0]} never launched "
+                             f"{missing}")
+    n = count()
+    db = stage_seconds("db")
+    print(f"phase 11 {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
+          f"{n / seconds:.0f} {unit}/s; store {os.path.getsize(store)} "
+          f"bytes; db stage seconds {json.dumps(db)} (writes "
+          f"{db['write'] / seconds:.0%} of the wall, "
+          f"{int(GLOBAL.get('db.commits'))} commits); peak "
+          f"torch.cuda.max_memory_allocated {peak_gib():.2f} GiB; launches "
+          f"{launches}", flush=True)
+    free_cached()
+    return launches
+
+
+def _match_ids(store: str) -> dict:
+    """{(mask image, target image): _id} of a store's matches."""
+    from colormipsearch_tpu_torch import testing
+
+    cols = testing.store_collections(store)
+    image = {str(d["_id"]): testing.neuron_key(d, "image")
+             for d in cols["neuronMetadata"]}
+    return {(image[str(m["maskImageRefId"])],
+             image[str(m["matchedImageRefId"])]): str(m["_id"])
+            for m in cols["cdMatches"]}
+
+
+def run_db_pipeline(work: str, card: str) -> dict:
+    """Phase 11: the DB pipeline (persist/, a sqlite store under build/)
+    with the port's CLI on phase 3's library: (a)
+    createColorDepthSearchDataInput --mips-storage DB over the targets
+    (with their variants) and the masks; (b) colorDepthSearch
+    --mips-storage DB --results-storage DB on phase 4's first P11_MASKS
+    masks, with phase 3's flags and then with phase 4's; (c)
+    gradientScores --results-storage DB over those masks with phase 4's
+    packed-variant store (warm) and the device-resident store, and a
+    processing tag; (d) normalizeGradientScores --results-storage DB.
+    After each step the store equals the same command's files on the
+    same inputs: (a) phase 9 (a)'s neuron JSONs, (b) phase 3's and then
+    phase 4's search, (c) phase 4's store run, (d) phase 9 (b)'s
+    normalize, row for row (matches keyed by the image files of their
+    neurons). Returns the launches of (b) and (c)."""
+    from colormipsearch_tpu_torch import testing
+
+    p11 = os.path.join(work, "p11")
+    os.makedirs(p11)
+    store = os.path.join(p11, "nb.sqlite")
+    with open(store + ".properties", "w") as f:
+        f.write(f"Store.Type=sqlite\nStore.Path={store}\n")
+    targets, masks = os.path.join(work, "targets"), \
+        os.path.join(work, "masks")
+    made = os.path.join(work, "p9", "in")
+
+    def neurons():
+        return testing.canonical_store(store)["neuronMetadata"]
+
+    # (a) the inputs into the store; the neurons = phase 9 (a)'s JSONs
+    _db_step("(a)", ["createColorDepthSearchDataInput", "-i", targets,
+                     "--gradients-location", os.path.join(targets, "grad"),
+                     "--zgap-location", os.path.join(targets, "zgap"),
+                     "--mips-storage", "DB"], store, unit="neurons",
+             count=lambda: len(neurons()))
+    _db_step("(a)", ["createColorDepthSearchDataInput", "-i", masks,
+                     "--mips-storage", "DB"], store, unit="neurons",
+             count=lambda: len(neurons()))
+    want = []
+    for name in ("targets.json", "masks.json"):
+        with open(os.path.join(made, name)) as f:
+            want.extend(json.load(f))
+    _require_same("phase 11 (a): the stored neurons vs phase 9 (a)'s "
+                  "neuron JSONs",
+                  {n["computeFiles"]["InputColorDepthImage"]: n
+                   for n in neurons()},
+                  {n["computeFiles"]["InputColorDepthImage"]: n
+                   for n in want})
+    if len(neurons()) != len(want):
+        raise AssertionError(f"phase 11 (a): {len(neurons())} neurons "
+                             f"stored, {len(want)} made")
+    mask_files = {os.path.join(masks, f"m{i:05d}.png")
+                  for i in range(P11_MASKS)}
+
+    def fs_rows(root, keep=lambda row: True):
+        return {k: v for k, v in testing.fs_match_rows(root, key="image")
+                .items() if k[0] in mask_files and keep(v)}
+
+    def db_rows(keep=lambda row: True):
+        return {k: v for k, v in testing.store_match_rows(
+            store, key="image").items() if keep(v)}
+
+    # (b) the search from the store into the store: with phase 3's flags
+    # (K1-K4) = phase 3's matches of these masks, then with phase 4's
+    # (--pctPositivePixels 0: every pair above 0, no emit top-k) = phase
+    # 4's search, upserted over the first run's rows, which keep their ids
+    search = ["colorDepthSearch", "-m", f"masks:0:{P11_MASKS}", "-i",
+              "targets", "--mips-storage", "DB", "--results-storage", "DB",
+              "--device", DEVICE]
+    launches = _db_step("(b)", [*search, *FLAGS], store, CDS_KERNELS,
+                        count=lambda: len(db_rows()))
+    _require_same("phase 11 (b): the stored matches vs phase 3's",
+                  db_rows(), fs_rows(os.path.join(work, "out", "masks")))
+    first_ids = _match_ids(store)
+    cands = _db_step("(b)", [*search, *FLAGS[:-2], "--pctPositivePixels",
+                             "0"], store, tuple(CDS_KERNELS)[:3],
+                     count=lambda: len(db_rows()))
+    for k, v in cands.items():
+        launches[k] = launches.get(k, 0) + v
+    _require_same("phase 11 (b): the stored matches vs phase 4's search",
+                  db_rows(), fs_rows(os.path.join(work, "cds", "masks")))
+    ids = _match_ids(store)
+    if any(ids.get(k) != v for k, v in first_ids.items()):
+        raise AssertionError("phase 11 (b): the second search changed the "
+                             "ids of the first one's matches")
+
+    # (c) the shape pass through the device store = phase 4's store run
+    os.environ["CDS_SHAPE_STORE_DEVICE"] = "1"
+    try:
+        gs = _db_step("(c)", [
+            "gradientScores", "--matches", f"masks:0:{P11_MASKS}",
+            "--results-storage", "DB", "--maskThreshold", "20",
+            "--mirrorMask", "--device", DEVICE, "--packed-variants-store",
+            os.path.join(work, "store"), "--processing-tag", P11_TAG],
+            store, GS_KERNELS, count=lambda: len(db_rows(
+                lambda r: "gradientAreaGap" in r)))
+    finally:
+        del os.environ["CDS_SHAPE_STORE_DEVICE"]
+    for k, v in gs.items():
+        launches[k] = launches.get(k, 0) + v
+    scored = db_rows(lambda r: "gradientAreaGap" in r)
+    _require_same("phase 11 (c): the scored matches vs phase 4's store run",
+                  scored, fs_rows(os.path.join(work, "gs_store", "masks"),
+                                  lambda r: "gradientAreaGap" in r))
+    tagged = {n["computeFiles"]["InputColorDepthImage"] for n in neurons()
+              if P11_TAG in (n.get("processedTags") or {})
+              .get("GradientScore", ())}
+    involved = {f for pair in scored for f in pair}
+    if tagged != involved:
+        raise AssertionError(f"phase 11 (c): {len(tagged)} neurons carry "
+                             f"the tag, {len(involved)} were scored")
+    print(f"phase 11 (c): the tag {P11_TAG} on the {len(tagged)} mask and "
+          "target neurons of the scored matches, and on no other",
+          flush=True)
+
+    # (d) normalize = phase 9 (b)'s normalize of phase 4's store run
+    _db_step("(d)", ["normalizeGradientScores", "--matches",
+                     f"masks:0:{P11_MASKS}", "--results-storage", "DB"],
+             store, count=lambda: len(scored))
+
+    def eligible(row):
+        return row.get("gradientAreaGap", -1) >= 0
+
+    _require_same("phase 11 (d): the normalized matches vs phase 9 (b)'s "
+                  "files", db_rows(eligible),
+                  fs_rows(os.path.join(work, "p9", "norm", "masks"),
+                          eligible))
+    print(f"phase 11: store {os.path.getsize(store)} bytes; launches of "
+          f"(b) and (c) {launches} ({card})", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -3165,6 +3372,14 @@ def main() -> int:
         run_cross_process(work, card, mesh_times)
         phases["10 cross-process mesh"] = time.time() - t0
         print(f"phase 10 seconds: {phases['10 cross-process mesh']:.1f}",
+              flush=True)
+        # phase 11
+        t0 = time.time()
+        db_launches = run_db_pipeline(work, card)
+        for k in (*CDS_KERNELS, *GS_KERNELS):
+            launches[k] += db_launches[k]
+        phases["11 DB pipeline"] = time.time() - t0
+        print(f"phase 11 seconds: {phases['11 DB pipeline']:.1f}",
               flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -15,6 +15,7 @@ commands that run the device also take ``--device {cuda,cpu}``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -200,8 +201,8 @@ def configure_color_depth_search(sp):
     sp.add_argument("--processing-tag", dest="processingTag", default="")
     sp.add_argument("--mips-storage", dest="mipsStorage",
                     choices=["FS", "DB"], default="FS",
-                    help="FS: -m/-i are neuron JSON files (the port has "
-                         "no DB backend)")
+                    help="FS: -m/-i are neuron JSON files; DB: they are "
+                         "library names in the metadata store")
     sp.add_argument("--update-matches", dest="updateMatches",
                     action="store_true")
     sp.add_argument("--max-matches-per-mask", dest="maxMatchesPerMask",
@@ -293,16 +294,52 @@ def _read_neuron_sources(specs, index, length, tags, names,
     return out
 
 
+def _daos(args):
+    """The DAOs of the store that ``--config`` names (persist/)."""
+    from colormipsearch_tpu_torch.persist import Config, DaosProvider
+
+    return DaosProvider(Config(getattr(args, "configFile", None)))
+
+
+def _read_db_neuron_sources(daos, alignment_space, specs, index, length,
+                            tags, names, datasets=None, terms=None,
+                            excluded_terms=None) -> list[Neuron]:
+    """--mips-storage DB: each spec is a library name
+    (location[:offset[:length]]) selected in the neuron store."""
+    from colormipsearch_tpu_torch.persist.requests import (
+        NeuronSelector,
+        PagedRequest,
+    )
+
+    out: list[Neuron] = []
+    for spec in specs:
+        arg = ListArg.parse(spec)
+        sel = NeuronSelector(
+            alignment_space=alignment_space, libraries=[arg.location],
+            tags=list(tags or ()), names=list(names or ()),
+            datasets=list(datasets or ()), annotations=list(terms or ()),
+            excluded_annotations=list(excluded_terms or ()))
+        page = PagedRequest(offset=arg.offset, size=max(arg.length, 0))
+        out.extend(daos.neuron_metadata_dao.find_neurons(sel, page))
+    if index > 0:
+        out = out[index:]
+    if length > 0:
+        out = out[:length]
+    return out
+
+
 def cmd_color_depth_search(args) -> int:
-    if args.mipsStorage == "DB" or args.resultsStorage == "DB":
-        raise not_ported("the DB storage backend (--mips-storage DB / "
-                         "--results-storage DB)", 4)
     device = torch.device(args.device)
-    masks = _read_neuron_sources(
+    daos = _daos(args) if "DB" in (args.mipsStorage, args.resultsStorage) \
+        else None
+    read = functools.partial(_read_db_neuron_sources, daos,
+                             args.alignment_space) \
+        if args.mipsStorage == "DB" else _read_neuron_sources
+    masks = read(
         args.masks, args.masks_index, args.masks_length,
         args.masks_tags, args.masks_published_names,
         args.masks_datasets, args.masks_terms, args.excluded_masks_terms)
-    targets = _read_neuron_sources(
+    targets = read(
         args.targets, args.targets_index, args.targets_length,
         args.targets_tags, args.targets_published_names,
         args.targets_datasets, args.targets_terms,
@@ -331,17 +368,43 @@ def cmd_color_depth_search(args) -> int:
 
     # streaming result writes: flush every --write-batch-size matches
     # instead of holding the full match set in RAM (the reference writes
-    # in partitions too — ColorDepthSearchCmd.java:297-316)
-    per_mask, per_target = _out_dirs(args, required=True)
-    write_cds_session(args.outputDir, [str(s) for s in args.masks],
-                      [str(s) for s in args.targets], params.as_map(),
-                      pretty=not args.noPrettyPrint)
-    writer = JSONMatchesWriter(
-        per_masks_dir=per_mask, per_targets_dir=per_target,
-        pretty=not args.noPrettyPrint,
-        # CDS results are ordered by matching pixels desc
-        # (ColorDepthSearchCmd.java:383)
-        ordering=lambda m: -(m.matching_pixels or 0))
+    # in partitions too — ColorDepthSearchCmd.java:297-316); DB flushes
+    # are idempotent upserts, FS flushes merge into the grouped files
+    if args.resultsStorage == "DB":
+        from colormipsearch_tpu_torch.dataio.db_io import (
+            DBNeuronMatchesWriter,
+        )
+
+        db_writer = DBNeuronMatchesWriter(daos)
+
+        def flush(ms):
+            # neurons read from files get their entity ids here (not
+            # atomic across processes, as in the JAX package)
+            for m in ms:
+                for n in (m.mask_image, m.matched_image):
+                    if n.entity_id is None:
+                        daos.neuron_metadata_dao.create_or_update(n)
+                m.mask_image_ref_id = m.mask_image.entity_id
+                m.matched_image_ref_id = m.matched_image.entity_id
+            return db_writer.write(ms)
+
+        finish = None
+    else:
+        per_mask, per_target = _out_dirs(args, required=True)
+        write_cds_session(args.outputDir, [str(s) for s in args.masks],
+                          [str(s) for s in args.targets], params.as_map(),
+                          pretty=not args.noPrettyPrint)
+        writer = JSONMatchesWriter(
+            per_masks_dir=per_mask, per_targets_dir=per_target,
+            pretty=not args.noPrettyPrint,
+            # CDS results are ordered by matching pixels desc
+            # (ColorDepthSearchCmd.java:383)
+            ordering=lambda m: -(m.matching_pixels or 0))
+
+        def flush(ms):
+            return writer.write(ms, append=True)
+
+        finish = writer.close  # flush deferred streaming rows
 
     total = 0
     if cap > 0:
@@ -349,7 +412,7 @@ def cmd_color_depth_search(args) -> int:
         # per-mask trim needs all tiles — collect then write once
         matches = engine.find_all_matches(masks, targets, tags=tags,
                                           max_matches_per_mask=cap)
-        writer.write(matches, append=True)
+        flush(matches)
         total = len(matches)
     else:
         pending: list = []
@@ -358,17 +421,21 @@ def cmd_color_depth_search(args) -> int:
                                                   tags=tags):
             pending.extend(chunk)
             if len(pending) >= batch_size:
-                writer.write(pending, append=True)
+                flush(pending)
                 total += len(pending)
                 first_flush = False
                 pending = []
         if pending or first_flush:
-            writer.write(pending, append=True)
+            flush(pending)
             total += len(pending)
-    writer.close()  # flush deferred streaming rows
-    LOG.info("wrote %d matches to grouped files", total)
+    if finish is not None:
+        finish()
+    LOG.info("wrote %d matches to %s", total, "the DB store"
+             if args.resultsStorage == "DB" else "grouped files")
     # one machine-parseable line with every stage counter
     LOG.info("cds stage seconds: %s", json.dumps(stage_seconds()))
+    if daos is not None:
+        LOG.info("db stage seconds: %s", json.dumps(stage_seconds("db")))
     return 0
 
 
@@ -378,12 +445,16 @@ _STAGES = {
             "packScatter"),
     "gs": ("queryPack", "storeLookup", "storeUpload", "deviceTileBuild",
            "storeGather", "dispatch"),
+    # the DB store's writes (each with its commit) and reads
+    # (persist/store.py)
+    "db": ("write", "read"),
 }
 
 
 def stage_seconds(engine: str = "cds") -> dict:
     """The per-stage seconds so far of the pixel-match ("cds") or the
-    shape ("gs") engine (utils/metrics GLOBAL)."""
+    shape ("gs") engine, or of the DB store ("db") (utils/metrics
+    GLOBAL)."""
     from colormipsearch_tpu_torch.utils.metrics import GLOBAL
 
     return {s: round(GLOBAL.get(f"{engine}.{s}.seconds"), 2)
@@ -433,9 +504,6 @@ def configure_gradient_scores(sp):
 def cmd_gradient_scores(args) -> int:
     from colormipsearch_tpu_torch.engine.gradscore import GradScoreEngine
 
-    if args.resultsStorage == "DB":
-        raise not_ported("the DB storage backend (--results-storage DB)",
-                         4)
     params = _cds_params(args)
     pack_store = args.packStore or os.environ.get("CDS_SHAPE_PACK_DIR") \
         or None
@@ -444,14 +512,33 @@ def cmd_gradient_scores(args) -> int:
         use_device=args.use_device,
         decode_workers=getattr(args, "cdsConcurrency", 0) or None,
         pack_store=pack_store)
-    locations = JSONMatchesReader.list_matches_locations(
-        args.matches, args.matches_index, args.matches_length)
-    per_mask, _ = _out_dirs(args, required=True)
-    writer = JSONMatchesWriter(
-        per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
-        ordering=lambda m: -(m.normalized_score or 0.0))
-    LOG.info("gradientScores over %d match files on %s", len(locations),
-             engine.device)
+    use_db = args.resultsStorage == "DB"
+    if use_db:
+        from colormipsearch_tpu_torch.dataio.db_io import (
+            DBNeuronMatchesReader,
+            DBNeuronMatchesWriter,
+        )
+
+        daos = _daos(args)
+        db_reader = DBNeuronMatchesReader(daos)
+        locations = db_reader.list_matches_locations(
+            common.gradient_mask_sources(args))
+        if args.matches_index > 0:
+            locations = locations[args.matches_index:]
+        if args.matches_length > 0:
+            locations = locations[:args.matches_length]
+        mask_selector = common.gradient_mask_selector(args)
+        target_selector = common.gradient_target_selector(args)
+        writer = DBNeuronMatchesWriter(daos)
+    else:
+        locations = JSONMatchesReader.list_matches_locations(
+            args.matches, args.matches_index, args.matches_length)
+        per_mask, _ = _out_dirs(args, required=True)
+        writer = JSONMatchesWriter(
+            per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
+            ordering=lambda m: -(m.normalized_score or 0.0))
+    LOG.info("gradientScores over %d match %s on %s", len(locations),
+             "mask ids" if use_db else "files", engine.device)
 
     # Device-resident shape store auto-default: at 32 or more mask files
     # the one-time field upload amortizes over enough masks (the JAX
@@ -473,11 +560,19 @@ def cmd_gradient_scores(args) -> int:
         roi_rgb = mips_io.load_image(FileData(args.queryROIMask)).as_rgb()
 
     for loc in locations:
-        matches = JSONMatchesReader.read_matches(loc)
-        if args.pctPositivePixels > 0:
-            thr = args.pctPositivePixels / 100
-            matches = [m for m in matches
-                       if (m.matching_pixels_ratio or 0) >= thr]
+        if use_db:
+            matches = db_reader.read_matches_by_mask(
+                loc, min_ratio=args.pctPositivePixels / 100,
+                alignment_space=args.alignmentSpace,
+                mask_selector=mask_selector,
+                target_selector=target_selector,
+                match_tags=args.match_tags)
+        else:
+            matches = JSONMatchesReader.read_matches(loc)
+            if args.pctPositivePixels > 0:
+                thr = args.pctPositivePixels / 100
+                matches = [m for m in matches
+                           if (m.matching_pixels_ratio or 0) >= thr]
         selected = select_best_matches(
             matches, args.nBestLines, args.nBestSamplesPerLine,
             args.nBestMatchesPerSample)
@@ -491,8 +586,25 @@ def cmd_gradient_scores(args) -> int:
                                 ProcessingType.GradientScore,
                                 [args.processingTag])
             writer.write_updates(scored)
+            if use_db and args.processingTag:
+                # persist the tag on mask and target neurons
+                # (CalculateGradientScoresCmd.updateProcessingTag)
+                _tag_neurons(daos, scored, ProcessingType.GradientScore,
+                             args.processingTag)
     LOG.info("gs stage seconds: %s", json.dumps(stage_seconds("gs")))
+    if use_db:
+        LOG.info("db stage seconds: %s", json.dumps(stage_seconds("db")))
     return 0
+
+
+def _tag_neurons(daos, matches, ptype, tag) -> None:
+    """Add a processing tag to the stored mask and target neurons of
+    `matches`, each neuron once."""
+    neurons = {id(n): n for m in matches
+               for n in (m.mask_image, m.matched_image)
+               if n is not None and n.entity_id is not None}
+    daos.neuron_metadata_dao.add_processing_tags(neurons.values(), ptype,
+                                                 [tag])
 
 
 # -------------------------------------------------------------------------
@@ -522,16 +634,38 @@ def cmd_normalize_scores(args) -> int:
         update_normalized_scores,
     )
 
-    if args.resultsStorage == "DB":
-        raise not_ported("the DB storage backend (--results-storage DB)",
-                         4)
-    locations = JSONMatchesReader.list_matches_locations(args.matches)
-    per_mask, _ = _out_dirs(args, required=True)
-    writer = JSONMatchesWriter(
-        per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
-        ordering=lambda m: -(m.normalized_score or 0.0))
+    use_db = args.resultsStorage == "DB"
+    if use_db:
+        from colormipsearch_tpu_torch.dataio.db_io import (
+            DBNeuronMatchesReader,
+            DBNeuronMatchesWriter,
+        )
+
+        daos = _daos(args)
+        db_reader = DBNeuronMatchesReader(daos)
+        locations = db_reader.list_matches_locations(
+            common.gradient_mask_sources(args))
+        mask_selector = common.gradient_mask_selector(args)
+        target_selector = common.gradient_target_selector(args)
+        writer = DBNeuronMatchesWriter(daos)
+    else:
+        locations = JSONMatchesReader.list_matches_locations(args.matches)
+        per_mask, _ = _out_dirs(args, required=True)
+        writer = JSONMatchesWriter(
+            per_masks_dir=per_mask, pretty=not args.noPrettyPrint,
+            ordering=lambda m: -(m.normalized_score or 0.0))
     for loc in locations:
-        matches = JSONMatchesReader.read_matches(loc)
+        if use_db:
+            # the DB read pre-filters on gradientAreaGap >= 0 and the
+            # selector scope (NormalizeGradientScoresCmd:232-251)
+            matches = db_reader.read_matches_by_mask(
+                loc, min_ratio=args.pctPositivePixels / 100,
+                alignment_space=args.alignmentSpace,
+                mask_selector=mask_selector,
+                target_selector=target_selector,
+                match_tags=args.match_tags, min_grad_score=0)
+        else:
+            matches = JSONMatchesReader.read_matches(loc)
         eligible = [m for m in matches
                     if m.gradient_area_gap is not None
                     and m.gradient_area_gap >= 0
@@ -541,6 +675,13 @@ def cmd_normalize_scores(args) -> int:
             continue
         update_normalized_scores(eligible)
         writer.write_updates(eligible)
+        if use_db and args.processingTag:
+            # NormalizeGradientScoresCmd.updateProcessingTag:218-233
+            _tag_neurons(daos, eligible,
+                         ProcessingType.NormalizeGradientScore,
+                         args.processingTag)
+    if use_db:
+        LOG.info("db stage seconds: %s", json.dumps(stage_seconds("db")))
     return 0
 
 
@@ -609,8 +750,6 @@ def configure_create_data_input(sp):
 def cmd_create_data_input(args) -> int:
     if args.jacsURL:
         raise not_ported("the JACS input (--jacs-url)", 7)
-    if args.mipsStorage == "DB":
-        raise not_ported("the DB storage backend (--mips-storage DB)", 4)
     if not args.input:
         raise SystemExit("either -i/--input or --jacs-url is required")
     arg = ListArg.parse(args.input)
@@ -681,6 +820,13 @@ def _write_data_input(args, neurons, lib) -> int:
     for tag in args.tag:
         for n in neurons:
             n.tags.add(tag)
+    if args.mipsStorage == "DB":
+        from colormipsearch_tpu_torch.dataio.db_io import DBCDMIPsWriter
+
+        n = DBCDMIPsWriter(_daos(args)).write(neurons)
+        LOG.info("wrote %d neurons to the DB store", n)
+        LOG.info("db stage seconds: %s", json.dumps(stage_seconds("db")))
+        return 0
     out_name = args.output_filename or f"{lib}.json"
     out_dir = args.outputDir or "."
     out_path = Path(out_dir) / out_name

@@ -56,11 +56,11 @@ def ensure_common_args(sp: argparse.ArgumentParser) -> None:
 
 
 def add_gradient_selector_args(sp: argparse.ArgumentParser) -> None:
-    """The gradientScores DataSource selector family
-    (cmd/AbstractGradientScoresArgs.java:18-96): scopes which masks are
-    rescored, which of their matches qualify (by target neuron), and
-    which match records are read. They select only on the DB storage
-    backend, which the port does not have yet; with FS storage the
+    """The gradientScores/normalizeGradientScores DataSource selector
+    family (cmd/AbstractGradientScoresArgs.java:18-96): scopes which
+    masks are rescored, which of their matches qualify (by target
+    neuron), and which match records are read. They select on the DB
+    storage backend (``--results-storage DB``); with FS storage the
     match files name what is scored."""
     sp.add_argument("--alignment-space", "-as", dest="alignmentSpace",
                     default=None,
@@ -90,3 +90,73 @@ def add_gradient_selector_args(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--match-tags", nargs="*", default=[],
                     help="only score match records carrying one of "
                          "these tags")
+
+
+def parse_name_values(specs) -> list[tuple[str, str]]:
+    """``name:v1;v2`` NameValueArg specs → (name, value) pairs
+    (cmd/NameValueArg.java:13-33)."""
+    pairs: list[tuple[str, str]] = []
+    for spec in specs or ():
+        name, _, values = spec.partition(":")
+        name = name.strip()
+        if not name:
+            raise ValueError(f"name part cannot be blank in {spec!r}")
+        for v in values.split(";"):
+            v = v.strip()
+            if v:
+                pairs.append((name, v))
+    return pairs
+
+
+def gradient_mask_selector(args):
+    """Mask-side NeuronSelector from the selector-family args (shared
+    by listMatchesLocations and per-mask reads,
+    CalculateGradientScoresCmd.java:137-151,344-383)."""
+    from colormipsearch_tpu_torch.persist.requests import NeuronSelector
+
+    return NeuronSelector(
+        alignment_space=args.alignmentSpace,
+        names=list(args.masks_published_names),
+        mip_ids=list(args.masks_mips),
+        datasets=list(args.masks_datasets),
+        tags=list(args.masks_tags),
+        annotations=list(args.masks_terms),
+        excluded_annotations=list(args.excluded_masks_terms),
+        processed_tags=parse_name_values(args.masks_processing_tags),
+    )
+
+
+def gradient_target_selector(args):
+    """Target-side NeuronSelector (the per-match target filters,
+    CalculateGradientScoresCmd.getCDMatchesForMask:359-369)."""
+    from colormipsearch_tpu_torch.persist.requests import NeuronSelector
+
+    return NeuronSelector(
+        alignment_space=args.alignmentSpace,
+        libraries=list(args.targets_libraries),
+        names=list(args.targets_published_names),
+        mip_ids=list(args.targets_mips),
+        datasets=list(args.targets_datasets),
+        tags=list(args.targets_tags),
+        annotations=list(args.targets_terms),
+        excluded_annotations=list(args.excluded_targets_terms),
+        processed_tags=parse_name_values(args.targets_processing_tags),
+    )
+
+
+def gradient_mask_sources(args):
+    """One DataSourceParam per --masks-libraries/-md ListArg
+    (lib[:offset[:length]]) carrying the mask selector scope."""
+    import dataclasses
+
+    from colormipsearch_tpu_torch.io.mips import ListArg
+    from colormipsearch_tpu_torch.persist.requests import DataSourceParam
+
+    base = gradient_mask_selector(args)
+    sources = []
+    for spec in args.matches:
+        larg = ListArg.parse(spec)
+        sel = dataclasses.replace(base, libraries=[larg.location])
+        sources.append(DataSourceParam(selector=sel, offset=larg.offset,
+                                       size=larg.length))
+    return sources

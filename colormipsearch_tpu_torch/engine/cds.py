@@ -79,7 +79,7 @@ LOG = logging.getLogger(__name__)
 
 # the items of ROADMAP.md §1 ("Modules still to port") that a caller of
 # not_ported can name
-ROADMAP_ITEMS = {4: "the DB storage backend",
+ROADMAP_ITEMS = {5: "the export and tagging commands",
                  7: "the network clients"}
 
 

@@ -24,7 +24,9 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import json
 import os
+import sqlite3
 import struct
 import zlib
 
@@ -1968,3 +1970,95 @@ def forms_search(pixels: dict, work_dir, device, *, forms_dir=FORMS_DIR,
          m.matching_pixels, int(m.mirrored))
         for m in engine.find_all_matches(masks, targets)),
         np.int64).reshape(-1, 4)
+
+
+# The DB store in canonical form. Entity ids are time-based (model/ids.py),
+# so two stores, or two runs, never share one: documents are compared
+# without them, each match naming its neurons by a key of theirs.
+_ID_FIELDS = ("_id", "entityId")
+_REF_FIELDS = ("maskImageRefId", "matchedImageRefId")
+
+
+def store_collections(source) -> dict:
+    """{collection: [document]} of a store: `source` is the path of a
+    sqlite store file (read with the standard library alone), or such a
+    mapping already (a Mongo database's documents)."""
+    if not isinstance(source, (str, os.PathLike)):
+        return {name: list(docs) for name, docs in source.items()}
+    conn = sqlite3.connect(f"file:{os.fspath(source)}?mode=ro", uri=True)
+    try:
+        names = [r[0] for r in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type = 'table'")]
+        return {name: [json.loads(r[0]) for r in conn.execute(
+            f"SELECT doc FROM {name}")] for name in names}
+    finally:
+        conn.close()
+
+
+def neuron_key(doc: dict, key: str = "mipId"):
+    """A neuron document's key: (mipId, libraryName), or with key
+    "image" the path of its InputColorDepthImage (a zip entry as its
+    serialized object)."""
+    if doc is None:
+        return None
+    if key == "image":
+        fd = (doc.get("computeFiles") or {}).get("InputColorDepthImage")
+        return json.dumps(fd, sort_keys=True) if isinstance(fd, dict) \
+            else fd
+    return doc.get("mipId"), doc.get("libraryName")
+
+
+def canonical_store(source) -> dict:
+    """A store's documents in a form two stores can be compared in:
+    every collection that holds documents as a sorted list of them
+    without ``_id`` and ``entityId``, each match's maskImageRefId and
+    matchedImageRefId replaced by the (mipId, libraryName) of the neuron
+    it references (None for a dangling reference)."""
+    cols = store_collections(source)
+    by_id = {str(d["_id"]): d for d in cols.get("neuronMetadata", ())}
+    out = {}
+    for name, docs in cols.items():
+        if not docs:
+            continue  # an empty collection is an absent one, as in Mongo
+        canon = []
+        for d in docs:
+            c = {k: v for k, v in d.items() if k not in _ID_FIELDS}
+            for ref in _REF_FIELDS:
+                if ref in c:
+                    c[ref] = neuron_key(by_id.get(str(c[ref])))
+            canon.append(c)
+        out[name] = sorted(canon, key=lambda c: json.dumps(c,
+                                                           sort_keys=True))
+    return out
+
+
+def store_match_rows(source, key: str = "mipId") -> dict:
+    """{(mask key, target key): match fields} of a store's cdMatches (the
+    fields without ids and references; keys by neuron_key)."""
+    cols = store_collections(source)
+    by_id = {str(d["_id"]): d for d in cols.get("neuronMetadata", ())}
+    out = {}
+    for d in cols.get("cdMatches", ()):
+        pair = tuple(neuron_key(by_id.get(str(d.get(ref))), key)
+                     for ref in _REF_FIELDS)
+        if pair in out:
+            raise AssertionError(f"the store holds the pair {pair} twice")
+        out[pair] = {k: v for k, v in d.items()
+                     if k not in _ID_FIELDS + _REF_FIELDS}
+    return out
+
+
+def fs_match_rows(per_mask_dir, key: str = "mipId") -> dict:
+    """{(mask key, target key): match fields} of a directory of per-mask
+    result files, in store_match_rows' form (the row without its
+    embedded image, ids and references)."""
+    out = {}
+    for name in sorted(os.listdir(per_mask_dir)):
+        with open(os.path.join(per_mask_dir, name)) as f:
+            doc = json.load(f)
+        mask = neuron_key(doc["inputImage"], key)
+        for row in doc["results"]:
+            pair = (mask, neuron_key(row["image"], key))
+            out[pair] = {k: v for k, v in row.items()
+                         if k not in _ID_FIELDS + _REF_FIELDS + ("image",)}
+    return out

@@ -273,19 +273,114 @@ def test_unknown_union_form_is_a_value_error(monkeypatch):
         CDSearchEngine(CDSParams(), device="cpu")
 
 
-def test_db_storage_raises(tmp_path):
-    args = _inputs(tmp_path, seed=45, n_targets=2, n_masks=1)
-    for flag in ("--mips-storage", "--results-storage"):
-        with pytest.raises(NotImplementedError):
-            torch_main.main(["colorDepthSearch", *args, "--device", "cpu",
-                             "-od", str(tmp_path / "o"), flag, "DB"])
+def _db_library(tmp_path):
+    """A library with gradient and z-gap variants: 2 masks, then 6
+    targets, in one directory (lib:0:2 and lib:2:6)."""
+    rng = np.random.default_rng(48)
+    lib = testing.synthetic_library(rng, 6, 2, 48, 72, target_fg=0.3,
+                                    mask_fg=0.1)
+    testing.write_neuron_images(tmp_path / "lib", lib.masks, "m", threads=2)
+    testing.write_neuron_images(
+        tmp_path / "lib", lib.targets, "t",
+        gradients=[testing.synthetic_gradient(rng, t) for t in lib.targets],
+        zgaps=[testing.synthetic_zgap(t, radius=4) for t in lib.targets],
+        threads=2)
+    return tmp_path / "lib"
+
+
+def _db_steps(lib: Path, out: Path, command: str, flag: str) -> list:
+    """The commands of a DB case: the inputs (in the store, or as JSON
+    under `out`), then the case's command with `flag` DB."""
+    variants = ["--gradients-location", str(lib / "grad"),
+                "--zgap-location", str(lib / "zgap")]
+    inputs = [["createColorDepthSearchDataInput", "-i", f"{lib}:0:2", "-l",
+               "masks"], ["createColorDepthSearchDataInput", "-i",
+                          f"{lib}:2:6", "-l", "targets", *variants]]
+    db_inputs = [[*argv, "--mips-storage", "DB"] for argv in inputs]
+    fs_inputs = [[*argv, "-od", str(out), "--output-filename",
+                  f"{argv[4]}.json"] for argv in inputs]
+    cds = ["colorDepthSearch", "--maskThreshold", "20", "--dataThreshold",
+           "20", "--pixColorFluctuation", "2.0", "--xyShift", "2",
+           "--mirrorMask", "--no-name-labels", "--no-colormap-labels",
+           "--pctPositivePixels", "0", "--cdsConcurrency", "2"]
+    db_cds = [*cds, "-m", "masks", "-i", "targets", "--mips-storage", "DB",
+              "--results-storage", "DB"]
+    gs = ["gradientScores", "--matches", "masks", "--results-storage", "DB",
+          "--maskThreshold", "20", "--mirrorMask", "--no-name-labels",
+          "--no-colormap-labels", "--negativeRadius", "4",
+          "--processing-tag", "g1"]
+    if command == "createColorDepthSearchDataInput":
+        return db_inputs
+    if command == "colorDepthSearch" and flag == "--mips-storage":
+        return db_inputs + [[*db_cds[:-2], "-od", str(out),
+                             "--perMaskSubdir", "masks"]]
+    if command == "colorDepthSearch" and flag == "--results-storage":
+        return fs_inputs + [[*cds, "-m", str(out / "masks.json"), "-i",
+                             str(out / "targets.json"),
+                             "--results-storage", "DB"]]
+    if command == "colorDepthSearch":
+        return db_inputs + [db_cds]
+    if command == "gradientScores":
+        return db_inputs + [db_cds, gs]
+    return db_inputs + [db_cds, gs, [
+        "normalizeGradientScores", "--matches", "masks",
+        "--results-storage", "DB", "--processing-tag", "n1"]]
+
+
+@pytest.mark.parametrize("path", [
+    ("createColorDepthSearchDataInput", "--mips-storage"),
+    ("colorDepthSearch", "--mips-storage"),
+    ("colorDepthSearch", "--results-storage"),
+    ("colorDepthSearch", "both"),
+    ("gradientScores", "--results-storage"),
+    ("normalizeGradientScores", "--results-storage"),
+], ids=lambda p: f"{p[0]}{p[1]}")
+def test_db_storage_completes_and_equals_jax(tmp_path, path):
+    """Each command completes with the DB storage and leaves the store
+    (and, for --mips-storage DB alone, the result files) the JAX CLI
+    leaves, in canonical form (testing.canonical_store)."""
+    command, flag = path
+    lib = _db_library(tmp_path)
+    stores, trees = {}, {}
+    for name, main in (("jax", jax_main.main), ("port", torch_main.main)):
+        store = tmp_path / f"{name}.sqlite"
+        cfg = tmp_path / f"{name}.properties"
+        cfg.write_text(f"Store.Type=sqlite\nStore.Path={store}\n")
+        out = tmp_path / f"{name}_out"
+        for argv in _db_steps(lib, out, command, flag):
+            if name == "port" and argv[0] in ("colorDepthSearch",
+                                              "gradientScores"):
+                argv = [*argv, "--device", "cpu"]
+            assert main([*argv, "--config", str(cfg)]) == 0, argv
+        stores[name] = testing.canonical_store(store)
+        if (out / "masks").is_dir():
+            trees[name] = testing.fs_match_rows(out / "masks")
+    assert stores["port"] == stores["jax"]
+    neurons = stores["port"]["neuronMetadata"]
+    if (command, flag) == ("colorDepthSearch", "--results-storage"):
+        # from files, the search stores only the neurons of its matches
+        assert len(neurons) == len({m[ref] for m in stores["port"]
+                                    ["cdMatches"] for ref in
+                                    ("maskImageRefId", "matchedImageRefId")})
+    else:
+        assert len(neurons) == 8
+    if command != "createColorDepthSearchDataInput":
+        rows = trees["port"] if "port" in trees \
+            else testing.store_match_rows(tmp_path / "port.sqlite")
+        assert rows and trees.get("port") == trees.get("jax")
+    if command in ("gradientScores", "normalizeGradientScores"):
+        assert any("gradientAreaGap" in m
+                   for m in stores["port"]["cdMatches"])
+        assert any(n.get("processedTags") for n in
+                   stores["port"]["neuronMetadata"])
 
 
 def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
     """In a process where jax and PIL cannot be imported, the port alone
     makes its inputs, searches, rescores and normalizes (v3), then makes
     the v2 lists, searches from them, rescores, transfers the scores of
-    the reverse files and merges: the whole file pipeline on the CPU."""
+    the reverse files and merges: the whole file pipeline on the CPU;
+    then the v3 steps again on the DB storage (a sqlite store)."""
     script = textwrap.dedent(f"""
         import os, sys
         sys.modules["jax"] = None
@@ -311,6 +406,9 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
         gs = ["--maskThreshold", "20", "--mirrorMask", "--no-name-labels",
               "--no-colormap-labels", "--negativeRadius", "4"]
         variants = ["-gp", "targets/grad", "-zgp", "targets/zgap"]
+        with open("store.properties", "w") as f:
+            f.write("Store.Type=sqlite\\nStore.Path=nb.sqlite\\n")
+        db = ["--config", "store.properties"]
         steps = [
             ["createColorDepthSearchDataInput", "-i", "targets",
              "--gradients-location", "targets/grad", "--zgap-location",
@@ -340,6 +438,18 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
             ["gradientScoresFromMatchedResults", "-rd", "b", "-revd",
              "fused/bylib", "-od", "b_rev"],
             ["mergeResults", "-rd", "a_gs", "b_rev", "-od", "merged"],
+            ["createColorDepthSearchDataInput", "-i", "targets",
+             "--gradients-location", "targets/grad", "--zgap-location",
+             "targets/zgap", "--mips-storage", "DB", *db],
+            ["createColorDepthSearchDataInput", "-i", "masks",
+             "--mips-storage", "DB", *db],
+            ["colorDepthSearch", "-m", "masks", "-i", "targets", *cds,
+             "--pctPositivePixels", "0", "--mips-storage", "DB",
+             "--results-storage", "DB", *db],
+            ["gradientScores", "--matches", "masks", *gs, "--device", "cpu",
+             "--results-storage", "DB", "--processing-tag", "g1", *db],
+            ["normalizeGradientScores", "--matches", "masks",
+             "--pctPositivePixels", "1", "--results-storage", "DB", *db],
         ]
         for argv in steps:
             rc = main(argv)
@@ -354,31 +464,42 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("STEPS")[1]) == 13
+    assert int(proc.stdout.split("STEPS")[1]) == 18
     v3 = list((tmp_path / "v3" / "masks").glob("*.json"))
     assert v3 and any(b'"normalizedScore"' in p.read_bytes() for p in v3)
     assert list((tmp_path / "fused" / "bylib").glob("*.json"))
     merged = list((tmp_path / "merged").glob("*.json"))
     assert merged and all(b'"results"' in p.read_bytes() for p in merged)
+    # the DB run stores the rows the file run wrote
+    stored = testing.store_match_rows(tmp_path / "nb.sqlite", key="image")
+    files = testing.fs_match_rows(tmp_path / "v3" / "masks", key="image")
+    assert files and {k: stored[k] for k in files} == files
 
 
 @pytest.mark.parametrize("path", [
     ("mesh", None, 3),
-    ("colorDepthSearch", "--mips-storage", 4),
-    ("colorDepthSearch", "--results-storage", 4),
-    ("gradientScores", "--results-storage", 4),
-    ("normalizeGradientScores", "--results-storage", 4),
-    ("createColorDepthSearchDataInput", "--mips-storage", 4),
+    ("daos", "ppp_matches_dao", 5),
+    ("daos", "published_lm_images_dao", 5),
     ("createColorDepthSearchDataInput", "--jacs-url", 7),
     ("createColorDepthSearchJSONInput", "--jacs-url", 7),
 ], ids=lambda p: f"{p[0]}{p[1] or ''}")
 def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
     """Every configuration the port raises NotImplementedError for names
-    its item of ROADMAP.md §1: the DB storage (4), the JACS input (7). The
-    cross-process mesh is ported; the shape pass across processes, which
-    the JAX package fails too, names ROADMAP.md §3."""
+    its item of ROADMAP.md §1: the DAOs of the export and tagging
+    commands (5), the JACS input (7). The cross-process mesh is ported;
+    the shape pass across processes, which the JAX package fails too,
+    names ROADMAP.md §3."""
     command, flag, item = path
     match = rf"ROADMAP\.md §1, port item {item}\)"
+    if command == "daos":
+        from colormipsearch_tpu_torch.persist import Config, DaosProvider
+
+        daos = DaosProvider(Config(overrides={
+            "Store.Path": str(tmp_path / "nb.sqlite")}))
+        with pytest.raises(NotImplementedError, match=match):
+            getattr(daos, flag)
+        daos.store.close()
+        return
     if command == "mesh":
         import torch.distributed as dist
 
@@ -391,13 +512,6 @@ def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §3"):
             GradScoreEngine(CDSParams(), device="cpu")
         return
-    value = "http://localhost:1" if flag == "--jacs-url" else "DB"
-    argv = {"colorDepthSearch": _inputs(tmp_path, seed=45, n_targets=2,
-                                        n_masks=1) + ["--device", "cpu"],
-            "gradientScores": ["--matches", str(tmp_path), "--device",
-                               "cpu"],
-            "normalizeGradientScores": ["--matches", str(tmp_path)],
-            }.get(command, ["-i", str(tmp_path)])
     with pytest.raises(NotImplementedError, match=match):
-        torch_main.main([command, *argv, flag, value,
-                         "-od", str(tmp_path / "o")])
+        torch_main.main([command, "-i", str(tmp_path), flag,
+                         "http://localhost:1", "-od", str(tmp_path / "o")])

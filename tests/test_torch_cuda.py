@@ -856,3 +856,62 @@ def test_cuda_v2_commands_write_the_cpu_files(cuda_device, tmp_path):
                          for p in sorted(out.rglob("*.json"))}
     assert any(k.startswith("gs/") for k in trees["cpu"])
     assert trees["cuda"] == trees["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_db_pipeline_equals_the_cpu_run(cuda_device, tmp_path,
+                                             monkeypatch):
+    """The four commands with the DB storage on the card: the store
+    equals a --device cpu run's in canonical form, and the search and
+    the shape pass launched their kernels (the emit top-k, K4, runs at
+    a positive --pctPositivePixels on an emit width below the padded
+    target count: 4 here, as the library has 12 targets)."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+
+    monkeypatch.setenv("CDS_EMIT_TOPK", "4")
+    rng = np.random.default_rng(11)
+    lib = testing.synthetic_library(rng, 12, 4, 48, 72, target_fg=0.3,
+                                    mask_fg=0.1)
+    testing.write_neuron_images(
+        tmp_path / "targets", lib.targets, "t",
+        gradients=[testing.synthetic_gradient(rng, t) for t in lib.targets],
+        zgaps=[testing.synthetic_zgap(t, radius=4) for t in lib.targets],
+        threads=2)
+    testing.write_neuron_images(tmp_path / "masks", lib.masks, "m",
+                                threads=2)
+    t = str(tmp_path / "targets")
+    stores, launches = {}, {}
+    for device in ("cpu", "cuda"):
+        store = tmp_path / f"{device}.sqlite"
+        cfg = tmp_path / f"{device}.properties"
+        cfg.write_text(f"Store.Type=sqlite\nStore.Path={store}\n")
+        db = ["--config", str(cfg)]
+        kbuild.reset_launches()
+        for argv in (
+                ["createColorDepthSearchDataInput", "-i", t,
+                 "--gradients-location", f"{t}/grad", "--zgap-location",
+                 f"{t}/zgap", "--mips-storage", "DB", *db],
+                ["createColorDepthSearchDataInput", "-i",
+                 str(tmp_path / "masks"), "--mips-storage", "DB", *db],
+                ["colorDepthSearch", "-m", "masks", "-i", "targets",
+                 "--maskThreshold", "20", "--dataThreshold", "20",
+                 "--pixColorFluctuation", "2.0", "--xyShift", "2",
+                 "--mirrorMask", "--no-name-labels", "--no-colormap-labels",
+                 "--pctPositivePixels", "1", "--mips-storage", "DB",
+                 "--results-storage", "DB", "--device", device, *db],
+                ["gradientScores", "--matches", "masks", "--maskThreshold",
+                 "20", "--mirrorMask", "--no-name-labels",
+                 "--no-colormap-labels", "--negativeRadius", "4",
+                 "--processing-tag", "g1", "--results-storage", "DB",
+                 "--device", device, *db],
+                ["normalizeGradientScores", "--matches", "masks",
+                 "--results-storage", "DB", *db]):
+            assert cli_main.main(argv) == 0, argv
+        stores[device] = testing.canonical_store(store)
+        launches[device] = dict(kbuild.launches)
+    assert stores["cuda"] == stores["cpu"]
+    assert any("gradientAreaGap" in m for m in stores["cuda"]["cdMatches"])
+    for name in ("scatter_key_planes", "expand_union_tables_from_pos",
+                 "score_query_batch_union_keys", "union_keys_topk",
+                 "shape_score_pairs_split"):
+        assert launches["cuda"][name] > 0 and not launches["cpu"][name], name

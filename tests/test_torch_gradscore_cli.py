@@ -116,6 +116,9 @@ def test_result_files_identical_to_jax(cds_run, tmp_path, monkeypatch,
 
 
 def test_device_cuda_without_gpu_and_db_storage_raise(cds_run, tmp_path):
+    """--device cuda without a GPU raises. (The DB storage no longer
+    raises: test_torch_cli.py test_db_storage_completes_and_equals_jax
+    runs it against the JAX CLI.)"""
     tmp, _ = cds_run
     root = tmp_path / "o"
     shutil.copytree(tmp / "cds", root)
@@ -124,9 +127,6 @@ def test_device_cuda_without_gpu_and_db_storage_raise(cds_run, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             torch_main.main(argv + ["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_main.main(argv + ["--device", "cpu", "--results-storage",
-                                "DB"])
 
 
 def test_variant_writers_and_gray16_png_reader(tmp_path, monkeypatch):

@@ -322,6 +322,138 @@ def test_cli_union_of_ranks_equals_jax(cli_library, jax_rows, tmp_path,
     assert merged == want
 
 
+# --- colorDepthSearch into one DB store at 2 ranks -----------------------
+
+
+MASK_MIPS = ["n00", "n20", "n40", "n59"]
+
+
+def _store_config(path: Path, store: Path, context: int = 0) -> Path:
+    """A --config file naming the store; concurrent writers each take a
+    TimebasedId.Context of their own, or their time-based ids can
+    coincide within a millisecond (model/ids.py) and one writer's
+    upsert replaces the other's document."""
+    path.write_text(f"Store.Type=sqlite\nStore.Path={store}\n"
+                    f"TimebasedId.Context={context}\n")
+    return path
+
+
+def _db_inputs(main, cli_library, store: Path) -> None:
+    """The library's neurons in `store`: all as library "mp", the four
+    masks also as library "mpmasks"."""
+    cfg = _store_config(store.with_suffix(".properties"), store)
+    lib = str(cli_library / "lib")
+    for extra in (["-l", "mp"], ["-l", "mpmasks", "--mips", *MASK_MIPS]):
+        assert main(["createColorDepthSearchDataInput", "-i", lib, *extra,
+                     "--mips-storage", "DB", "--config", str(cfg)]) == 0
+
+
+def test_db_search_at_two_ranks_equals_jax(cli_library, tmp_path):
+    """colorDepthSearch --mips-storage DB --results-storage DB at 2 ranks
+    into one sqlite file: each rank upserts its own columns' matches, and
+    the store equals the JAX CLI's one process's in canonical form; the
+    neurons keep their ids."""
+    from colormipsearch_tpu_torch.cli import main as torch_main
+
+    args = ["colorDepthSearch", "-m", "mpmasks", "-i", "mp",
+            "--mips-storage", "DB", "--results-storage", "DB",
+            *SEARCH_FLAGS]
+    ref = tmp_path / "jax.sqlite"
+    _db_inputs(jax_main.main, cli_library, ref)
+    assert jax_main.main([*args, "--config", str(_store_config(
+        tmp_path / "jax.properties", ref))]) == 0
+    shared = tmp_path / "shared.sqlite"
+    _db_inputs(torch_main.main, cli_library, shared)
+    before = testing.store_collections(shared)["neuronMetadata"]
+    _assert_ok(_launch(
+        tmp_path / "rdv", 2,
+        lambda r: ["--", *args, "--device", "cpu", "--config",
+                   _store_config(tmp_path / f"r{r}.properties", shared, r)]))
+    want = testing.canonical_store(ref)
+    assert len(want["cdMatches"]) >= 8
+    assert testing.canonical_store(shared) == want
+    assert sorted(map(str, (d["_id"] for d in before))) == sorted(
+        str(d["_id"]) for d in
+        testing.store_collections(shared)["neuronMetadata"])
+
+
+def _jax_ranks(tmp_path: Path, rank_args) -> list:
+    """The JAX CLI at 2 processes x 2 CPU devices through
+    scripts/run_multihost.py; [(returncode, stderr)]."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO),
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "scripts" / "run_multihost.py"),
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r), "--platform", "cpu", "--",
+         *[str(a) for a in rank_args(r)]],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            _out, err = p.communicate(timeout=TIMEOUT + 60)
+            results.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return results
+
+
+def test_fs_mips_db_results_at_two_ranks_in_both_packages(cli_library,
+                                                          tmp_path):
+    """colorDepthSearch --mips-storage FS --results-storage DB at 2 ranks
+    in each package: every rank's flush stores the neurons it has no id
+    for with a find-then-save that is not atomic across processes, in
+    both packages alike. What holds in both: every pair of the one
+    process's rows stored once, no dangling reference, and at most one
+    more document a mask (a mask both ranks stored at once); the targets
+    split over the ranks, so none is stored twice."""
+    args = ["colorDepthSearch", "-m", cli_library / "masks.json", "-i",
+            cli_library / "targets.json", "--results-storage", "DB",
+            *SEARCH_FLAGS]
+    ref = tmp_path / "one.sqlite"
+    assert jax_main.main([str(a) for a in args] + ["--config", str(
+        _store_config(tmp_path / "one.properties", ref))]) == 0
+    want = testing.store_match_rows(ref)
+    runs = {"port": lambda store, cfg: _assert_ok(_launch(
+                tmp_path / "rdv", 2,
+                lambda r: ["--", *args, "--device", "cpu", "--config",
+                           cfg(r)])),
+            "jax": lambda store, cfg: _assert_ok(_jax_ranks(
+                tmp_path, lambda r: [*args, "--config", cfg(r)]))}
+    for name, run in runs.items():
+        store = tmp_path / f"{name}.sqlite"
+        run(store, lambda r: _store_config(
+            tmp_path / f"{name}{r}.properties", store, r))
+        cols = testing.store_collections(store)
+        ids = {str(d["_id"]) for d in cols["neuronMetadata"]}
+        assert all(str(m[ref_]) in ids for m in cols["cdMatches"]
+                   for ref_ in ("maskImageRefId", "matchedImageRefId"))
+        keys = [d["mipId"] for d in cols["neuronMetadata"]]
+        twice = {k for k in keys if keys.count(k) > 1}
+        assert twice <= set(MASK_MIPS) and all(keys.count(k) == 2
+                                               for k in twice), name
+        assert set(keys) == {k[i][0] for k in want for i in (0, 1)}
+        # match rows by mipId: a doubled mask's rows land under either
+        # of its documents, once
+        rows = {}
+        by_id = {str(d["_id"]): d for d in cols["neuronMetadata"]}
+        for m in cols["cdMatches"]:
+            pair = tuple(testing.neuron_key(by_id[str(m[ref_])])
+                         for ref_ in ("maskImageRefId", "matchedImageRefId"))
+            assert pair not in rows, name
+            rows[pair] = {k: v for k, v in m.items() if k not in (
+                "_id", "entityId", "maskImageRefId", "matchedImageRefId")}
+        assert rows == want, name
+
+
 # --- refusals and failures ----------------------------------------------
 
 

@@ -161,7 +161,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      --results-storage DB must store phase 9 (b)'s normalized scores.
      Each step prints its wall seconds, rows/s, the store's size, the
      seconds of its store writes and reads, its peak GiB and launches;
-     the launches of (b) and (c) are added to the kernels line.
+     the launches of (b) and (c) are added to the kernels line;
+ 12. the publish tail with the port's CLI (no kernel) on phase 9's files
+     and phase 11's store: (a) exportData EM_CD_MATCHES from phase 9
+     (b)'s normalized files (16 masks; a copy with the targets'
+     alignment space set) with published URLs for every neuron, a
+     relative-URL index, a default image store and one per-metadata
+     store, then with --pctPositivePixels 1.0: each writes exactly the
+     rows counted here from its input (the best row per mask-target
+     pair with a gradientAreaGap of at least 0); (b) the same export
+     from phase 11's store equals (a)'s rows of its 4 masks, and
+     EM_MIPS and LM_MIPS from the store equal those from phase 9 (a)'s
+     neuron JSONs (2,080 files each); (c) importPPPResults over
+     synthetic PPP results (8 EM bodies x 500 LM matches, numpy-printed
+     skeleton lists, screenshots for every 10th match of 4 bodies) to
+     files, and with --mips-storage DB --results-storage DB
+     --processing-tag into phase 11's store once the 8 bodies are in
+     it: the stored rows equal the
+     files' rows, the tag is on exactly the 8 bodies; (d) exportData
+     EM_PPP_MATCHES from (c)'s files and from the store, equal (8 files,
+     4,000 rows); (e) convertPPPResults over (c)'s inputs, then
+     copyPPPMatches --top 100 --filterInternalFields (800 rows, no
+     internal field); (f) tag on a copy of phase 9 (a)'s targets (half
+     their published names) and on the store (--processing-tags
+     GradientScore=p11): exactly those neurons gain the tag. Each step
+     prints its wall seconds, its rows/s and, on the store, the seconds
+     of its store writes and reads and its commits.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -275,6 +300,21 @@ P10_TIMEOUT = 300       # phase 10: the launcher's collective timeout, s
 # and at 8 masks phase 11 took 223 s of a 913 s run there
 P11_MASKS = 4
 P11_TAG = "p11"         # phase 11 (c): the shape pass's processing tag
+# phase 12: the publish tail on phase 9's files and phase 11's store, and
+# importPPPResults over synthetic PPP results of P12_BODIES EM bodies x
+# P12_MATCHES LM matches (screenshots for every P12_SHOTS_EVERY-th match
+# of the first P12_SHOT_BODIES). Cut from 32 bodies with screenshots for
+# every match: there the import (twice) and the conversion took 34-36 s
+# each on an H100 host (~450 rows/s: the JSON writer, and one scan of a
+# 2,500-file screenshot directory a match) and phase 12 158.7 s, over its
+# 90 s
+P12_BODIES = 8
+P12_MATCHES = 500
+P12_SHOT_BODIES = 4
+P12_SHOTS_EVERY = 10
+P12_TOP = 100           # phase 12 (e): copyPPPMatches --top
+P12_SPACE = "JRC2018_Unisex_20x_HR"
+P12_TAG = "p12"         # phase 12 (c): importPPPResults' processing tag
 # phase 10: the selftest's steps whose times phase 7 took (its keys)
 P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
                     "batch_split": "batch_split (K11)",
@@ -3251,6 +3291,404 @@ def run_db_pipeline(work: str, card: str) -> dict:
     return launches
 
 
+def _publish_step(step: str, argv: list, count, unit: str = "rows",
+                  store: str | None = None) -> float:
+    """Phase 12: one command of the port's CLI (no kernel), on the store
+    when `store` is given, with fresh stage timers; it must exit 0 and
+    count() (read after the run) must be above 0. Prints its wall
+    seconds and its rate in `unit` and, on the store, the seconds of the
+    store's writes (each with its commit) and reads and the commits, on
+    a line of its own; returns the count."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.cli.commands import stage_seconds
+    from colormipsearch_tpu_torch.utils.metrics import GLOBAL
+
+    argv = [str(a) for a in argv]
+    if store is not None:
+        argv += ["--config", store + ".properties"]
+    GLOBAL.reset()
+    t0 = time.time()
+    rc = cli_main.main(argv)
+    seconds = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 12 {step}: {argv[0]} exited {rc}")
+    n = count()
+    if not n:
+        raise AssertionError(f"phase 12 {step}: {argv[0]} gave no {unit}")
+    line = (f"phase 12 {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
+            f"{n / seconds:.0f} {unit}/s")
+    if store is not None:
+        line += (f"; db stage seconds {json.dumps(stage_seconds('db'))} "
+                 f"({int(GLOBAL.get('db.commits'))} commits)")
+    print(line, flush=True)
+    return n
+
+
+def _json_files(root: str) -> dict:
+    """{file stem: document} of the JSON files in a directory."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        if name.endswith(".json"):
+            with open(os.path.join(root, name)) as f:
+                out[name[:-5]] = json.load(f)
+    return out
+
+
+def _n_results(root: str) -> int:
+    return sum(len(d["results"]) for d in _json_files(root).values())
+
+
+def _exportable(root: str, min_ratio: float = 0.0) -> dict:
+    """{(mask published name, target mipId): row} that exportData should
+    write from the per-mask files under root, counted here: the best row
+    (highest normalizedScore, the first of a tie) of each (mask, target)
+    pair among those with a gradientAreaGap of at least 0 and a
+    matchingPixelsRatio of at least min_ratio, kept when both neurons
+    have a published name and a library and the row matching pixels."""
+    out = {}
+    for doc in _json_files(root).values():
+        mask = doc["inputImage"]
+        best = {}
+        for r in doc["results"]:
+            if (r.get("gradientAreaGap") if r.get("gradientAreaGap")
+                    is not None else -1) < 0 \
+                    or (r.get("matchingPixelsRatio") or 0) < min_ratio:
+                continue
+            cur = best.get(r["image"]["mipId"])
+            if cur is None or (r.get("normalizedScore") or 0) > \
+                    (cur.get("normalizedScore") or 0):
+                best[r["image"]["mipId"]] = r
+        for mip, r in best.items():
+            if mask.get("publishedName") and mask.get("libraryName") \
+                    and r["image"].get("publishedName") \
+                    and r["image"].get("libraryName") \
+                    and r.get("matchingPixels") is not None:
+                out[mask["publishedName"], mip] = r
+    return out
+
+
+def _exported(root: str) -> dict:
+    """{(file stem, target id): row} of exportData's publish files."""
+    out = {}
+    for stem, doc in _json_files(root).items():
+        for r in doc["results"]:
+            if (stem, r["image"]["id"]) in out:
+                raise AssertionError(f"phase 12: {stem} exports "
+                                     f"{r['image']['id']} twice")
+            out[stem, r["image"]["id"]] = r
+    return out
+
+
+def _check_export(what: str, root: str, want: dict, mask_files: dict,
+                  target_files: dict) -> None:
+    """The publish files under root hold exactly the rows `want` (same
+    scores), each neuron's files as `mask_files` / `target_files` give
+    them for its published name."""
+    got = _exported(root)
+    _require_same(f"phase 12 {what}: the exported rows vs the rows counted "
+                  "from the input",
+                  {k: (r["normalizedScore"], r["matchingPixels"],
+                       r["mirrored"]) for k, r in got.items()},
+                  {k: (r["normalizedScore"], r["matchingPixels"],
+                       r["mirrored"]) for k, r in want.items()})
+    for stem, doc in _json_files(root).items():
+        name = doc["inputImage"]["publishedName"]
+        if doc["inputImage"].get("files") != mask_files(name):
+            raise AssertionError(f"phase 12 {what}: {stem}'s files "
+                                 f"{doc['inputImage'].get('files')}")
+        for r in doc["results"]:
+            name = r["image"]["publishedName"]
+            if r["image"].get("files") != target_files(name):
+                raise AssertionError(f"phase 12 {what}: {stem} x {name} "
+                                     f"files {r['image'].get('files')}")
+
+
+def _store_neurons(store: str) -> list:
+    """The neuron documents of a sqlite store, read alone."""
+    import sqlite3
+
+    conn = sqlite3.connect(f"file:{store}?mode=ro", uri=True)
+    try:
+        return [json.loads(r[0]) for r in conn.execute(
+            "SELECT doc FROM neuronMetadata")]
+    finally:
+        conn.close()
+
+
+def _ppp_file_rows(root: str) -> list:
+    """importPPPResults' files as testing.canonical_store gives the
+    pppMatches rows of the same run: each row with its file's
+    inputImage embedded, no entity ids, its maskImageRefId the
+    (mipId, libraryName) of the mask."""
+    from colormipsearch_tpu_torch import testing
+
+    rows = []
+    for doc in _json_files(root).values():
+        mask = {k: v for k, v in doc["inputImage"].items()
+                if k != "entityId"}
+        for r in doc["results"]:
+            c = {k: v for k, v in r.items() if k != "entityId"}
+            c["maskImage"] = mask
+            c["maskImageRefId"] = testing.neuron_key(mask)
+            if isinstance(c.get("image"), dict):
+                c["image"] = {k: v for k, v in c["image"].items()
+                              if k != "entityId"}
+            rows.append(c)
+    return sorted(rows, key=lambda c: json.dumps(c, sort_keys=True))
+
+
+def run_publish_tail(work: str, card: str, seed: int) -> None:
+    """Phase 12: the publish tail with the port's CLI on data the run
+    already has: (a) exportData EM_CD_MATCHES from phase 9 (b)'s
+    normalized files (a copy with the targets' alignment space set, so
+    that the image-store entry applies to them), with published URLs for
+    every neuron, a relative-URL index, a default image store and one
+    per-neuron-metadata store, and again with --pctPositivePixels 1.0:
+    the rows each writes = the rows counted here from its input; (b) the
+    same export from phase 11's store (its masks) = (a)'s rows of those
+    masks, then EM_MIPS and LM_MIPS from the store and from phase 9
+    (a)'s neuron JSONs, byte-identical; (c) importPPPResults over
+    synthetic PPP results (P12_BODIES x P12_MATCHES, screenshots on
+    P12_SHOT_BODIES) to files, and with --mips-storage DB
+    --results-storage DB and a processing tag into phase 11's store
+    after the EM bodies were added to it: its stored rows = its files'
+    rows, and the tag on exactly the bodies; (d) exportData
+    EM_PPP_MATCHES from (c)'s files and from the store, byte-identical;
+    (e) convertPPPResults over (c)'s inputs, then copyPPPMatches --top
+    P12_TOP --filterInternalFields; (f) tag on a copy of phase 9 (a)'s
+    targets (half their published names) and on the store (the neurons
+    phase 11 (c) tagged): exactly those neurons gain the tag."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.model import neuron_from_json
+    from colormipsearch_tpu_torch.persist import Config, DaosProvider
+
+    p12 = os.path.join(work, "p12")
+    os.makedirs(p12)
+    store = os.path.join(work, "p11", "nb.sqlite")
+    made = os.path.join(work, "p9", "in")
+
+    # (a) the CD export from files
+    norm = os.path.join(work, "p9", "norm", "masks")
+    cd_in = os.path.join(p12, "cd_in")
+    os.makedirs(cd_in)
+    for stem, doc in _json_files(norm).items():
+        for r in doc["results"]:
+            r["image"]["alignmentSpace"] = P12_SPACE
+        with open(os.path.join(cd_in, stem + ".json"), "w") as f:
+            json.dump(doc, f)
+    names = []
+    for name in ("masks.json", "targets.json"):
+        with open(os.path.join(work, name)) as f:
+            names.extend(n["publishedName"] for n in json.load(f))
+    url = "https://s3.amazonaws.com/janelia-flylight-color-depth/v3"
+    with open(os.path.join(p12, "urls.json"), "w") as f:
+        json.dump({n: {"CDM": f"{url}/cdm/{n}.png",
+                       "CDMThumbnail": f"{url}/thumbs/{n}.jpg"}
+                   for n in names}, f)
+    flags = ["--published-urls", os.path.join(p12, "urls.json"),
+             "--default-relative-url-index", "2", "--default-image-store",
+             "em-store", "--image-stores-per-neuron-meta",
+             f"{P12_SPACE},synthetic:lm-store"]
+
+    def files(store_name):
+        return lambda n: {"CDM": f"cdm/{n}.png",
+                          "CDMThumbnail": f"thumbs/{n}.jpg",
+                          "store": store_name}
+
+    print(f"phase 12 (a): {_n_results(cd_in)} input rows in "
+          f"{len(os.listdir(cd_in))} mask files", flush=True)
+    cd = ["exportData", "--exported-result-type", "EM_CD_MATCHES", *flags]
+    out_a = os.path.join(p12, "cd")
+    _publish_step("(a)", [*cd, "-md", cd_in, "-od", out_a],
+                  lambda: _n_results(out_a))
+    want = _exportable(cd_in)
+    _check_export("(a)", out_a, want, files("em-store"), files("lm-store"))
+    out_pct = os.path.join(p12, "cd_pct")
+    _publish_step("(a)", [*cd, "-md", cd_in, "--pctPositivePixels", "1.0",
+                          "-od", out_pct], lambda: _n_results(out_pct))
+    want_pct = _exportable(cd_in, 1.0 / 100)
+    if len(want_pct) == len(want):
+        raise AssertionError("phase 12 (a): --pctPositivePixels 1.0 drops "
+                             "no row")
+    _check_export("(a) --pctPositivePixels 1.0", out_pct, want_pct,
+                  files("em-store"), files("lm-store"))
+
+    # (b) the same export from phase 11's store = (a)'s rows of its masks
+    out_b = os.path.join(p12, "cd_db")
+    _publish_step("(b)", [*cd, "--results-storage", "DB", "-l", "masks",
+                          "-od", out_b], lambda: _n_results(out_b),
+                  store=store)
+
+    def rows(root):
+        return {stem: sorted((r["image"]["publishedName"],
+                              r["normalizedScore"], r["matchingPixels"],
+                              r["mirrored"], r["image"]["files"]["CDM"])
+                             for r in doc["results"])
+                for stem, doc in _json_files(root).items()}
+
+    from_files = rows(out_a)
+    p11_masks = {f"m{i:05d}" for i in range(P11_MASKS)}
+    _require_same("phase 12 (b): the store's export vs (a)'s files of its "
+                  "masks", rows(out_b),
+                  {k: v for k, v in from_files.items() if k in p11_masks})
+    for kind in ("EM_MIPS", "LM_MIPS"):
+        trees = {}
+        for source in ("FS", "DB"):
+            out = os.path.join(p12, f"{kind}_{source}")
+            argv = ["exportData", "--exported-result-type", kind,
+                    "-od", out]
+            if source == "FS":
+                argv += ["--mips", os.path.join(made, "targets.json"),
+                         os.path.join(made, "masks.json")]
+            else:
+                argv += ["--results-storage", "DB"]
+            _publish_step("(b)", argv, lambda: len(os.listdir(out)),
+                          unit="neuron files",
+                          store=store if source == "DB" else None)
+            trees[source] = _tree(out)
+        _require_same(f"phase 12 (b): {kind} from the store vs from phase 9 "
+                      "(a)'s neuron JSONs", trees["DB"], trees["FS"])
+
+    # (c) importPPPResults to files, then into the store
+    t0 = time.time()
+    ppp = testing.write_ppp_results(
+        os.path.join(p12, "ppp"), np.random.default_rng(seed),
+        P12_BODIES, P12_MATCHES, forms=("numpy",), rank_step=1.25,
+        shot_bodies=P12_SHOT_BODIES, shots_every=P12_SHOTS_EVERY)
+    print(f"phase 12 (c): {ppp.n_matches} PPP matches of {P12_BODIES} EM "
+          f"bodies written in {time.time() - t0:.2f}s", flush=True)
+    imp = ["importPPPResults", "-rd", os.path.join(p12, "ppp"),
+           "--em-library", testing.PPP_EM_LIBRARY, "--lm-library",
+           "FlyLight Gen1 MCFO", "-as", testing.PPP_ALIGNMENT_SPACE]
+    ppp_fs = os.path.join(p12, "ppp_fs")
+    _publish_step("(c)", [*imp, "-od", ppp_fs], lambda: _n_results(ppp_fs))
+    t0 = time.time()
+    daos = DaosProvider(Config(store + ".properties"))
+    for n in ppp.em_neurons:
+        daos.neuron_metadata_dao.create_or_update(
+            neuron_from_json(n.to_json()))
+    daos.store.close()
+    print(f"phase 12 (c): the {len(ppp.em_neurons)} EM bodies added to the "
+          f"store in {time.time() - t0:.2f}s", flush=True)
+    ppp_db = os.path.join(p12, "ppp_db")
+    canon = {}
+
+    def stored():
+        canon.update(testing.canonical_store(store))
+        return len(canon["pppMatches"])
+
+    n_stored = _publish_step(
+        "(c)", [*imp, "--mips-storage", "DB", "--results-storage", "DB",
+                "--processing-tag", P12_TAG, "-od", ppp_db], stored,
+        store=store)
+    if n_stored != ppp.n_matches or _n_results(ppp_fs) != ppp.n_matches:
+        raise AssertionError(f"phase 12 (c): {n_stored} rows stored, "
+                             f"{_n_results(ppp_fs)} in files, "
+                             f"{ppp.n_matches} made")
+    if canon["pppMatches"] != _ppp_file_rows(ppp_db):
+        raise AssertionError("phase 12 (c): the stored PPP rows differ from "
+                             "the same run's files")
+
+    def results(root):
+        return {stem: [{k: v for k, v in r.items()
+                        if k not in ("entityId", "maskImageRefId", "tags")}
+                       for r in doc["results"]]
+                for stem, doc in _json_files(root).items()}
+
+    _require_same("phase 12 (c): the import into the store vs to files "
+                  "(rows without ids and the processing tag)",
+                  results(ppp_db), results(ppp_fs))
+    tagged = {n["mipId"] for n in canon["neuronMetadata"]
+              if P12_TAG in (n.get("processedTags") or {}).get("PPPMatch",
+                                                                 ())}
+    if tagged != {n.mip_id for n in ppp.em_neurons}:
+        raise AssertionError(f"phase 12 (c): the tag {P12_TAG} on "
+                             f"{len(tagged)} neurons, {P12_BODIES} bodies")
+    shots = sum(bool(r.get("sourceImageFiles"))
+                for d in _json_files(ppp_fs).values() for r in d["results"])
+    print(f"phase 12 (c): {n_stored} stored rows = the files' rows; the tag "
+          f"{P12_TAG} on exactly the {len(tagged)} EM bodies; {shots} rows "
+          "with screenshots", flush=True)
+
+    # (d) the PPP export from (c)'s files and from the store
+    trees = {}
+    for source in ("FS", "DB"):
+        out = os.path.join(p12, f"ppp_pub_{source}")
+        argv = ["exportData", "--exported-result-type", "EM_PPP_MATCHES",
+                "-od", out]
+        argv += ["--matches", ppp_db] if source == "FS" \
+            else ["--results-storage", "DB"]
+        _publish_step("(d)", argv, lambda: _n_results(out),
+                      store=store if source == "DB" else None)
+        trees[source] = _tree(out)
+        if (len(trees[source]), _n_results(out)) != \
+                (P12_BODIES, ppp.n_matches):
+            raise AssertionError(f"phase 12 (d): {len(trees[source])} files "
+                                 f"with {_n_results(out)} rows from "
+                                 f"{source}")
+    _require_same("phase 12 (d): EM_PPP_MATCHES from the store vs from "
+                  "(c)'s files", trees["DB"], trees["FS"])
+
+    # (e) convertPPPResults, then copyPPPMatches
+    v2 = os.path.join(p12, "ppp_v2")
+    _publish_step("(e)", ["convertPPPResults", "-rd",
+                          os.path.join(p12, "ppp"), "-od", v2],
+                  lambda: _n_results(v2))
+    top = os.path.join(p12, "ppp_top")
+    _publish_step("(e)", ["copyPPPMatches", "-rd", v2, "--top", P12_TOP,
+                          "--filterInternalFields", "-od", top],
+                  lambda: _n_results(top))
+    if (_n_results(v2), _n_results(top)) != \
+            (ppp.n_matches, P12_BODIES * P12_TOP):
+        raise AssertionError(f"phase 12 (e): {_n_results(v2)} converted, "
+                             f"{_n_results(top)} copied rows")
+    if any(set(r) & {"sampleName", "sourceImageFiles", "skeletonMatches"}
+           for d in _json_files(top).values() for r in d["results"]):
+        raise AssertionError("phase 12 (e): an internal field was copied")
+
+    # (f) tag: half the targets' published names on a copy of phase 9
+    # (a)'s targets; on the store the neurons phase 11 (c) tagged
+    targets = os.path.join(p12, "targets.json")
+    shutil.copy(os.path.join(made, "targets.json"), targets)
+    with open(targets) as f:
+        half = sorted(n["publishedName"] for n in json.load(f))[::2]
+
+    def tagged_in_file(tag):
+        with open(targets) as f:
+            return {n["publishedName"] for n in json.load(f)
+                    if tag in n.get("tags", ())}
+
+    _publish_step("(f)", ["tag", "-i", targets, "--tag", "p12-half",
+                          "--published-names", *half],
+                  lambda: len(tagged_in_file("p12-half")), unit="neurons")
+    if tagged_in_file("p12-half") != set(half):
+        raise AssertionError("phase 12 (f): the file's tagged neurons are "
+                             "not the named half")
+
+    neurons = []
+
+    def tagged_in_store():
+        neurons[:] = _store_neurons(store)
+        return len([n for n in neurons if "p12-scored" in n.get("tags", ())])
+
+    _publish_step("(f)", ["tag", "--tag", "p12-scored", "--processing-tags",
+                          f"GradientScore={P11_TAG}"], tagged_in_store,
+                  unit="neurons", store=store)
+    scored = {n["mipId"] for n in neurons
+              if P11_TAG in (n.get("processedTags") or {})
+              .get("GradientScore", ())}
+    if {n["mipId"] for n in neurons
+            if "p12-scored" in n.get("tags", ())} != scored:
+        raise AssertionError("phase 12 (f): the store's tagged neurons are "
+                             f"not the {len(scored)} that phase 11 (c) "
+                             "tagged")
+    print(f"phase 12 (f): p12-half on exactly {len(half)} of phase 9 (a)'s "
+          f"targets, p12-scored on exactly the {len(scored)} neurons of "
+          f"phase 11 (c) ({card})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -3380,6 +3818,12 @@ def main() -> int:
             launches[k] += db_launches[k]
         phases["11 DB pipeline"] = time.time() - t0
         print(f"phase 11 seconds: {phases['11 DB pipeline']:.1f}",
+              flush=True)
+        # phase 12
+        t0 = time.time()
+        run_publish_tail(work, card, args.seed)
+        phases["12 publish tail"] = time.time() - t0
+        print(f"phase 12 seconds: {phases['12 publish tail']:.1f}",
               flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

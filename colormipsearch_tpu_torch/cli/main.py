@@ -16,7 +16,13 @@ import argparse
 import logging
 import sys
 
-from colormipsearch_tpu_torch.cli import commands, commands_v2, common
+from colormipsearch_tpu_torch.cli import (
+    commands,
+    commands_admin,
+    commands_export,
+    commands_v2,
+    common,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +63,14 @@ def build_parser() -> argparse.ArgumentParser:
     add("createColorDepthSearchDataInput", commands.cmd_create_data_input,
         commands.configure_create_data_input,
         help="create neuron metadata input from a library of images")
+    add("exportData", commands_export.cmd_export_data,
+        commands_export.configure_export_data,
+        help="export matches/MIPs to the NeuronBridge publish schema")
+    add("importPPPResults", commands_export.cmd_import_ppp,
+        commands_export.configure_import_ppp,
+        help="import raw PatchPerPix cov_scores results")
+    add("tag", commands_export.cmd_tag, commands_export.configure_tag,
+        help="bulk-tag neuron metadata")
 
     # ---- v2 commands (cmd_v2/Main.java:26-52) ----
     add("searchFromJSON", commands.cmd_search_from_json,
@@ -78,6 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
         commands_v2.cmd_create_json_input_v2,
         commands_v2.configure_create_json_input_v2,
         help="v2 MIP list creation from local images")
+    add("convertPPPResults", commands_admin.cmd_convert_ppp,
+        commands_admin.configure_convert_ppp,
+        help="raw PPP results to per-EM v2 JSON")
+    add("copyPPPMatches", commands_admin.cmd_copy_ppp,
+        commands_admin.configure_copy_ppp,
+        help="copy/trim PPP match files")
     return p
 
 

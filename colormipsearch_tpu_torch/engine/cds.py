@@ -79,8 +79,7 @@ LOG = logging.getLogger(__name__)
 
 # the items of ROADMAP.md §1 ("Modules still to port") that a caller of
 # not_ported can name
-ROADMAP_ITEMS = {5: "the export and tagging commands",
-                 7: "the network clients"}
+ROADMAP_ITEMS = {7: "the network clients"}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:

@@ -3,8 +3,8 @@
 Python analogue of the reference entity model (colormipsearch-api
 `model/AbstractNeuronEntity.java`, `EMNeuronEntity.java`,
 `LMNeuronEntity.java`, `AbstractMatchEntity.java`, `CDMatchEntity.java`,
-`FileData.java`) with JSON field names kept identical so result files
-interoperate with the reference pipeline.
+`PPPMatchEntity.java`, `FileData.java`) with JSON field names kept
+identical so result files interoperate with the reference pipeline.
 """
 
 from colormipsearch_tpu_torch.model.entities import (
@@ -12,10 +12,14 @@ from colormipsearch_tpu_torch.model.entities import (
     ComputeFileType,
     EMNeuron,
     FileData,
+    FileType,
     LMNeuron,
     MatchComputeFileType,
     Neuron,
+    PPPMatch,
+    PPPSkeletonMatch,
     ProcessingType,
+    PublishedLMImage,
     neuron_from_json,
 )
 from colormipsearch_tpu_torch.model.ids import TimebasedIdGenerator
@@ -25,10 +29,14 @@ __all__ = [
     "ComputeFileType",
     "EMNeuron",
     "FileData",
+    "FileType",
     "LMNeuron",
     "MatchComputeFileType",
     "Neuron",
+    "PPPMatch",
+    "PPPSkeletonMatch",
     "ProcessingType",
+    "PublishedLMImage",
     "TimebasedIdGenerator",
     "neuron_from_json",
 ]

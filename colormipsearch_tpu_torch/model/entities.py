@@ -4,7 +4,8 @@ Field names and JSON shapes mirror the reference model package so result
 files are interchangeable:
   * neurons   — model/AbstractNeuronEntity.java:24-50, EMNeuronEntity.java:8-33,
                 LMNeuronEntity.java:11-37
-  * matches   — model/AbstractMatchEntity.java:22-31, CDMatchEntity.java:11-72
+  * matches   — model/AbstractMatchEntity.java:22-31, CDMatchEntity.java:11-72,
+                PPPMatchEntity.java:14-37
   * file refs — model/FileData.java:22-30 (string or {dataType,fileName,entryName})
 """
 
@@ -38,6 +39,38 @@ class MatchComputeFileType(enum.Enum):
     MaskColorDepthImage = "MaskColorDepthImage"
     MaskGradientImage = "MaskGradientImage"
     MaskZGapImage = "MaskZGapImage"
+
+
+class FileType(enum.Enum):
+    """Publish-facing file types (model/FileType.java:5-28)."""
+    store = "store"
+    CDM = "CDM"
+    CDMThumbnail = "CDMThumbnail"
+    CDMInput = "CDMInput"
+    CDMMatch = "CDMMatch"
+    CDMBest = "CDMBest"
+    CDMBestThumbnail = "CDMBestThumbnail"
+    CDMSkel = "CDMSkel"
+    SignalMip = "SignalMip"
+    SignalMipMasked = "SignalMipMasked"
+    SignalMipMaskedSkel = "SignalMipMaskedSkel"
+    Gal4Expression = "Gal4Expression"
+    VisuallyLosslessStack = "VisuallyLosslessStack"
+    AlignedBodySWC = "AlignedBodySWC"
+    AlignedBodyOBJ = "AlignedBodyOBJ"
+    CDSResults = "CDSResults"
+    PPPMResults = "PPPMResults"
+
+
+# PPP screenshot suffixes (model/FileType.java:11-16 optionalFileSuffix)
+PPP_FILE_SUFFIXES = {
+    FileType.CDMBest: "_5_ch.png",
+    FileType.CDMBestThumbnail: "_5_ch.jpg",
+    FileType.CDMSkel: "_6_ch_skel.png",
+    FileType.SignalMip: "_1_raw.png",
+    FileType.SignalMipMasked: "_2_masked_raw.png",
+    FileType.SignalMipMaskedSkel: "_3_skel.png",
+}
 
 
 class ProcessingType(enum.Enum):
@@ -406,6 +439,188 @@ class CDMatch:
             match_files=dict(data.get("files") or {}),
         )
 
+
+@dataclasses.dataclass
+class PPPSkeletonMatch:
+    """Best-skeleton info of a PPP match (model/PPPSkeletonMatch)."""
+    id: Optional[str] = None
+    nblast_score: Optional[float] = None
+    coverage: Optional[float] = None
+    color: Optional[list] = None
+
+    def to_json(self) -> dict:
+        return _clean({"id": self.id, "nblastScore": self.nblast_score,
+                       "coverage": self.coverage, "color": self.color})
+
+    @classmethod
+    def from_json(cls, d: dict) -> "PPPSkeletonMatch":
+        return cls(d.get("id"), d.get("nblastScore"), d.get("coverage"),
+                   d.get("color"))
+
+
+@dataclasses.dataclass
+class PPPMatch:
+    """PatchPerPix match (model/PPPMatchEntity.java:14-37)."""
+    mask_image: Optional[Neuron] = None        # EM neuron
+    matched_image: Optional[Neuron] = None     # LM neuron
+    entity_id: Optional[int] = None
+    session_ref_id: Optional[int] = None
+    mask_image_ref_id: Optional[int] = None    # AbstractMatchEntity refs
+    matched_image_ref_id: Optional[int] = None
+    mirrored: bool = False
+    source_em_name: Optional[str] = None
+    source_em_library: Optional[str] = None
+    source_lm_name: Optional[str] = None
+    source_lm_library: Optional[str] = None
+    coverage_score: Optional[float] = None
+    aggregate_coverage: Optional[float] = None
+    rank: Optional[float] = None
+    lm_published_name: Optional[str] = None
+    lm_slide_code: Optional[str] = None
+    lm_objective: Optional[str] = None
+    input_alignment_space: Optional[str] = None
+    source_image_files: dict = dataclasses.field(default_factory=dict)
+    skeleton_matches: list = dataclasses.field(default_factory=list)
+    tags: set = dataclasses.field(default_factory=set)
+
+    JSON_CLASS = "org.janelia.colormipsearch.model.PPPMatchEntity"
+
+    def to_json(self) -> dict:
+        out: dict = {}
+        if self.mask_image is not None:
+            out["maskImage"] = self.mask_image.to_json()
+        if self.matched_image is not None:
+            out["image"] = self.matched_image.to_json()
+        out.update(_clean({
+            "entityId": str(self.entity_id)
+            if self.entity_id is not None else None,
+            "sessionRefId": str(self.session_ref_id)
+            if self.session_ref_id is not None else None,
+            "maskImageRefId": str(self.mask_image_ref_id)
+            if self.mask_image_ref_id is not None else None,
+            "matchedImageRefId": str(self.matched_image_ref_id)
+            if self.matched_image_ref_id is not None else None,
+            "mirrored": self.mirrored,
+            "sourceEmName": self.source_em_name,
+            "sourceEmLibrary": self.source_em_library,
+            "sourceLmName": self.source_lm_name,
+            "sourceLmLibrary": self.source_lm_library,
+            "coverageScore": self.coverage_score,
+            "aggregateCoverage": self.aggregate_coverage,
+            "rank": self.rank,
+            "lmPublishedName": self.lm_published_name,
+            "lmSlideCode": self.lm_slide_code,
+            "lmObjective": self.lm_objective,
+            "inputAlignmentSpace": self.input_alignment_space,
+            "sourceImageFiles": self.source_image_files or None,
+            "skeletonMatches": [s.to_json() for s in self.skeleton_matches]
+            or None,
+            "tags": sorted(self.tags) or None,
+        }))
+        out["class"] = self.JSON_CLASS
+        return out
+
+    @classmethod
+    def from_json(cls, data: dict) -> "PPPMatch":
+        mi = data.get("maskImage")
+        ti = data.get("image")
+        return cls(
+            mask_image=neuron_from_json(mi) if mi else None,
+            matched_image=neuron_from_json(ti) if ti else None,
+            entity_id=_opt_int(data.get("entityId")),
+            session_ref_id=_opt_int(data.get("sessionRefId")),
+            mask_image_ref_id=_opt_int(data.get("maskImageRefId")),
+            matched_image_ref_id=_opt_int(data.get("matchedImageRefId")),
+            mirrored=bool(data.get("mirrored", False)),
+            source_em_name=data.get("sourceEmName"),
+            source_em_library=data.get("sourceEmLibrary"),
+            source_lm_name=data.get("sourceLmName"),
+            source_lm_library=data.get("sourceLmLibrary"),
+            coverage_score=data.get("coverageScore"),
+            aggregate_coverage=data.get("aggregateCoverage"),
+            rank=data.get("rank"),
+            lm_published_name=data.get("lmPublishedName"),
+            lm_slide_code=data.get("lmSlideCode"),
+            lm_objective=data.get("lmObjective"),
+            input_alignment_space=data.get("inputAlignmentSpace"),
+            source_image_files=dict(data.get("sourceImageFiles") or {}),
+            skeleton_matches=[PPPSkeletonMatch.from_json(s)
+                              for s in data.get("skeletonMatches") or ()],
+            tags=set(data.get("tags") or ()),
+        )
+
+
+@dataclasses.dataclass
+class PublishedLMImage:
+    """One row of the `publishedLMImage` collection: the published LM
+    image of a sample+objective+area with its ancillary files (3D
+    stacks, Gal4 expression CDMs) — model/PublishedLMImage.java /
+    PublishedLMImageFields.java."""
+    entity_id: Optional[int] = None
+    sample_ref: Optional[str] = None
+    line: Optional[str] = None
+    area: Optional[str] = None
+    tile: Optional[str] = None
+    original_line: Optional[str] = None
+    slide_code: Optional[str] = None
+    objective: Optional[str] = None
+    alignment_space: Optional[str] = None
+    release_name: Optional[str] = None
+    files: dict = dataclasses.field(default_factory=dict)
+    # joined Gen1 GAL4/LexA expression rows for the same originalLine +
+    # area (PublishedLMImageMongoDao.createQueryPipeline $lookup)
+    gal4_expressions: list = dataclasses.field(default_factory=list)
+
+    def get_file(self, file_type: str) -> Optional[str]:
+        return self.files.get(file_type)
+
+    def has_file(self, file_type: str) -> bool:
+        return bool(self.files.get(file_type))
+
+    def gal4_expression_image(self, area: Optional[str]) -> Optional[str]:
+        """First Gen1 expression row matching the area (case-insensitive)
+        that carries a ColorDepthMip1 file
+        (PublishedLMImage.getGal4Expression4Image)."""
+        for g in self.gal4_expressions:
+            if area is not None and (g.area or "").lower() != area.lower():
+                continue
+            url = g.get_file("ColorDepthMip1")
+            if url:
+                return url
+        return None
+
+    def to_json(self) -> dict:
+        return _clean({
+            "_id": self.entity_id,
+            "sampleRef": self.sample_ref,
+            "line": self.line,
+            "area": self.area,
+            "tile": self.tile,
+            "originalLine": self.original_line,
+            "slideCode": self.slide_code,
+            "objective": self.objective,
+            "alignmentSpace": self.alignment_space,
+            "releaseName": self.release_name,
+            "files": dict(self.files),
+        })
+
+    @classmethod
+    def from_json(cls, data: dict) -> "PublishedLMImage":
+        return cls(
+            entity_id=data.get("_id") or data.get("id"),
+            sample_ref=data.get("sampleRef"),
+            line=data.get("line"),
+            area=data.get("area"),
+            tile=data.get("tile"),
+            original_line=data.get("originalLine"),
+            slide_code=data.get("slideCode"),
+            objective=data.get("objective"),
+            alignment_space=data.get("alignmentSpace"),
+            release_name=data.get("releaseName"),
+            files=dict(data.get("files") or {}),
+            gal4_expressions=[cls.from_json(g)
+                              for g in data.get("gal4") or ()],
+        )
 
 
 def _opt_int(v) -> Optional[int]:

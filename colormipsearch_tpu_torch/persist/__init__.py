@@ -6,6 +6,7 @@ from colormipsearch_tpu_torch.persist.daos import (
     CDMatchesDao,
     DaosProvider,
     NeuronMetadataDao,
+    PPPMatchesDao,
 )
 from colormipsearch_tpu_torch.persist.store import open_store
 
@@ -14,5 +15,6 @@ __all__ = [
     "Config",
     "DaosProvider",
     "NeuronMetadataDao",
+    "PPPMatchesDao",
     "open_store",
 ]

@@ -8,12 +8,10 @@ Mirrors the reference's Mongo DAO semantics:
     createOrUpdateAll upsert keyed on (maskImageRefId, matchedImageRefId)
     :112-160, findNeuronMatches aggregation that re-embeds the mask/target
     neurons into each match :275-295, score-only updates
+  * PPPMatchesDao — dao/mongo/PPPMatchesMongoDao.java
   * DaosProvider — dao/DaosProvider.java
 
-The JAX package's persist/daos.py, changed only in imports; its
-PPPMatchesDao and PublishedLMImageDao need the PPP and published-image
-entities, which come with the export and tagging commands (ROADMAP.md
-§1, port item 5): until then DaosProvider raises for them.
+The JAX package's persist/daos.py, changed only in imports.
 """
 
 from __future__ import annotations
@@ -23,7 +21,9 @@ from typing import Iterable, Optional, Sequence
 from colormipsearch_tpu_torch.model import (
     CDMatch,
     Neuron,
+    PPPMatch,
     ProcessingType,
+    PublishedLMImage,
     neuron_from_json,
 )
 from colormipsearch_tpu_torch.model.entities import _round_f32
@@ -282,6 +282,93 @@ def _neuron_matches(n: Neuron, sel: NeuronSelector) -> bool:
     return _matches(n.to_json(), sel.to_filter())
 
 
+class PPPMatchesDao:
+    COLLECTION = "pppMatches"
+
+    def __init__(self, store, id_gen: TimebasedIdGenerator):
+        self._col = store.collection(self.COLLECTION)
+        self._ids = id_gen
+
+    def save_all(self, matches: Sequence[PPPMatch]) -> int:
+        docs = []
+        for m in matches:
+            if m.entity_id is None:
+                m.entity_id = self._ids.generate_id()
+            doc = m.to_json()
+            doc["_id"] = str(m.entity_id)
+            docs.append(doc)
+        return self._col.insert_many(docs)
+
+    def find_all(self, filt: dict | None = None) -> list[PPPMatch]:
+        return [PPPMatch.from_json(
+            {k: v for k, v in d.items() if k != "_id"})
+            for d in self._col.find(filt or {})]
+
+
+class PublishedLMImageDao:
+    """`publishedLMImage` collection: published LM images per sample /
+    objective / area, with the Gen1 GAL4/LexA expression self-join
+    (dao/mongo/PublishedLMImageMongoDao.java)."""
+
+    COLLECTION = "publishedLMImage"
+    GAL4_RELEASES = ("Gen1 GAL4", "Gen1 LexA")
+
+    def __init__(self, store, id_gen: TimebasedIdGenerator):
+        self._col = store.collection(self.COLLECTION)
+        self._ids = id_gen
+
+    def save_all(self, images: Sequence[PublishedLMImage]) -> int:
+        docs = []
+        for im in images:
+            if im.entity_id is None:
+                im.entity_id = self._ids.generate_id()
+            doc = im.to_json()
+            doc["_id"] = str(im.entity_id)
+            docs.append(doc)
+        return self._col.insert_many(docs)
+
+    def get_published_images(self, alignment_space, sample_refs,
+                             objective=None) -> dict:
+        """{sampleRef: [PublishedLMImage]} filtered like
+        PublishedLMImageMongoDao.getPublishedImages."""
+        refs = [r for r in (sample_refs or ()) if r]
+        if not refs:
+            return {}
+        filt: dict = {"sampleRef": {"$in": refs}}
+        if alignment_space:
+            filt["alignmentSpace"] = alignment_space
+        if objective:
+            filt["objective"] = objective
+        out: dict = {}
+        for d in self._col.find(filt):
+            im = PublishedLMImage.from_json(d)
+            out.setdefault(im.sample_ref, []).append(im)
+        return out
+
+    def get_published_images_with_gal4_by_sample_objectives(
+            self, alignment_space, sample_refs, objective=None) -> dict:
+        """The $lookup pipeline of getPublishedImagesWithGal4BySampleObjectives:
+        each published image joins the Gen1 GAL4/LexA rows that share its
+        originalLine + area."""
+        by_ref = self.get_published_images(alignment_space, sample_refs,
+                                           objective)
+        lines = sorted({im.original_line
+                        for ims in by_ref.values() for im in ims
+                        if im.original_line})
+        gal4_rows: dict = {}
+        if lines:
+            for d in self._col.find({
+                    "originalLine": {"$in": lines},
+                    "releaseName": {"$in": list(self.GAL4_RELEASES)}}):
+                g = PublishedLMImage.from_json(d)
+                gal4_rows.setdefault((g.original_line, g.area), []).append(g)
+        for ims in by_ref.values():
+            for im in ims:
+                im.gal4_expressions = list(
+                    gal4_rows.get((im.original_line, im.area), ()))
+        return by_ref
+
+
 class DaosProvider:
     """Builds the store + DAO set from config (dao/DaosProvider.java)."""
 
@@ -293,15 +380,6 @@ class DaosProvider:
         self.neuron_metadata_dao = NeuronMetadataDao(self.store, self.id_gen)
         self.cd_matches_dao = CDMatchesDao(self.store, self.id_gen,
                                            self.neuron_metadata_dao)
-
-    @property
-    def ppp_matches_dao(self):
-        from colormipsearch_tpu_torch.engine.cds import not_ported
-
-        raise not_ported("the PPP matches DAO", 5)
-
-    @property
-    def published_lm_images_dao(self):
-        from colormipsearch_tpu_torch.engine.cds import not_ported
-
-        raise not_ported("the published LM images DAO", 5)
+        self.ppp_matches_dao = PPPMatchesDao(self.store, self.id_gen)
+        self.published_lm_images_dao = PublishedLMImageDao(self.store,
+                                                           self.id_gen)

@@ -26,6 +26,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import sqlite3
 import struct
 import zlib
@@ -35,7 +36,13 @@ import numpy as np
 from colormipsearch_tpu_torch.constants import RAINBOW_LUT
 from colormipsearch_tpu_torch.io import fax, zstd
 from colormipsearch_tpu_torch.io.jpeg import _QE
-from colormipsearch_tpu_torch.model import ComputeFileType, LMNeuron, Neuron
+from colormipsearch_tpu_torch.io.ppp import SCREENSHOT_TYPES
+from colormipsearch_tpu_torch.model import (
+    ComputeFileType,
+    EMNeuron,
+    LMNeuron,
+    Neuron,
+)
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
@@ -1977,6 +1984,8 @@ def forms_search(pixels: dict, work_dir, device, *, forms_dir=FORMS_DIR,
 # without them, each match naming its neurons by a key of theirs.
 _ID_FIELDS = ("_id", "entityId")
 _REF_FIELDS = ("maskImageRefId", "matchedImageRefId")
+# the neurons a document embeds (a PPP match's mask and LM images)
+_EMBEDDED_NEURONS = ("maskImage", "image")
 
 
 def store_collections(source) -> dict:
@@ -2011,9 +2020,10 @@ def neuron_key(doc: dict, key: str = "mipId"):
 def canonical_store(source) -> dict:
     """A store's documents in a form two stores can be compared in:
     every collection that holds documents as a sorted list of them
-    without ``_id`` and ``entityId``, each match's maskImageRefId and
-    matchedImageRefId replaced by the (mipId, libraryName) of the neuron
-    it references (None for a dangling reference)."""
+    without ``_id`` and ``entityId`` (also in the neurons it embeds),
+    each match's maskImageRefId and matchedImageRefId replaced by the
+    (mipId, libraryName) of the neuron it references (None for a
+    dangling reference)."""
     cols = store_collections(source)
     by_id = {str(d["_id"]): d for d in cols.get("neuronMetadata", ())}
     out = {}
@@ -2026,6 +2036,10 @@ def canonical_store(source) -> dict:
             for ref in _REF_FIELDS:
                 if ref in c:
                     c[ref] = neuron_key(by_id.get(str(c[ref])))
+            for emb in _EMBEDDED_NEURONS:
+                if isinstance(c.get(emb), dict):
+                    c[emb] = {k: v for k, v in c[emb].items()
+                              if k not in _ID_FIELDS}
             canon.append(c)
         out[name] = sorted(canon, key=lambda c: json.dumps(c,
                                                            sort_keys=True))
@@ -2061,4 +2075,250 @@ def fs_match_rows(per_mask_dir, key: str = "mipId") -> dict:
             pair = (mask, neuron_key(row["image"], key))
             out[pair] = {k: v for k, v in row.items()
                          if k not in _ID_FIELDS + _REF_FIELDS + ("image",)}
+    return out
+
+
+_MINTED_ID = re.compile(r'"(entityId|maskImageRefId|matchedImageRefId|'
+                        r'sessionRefId)": ?"(\d+)"')
+
+
+def canonical_ids(text: str, ordinals: dict) -> str:
+    """`text` (a JSON file's contents) with every id a command mints
+    replaced by its ordinal of first appearance in `ordinals`, which the
+    caller shares across the files of one tree, so that two runs' files
+    compare byte for byte and a reference still names what it named."""
+    def sub(m):
+        n = ordinals.setdefault(m.group(2), len(ordinals))
+        return m.group(0).replace(m.group(2), f"id{n}")
+
+    return _MINTED_ID.sub(sub, text)
+
+
+# Synthetic PatchPerPix (PPP) results, as the PPP pipeline writes them for
+# importPPPResults and convertPPPResults: per EM body a
+# `cov_scores_<em name>.json` ({em name: {lm name: raw match}}) under
+# `<em name>/<sub dir>/`, with a screenshots/ directory beside it.
+PPP_SUB_DIR = "lm_cable_length_20_v4_adj_by_cov_numba_agglo_aT"
+PPP_EM_LIBRARY = "flyem_hemibrain_1_2_1"
+PPP_ALIGNMENT_SPACE = "JRC2018_Unisex_20x_HR"
+PPP_EM_TYPES = ("PFNp_c", "SMP145", "", "LC10a")
+# LM name suffixes: objectives, the default anatomical area, another area
+# (neither an objective nor --anatomical-area's default) and no
+# _REG_UNISEX_ marker at all
+PPP_LM_SUFFIXES = ("40x", "63x", "Brain", "VNC", None)
+PPP_LIST_FORMS = ("json", "numpy", "ellipsis")
+PPP_POOL = 16  # skeleton-list groups per form (numpy prints slowly)
+PPP_BEST, PPP_ALL = 3, 20  # skeletons in a match's best and all lists
+
+
+@dataclasses.dataclass
+class PPPResults:
+    files: list[str]            # the cov_scores files, one per EM body
+    em_neurons: list[EMNeuron]  # the bodies as the neuron store holds them
+    n_matches: int              # LM matches in all the files
+
+
+def _ppp_list(values, form: str) -> str:
+    """A skeleton list as the PPP pipeline writes it: "json" a JSON list,
+    "numpy" numpy's print wrapped over lines, "ellipsis" numpy's print
+    cut to its first and last three entries around "..."."""
+    arr = np.asarray(values)
+    if form == "json":
+        return json.dumps(arr.tolist())
+    return np.array2string(arr, max_line_width=40, edgeitems=3,
+                           threshold=6 if form == "ellipsis" else 1 << 30)
+
+
+def _ppp_skeletons(rng, ids, form: str, colors_off: int) -> dict:
+    """One prefix's four lists for the skeletons `ids`; the colors list is
+    `colors_off` entries longer than the ids (then the reader drops it)."""
+    n = len(ids)
+    return {"skel_ids": _ppp_list(ids, form),
+            "nblast_scores": _ppp_list(np.round(
+                rng.uniform(-0.5, 1.0, n), 6), form),
+            "coverages": _ppp_list(np.round(rng.uniform(0, 80, n), 4), form),
+            "colors": _ppp_list(rng.integers(
+                0, 256, size=(max(n + colors_off, 1), 3)), form)}
+
+
+def write_ppp_results(root, rng: np.random.Generator, n_bodies: int,
+                      n_matches: int, *, forms=PPP_LIST_FORMS,
+                      rank_step: float = 1.0, shot_bodies: int = 0,
+                      shots_every: int = 1,
+                      strays: bool = False) -> PPPResults:
+    """`n_bodies` EM bodies with `n_matches` LM matches each under `root`.
+
+    Each raw match has a negative ``cov_score``, ``aggregate_coverage``,
+    ``mirrored`` (a bool or an int) and a float ``rank`` (the j-th best
+    `rank_step` * j, every seventh tied with the one before; written in
+    shuffled order), and its best (PPP_BEST) and all (PPP_ALL, the best
+    among them) skeleton lists in the forms of `forms` in turn, drawn from
+    PPP_POOL groups per form. Every fifth match has no ``all_*`` lists,
+    every third a colors list one entry longer than its ids. The first
+    `shot_bodies` bodies get a screenshot of every PPP type for every
+    `shots_every`-th match (ranks below 500 and at or above it), a
+    thumbnail and an unrelated file. With `strays`, the first body also
+    has an ``other_scores_`` file and a cov_scores file in another sub
+    directory."""
+    root = str(root)
+    files, neurons = [], []
+    pool: dict = {}
+
+    def skeletons(form: str, colors_off: int, j: int) -> tuple:
+        if (form, colors_off) not in pool:
+            groups = pool[form, colors_off] = []
+            for _ in range(PPP_POOL):
+                ids = rng.choice(10 ** 6, size=PPP_ALL, replace=False) + 1
+                # the best skeletons lead the all-lists
+                groups.append((
+                    _ppp_skeletons(rng, ids[:PPP_BEST], form, colors_off),
+                    {f"all_{k}": v for k, v in _ppp_skeletons(
+                        rng, ids, form, colors_off).items()}))
+        return pool[form, colors_off][j % PPP_POOL]
+
+    for b in range(n_bodies):
+        body = int(rng.integers(10 ** 8, 10 ** 10))
+        em_type = PPP_EM_TYPES[b % len(PPP_EM_TYPES)]
+        em_name = f"{body}-{em_type}-RT_18U" if b % 7 != 6 \
+            else f"hemibrain_body_{body}"
+        ranks = [rank_step * j for j in range(n_matches)]
+        for j in range(7, n_matches, 7):
+            ranks[j] = ranks[j - 1]
+        lm_map = {}
+        for j in map(int, rng.permutation(n_matches)):
+            suffix = PPP_LM_SUFFIXES[(b + j) % len(PPP_LM_SUFFIXES)]
+            lm = f"BJD_{b:03d}{j:04d}_AE_01-20190507_{j % 90:02d}_F1"
+            if suffix is not None:
+                lm += f"_REG_UNISEX_{suffix}"
+            form = forms[(b + j) % len(forms)]
+            raw = {"cov_score": -float(np.round(rng.uniform(1, 300), 9)),
+                   "aggregate_coverage": float(np.round(
+                       rng.uniform(0, 100), 9)),
+                   "mirrored": bool(j % 2) if j % 3 else j % 2,
+                   "rank": float(ranks[j])}
+            best, every = skeletons(form, int(j % 3 == 0), j)
+            raw.update(best)
+            if j % 5:
+                raw.update(every)
+            lm_map[lm] = raw
+        d = os.path.join(root, em_name, PPP_SUB_DIR)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"cov_scores_{em_name}.json")
+        with open(path, "w") as f:
+            json.dump({em_name: lm_map}, f, indent=1)
+        files.append(path)
+        if b < shot_bodies:
+            _write_screenshots(os.path.join(d, "screenshots"), em_name,
+                               lm_map, shots_every)
+        if strays and b == 0:
+            with open(os.path.join(d, f"other_scores_{em_name}.json"),
+                      "w") as f:
+                json.dump({em_name: dict(list(lm_map.items())[:2])}, f)
+            other = os.path.join(root, em_name, "other_run")
+            os.makedirs(other, exist_ok=True)
+            with open(os.path.join(other, f"cov_scores_{em_name}.json"),
+                      "w") as f:
+                json.dump({em_name: dict(list(lm_map.items())[:3])}, f)
+        neurons.append(EMNeuron(
+            mip_id=f"em-{body}", library_name=PPP_EM_LIBRARY,
+            alignment_space=PPP_ALIGNMENT_SPACE,
+            published_name=str(body) if b % 7 != 6 else em_name,
+            neuron_type=em_type or None))
+    return PPPResults(files, neurons, n_bodies * n_matches)
+
+
+def _write_screenshots(d: str, em_name: str, lm_map: dict,
+                       every: int) -> None:
+    os.makedirs(d, exist_ok=True)
+    lms = sorted(lm_map, key=lambda lm: lm_map[lm]["rank"])
+    for lm in lms[::every]:
+        for _, suffix in SCREENSHOT_TYPES:
+            with open(os.path.join(d, f"{em_name}-{lm}{suffix}"), "wb") as f:
+                f.write(b"png")
+    with open(os.path.join(d, f"{em_name}-{lms[0]}_5_ch.jpg"), "wb") as f:
+        f.write(b"jpg")
+    with open(os.path.join(d, f"999-{lms[0]}_1_raw.png"), "wb") as f:
+        f.write(b"png")
+
+
+# The publish collections the export reads beside the matches, made from
+# a store's own neurons and matches (their entity ids differ per store).
+def published_url_docs(neurons) -> list[dict]:
+    """publishedURL documents ({_id: entity id, uploaded: {...}}) for
+    every neuron but each fourth, which then has no searchable URL."""
+    out = []
+    for i, n in enumerate(neurons):
+        if i % 4 == 3:
+            continue
+        base = f"https://s3.amazonaws.com/janelia-flylight/v3/{n.mip_id}"
+        up = {"cdm": f"{base}/cdm.png",
+              "searchable_neurons": f"{base}/searchable.png"}
+        if i % 2 == 0:
+            up["cdm_thumbnail"] = f"{base}/cdm.jpg"
+        if i % 3 == 0:
+            up["skeletonswc"] = f"{base}/skel.swc"
+            up["skeletonobj"] = f"{base}/skel.obj"
+        out.append({"_id": n.entity_id, "uploaded": up})
+    return out
+
+
+def published_url_map(neurons) -> dict:
+    """--published-urls' file: {mip id (published name for every third
+    neuron): {FileType: url}} for every neuron but each fifth."""
+    out = {}
+    for i, n in enumerate(neurons):
+        if i % 5 == 4:
+            continue
+        key = n.published_name if i % 3 == 2 else n.mip_id
+        out[key] = {"CDM": f"https://s3.amazonaws.com/bucket/v3/cdm/"
+                           f"{n.mip_id}.png",
+                    "CDMThumbnail": f"/nrs/local/thumbs/{n.mip_id}.jpg"}
+    return out
+
+
+def published_lm_image_docs(lm_neurons, alias: str) -> list[dict]:
+    """publishedLMImage rows (PublishedLMImage.to_json, no ids) for the LM
+    neurons with a sample: each sample's image in the neuron's alignment
+    space or, for every other one, in `alias`, with a 3D stack but for
+    each fifth; a Gen1 GAL4 or LexA row with a ColorDepthMip1 for every
+    third line and area, and one for another area for the next."""
+    out = []
+    for i, n in enumerate(lm_neurons):
+        if not n.sample_ref:
+            continue
+        area = n.anatomical_area or "Brain"
+        space = n.alignment_space if i % 2 == 0 else alias
+        line = n.published_name
+        out.append({
+            "sampleRef": n.sample_ref, "line": line, "area": area,
+            "originalLine": line, "slideCode": n.slide_code,
+            "objective": n.objective or "40x", "alignmentSpace": space,
+            "releaseName": "Split-GAL4 Omnibus",
+            "files": {} if i % 5 == 4 else {
+                "VisuallyLosslessStack":
+                    f"https://s3.amazonaws.com/stacks/{line}/{i}.h5j"}})
+        if i % 3 < 2:
+            out.append({
+                "sampleRef": f"Gen1#{line}#{i}", "line": line,
+                "area": area if i % 3 == 0 else "VNC", "originalLine": line,
+                "alignmentSpace": space,
+                "releaseName": ("Gen1 GAL4", "Gen1 LexA")[i % 2],
+                "files": {"ColorDepthMip1":
+                          f"https://s3.amazonaws.com/gen1/{line}/{i}.png"}})
+    return out
+
+
+def pppm_url_docs(matches) -> list[dict]:
+    """pppmURL documents for every other PPP match with screenshots: the
+    uploaded CH and RAW files and the CH thumbnail."""
+    out = []
+    for i, m in enumerate(matches):
+        if i % 2 or not m.source_image_files:
+            continue
+        base = (f"https://s3.amazonaws.com/ppp/{m.source_em_name}/"
+                f"{m.source_lm_name}")
+        out.append({"_id": m.entity_id,
+                    "uploadedFiles": {"CH": f"{base}/ch.png",
+                                      "RAW": f"{base}/raw.png"},
+                    "uploadedThumbnails": {"CH": f"{base}/ch.jpg"}})
     return out

@@ -11,6 +11,7 @@ The JAX engine reads CDS_SPLIT_PLANES when it is imported, so the tests
 that set it for the port patch the JAX engine's flag too.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -380,7 +381,9 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
     makes its inputs, searches, rescores and normalizes (v3), then makes
     the v2 lists, searches from them, rescores, transfers the scores of
     the reverse files and merges: the whole file pipeline on the CPU;
-    then the v3 steps again on the DB storage (a sqlite store)."""
+    then the v3 steps again on the DB storage (a sqlite store); then the
+    publish tail: tags on files and in the store, exports from files and
+    from the store, and the PPP import, conversion and copy."""
     script = textwrap.dedent(f"""
         import os, sys
         sys.modules["jax"] = None
@@ -450,7 +453,27 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
              "--results-storage", "DB", "--processing-tag", "g1", *db],
             ["normalizeGradientScores", "--matches", "masks",
              "--pctPositivePixels", "1", "--results-storage", "DB", *db],
+            ["tag", "-i", "in/targets.json", "--tag", "published",
+             "--published-names", "t00000", "t00002"],
+            ["tag", "--tag", "scored", "--processing-tags",
+             "GradientScore=g1", *db],
+            ["exportData", "--exported-result-type", "EM_CD_MATCHES", "-md",
+             "v3/masks", "--default-image-store", "s", "-od", "pub"],
+            ["exportData", "--exported-result-type", "EM_CD_MATCHES",
+             "--results-storage", "DB", *db, "-od", "pub_db"],
+            ["exportData", "--exported-result-type", "LM_MIPS", "--mips",
+             "in/targets.json", "-od", "pub_mips"],
+            ["importPPPResults", "-rd", "ppp", "--em-library", "em",
+             "-od", "ppp_in"],
+            ["importPPPResults", "-rd", "ppp", "--results-storage", "DB",
+             "--mips-storage", "DB", *db],
+            ["exportData", "--exported-result-type", "EM_PPP_MATCHES",
+             "-md", "ppp_in", "-od", "pub_ppp"],
+            ["convertPPPResults", "-rd", "ppp", "-od", "ppp_v2"],
+            ["copyPPPMatches", "-rd", "ppp_v2", "--top", "2",
+             "--filterInternalFields", "-od", "ppp_top"],
         ]
+        testing.write_ppp_results("ppp", rng, 2, 5, shot_bodies=1)
         for argv in steps:
             rc = main(argv)
             if rc:
@@ -464,7 +487,7 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("STEPS")[1]) == 18
+    assert int(proc.stdout.split("STEPS")[1]) == 28
     v3 = list((tmp_path / "v3" / "masks").glob("*.json"))
     assert v3 and any(b'"normalizedScore"' in p.read_bytes() for p in v3)
     assert list((tmp_path / "fused" / "bylib").glob("*.json"))
@@ -474,32 +497,33 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
     stored = testing.store_match_rows(tmp_path / "nb.sqlite", key="image")
     files = testing.fs_match_rows(tmp_path / "v3" / "masks", key="image")
     assert files and {k: stored[k] for k in files} == files
+    # the publish tail: the tags, the exports from files and from the
+    # store, the PPP import, conversion and copy
+    tagged = [n for n in json.loads((tmp_path / "in" / "targets.json")
+                                    .read_text()) if n.get("tags")]
+    assert [n["publishedName"] for n in tagged] == ["t00000", "t00002"]
+    canon = testing.canonical_store(tmp_path / "nb.sqlite")
+    assert any("scored" in n.get("tags", ()) for n in canon["neuronMetadata"])
+    assert len(canon["pppMatches"]) == 10
+    for d, n in (("pub", len(v3)), ("pub_db", len(v3)), ("pub_mips", 6),
+                 ("pub_ppp", 2), ("ppp_v2", 2), ("ppp_top", 2)):
+        assert len(list((tmp_path / d).glob("*.json"))) == n, d
 
 
 @pytest.mark.parametrize("path", [
     ("mesh", None, 3),
-    ("daos", "ppp_matches_dao", 5),
-    ("daos", "published_lm_images_dao", 5),
+    ("importPPPResults", "--jacs-url", 7),
     ("createColorDepthSearchDataInput", "--jacs-url", 7),
     ("createColorDepthSearchJSONInput", "--jacs-url", 7),
 ], ids=lambda p: f"{p[0]}{p[1] or ''}")
 def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
     """Every configuration the port raises NotImplementedError for names
-    its item of ROADMAP.md §1: the DAOs of the export and tagging
-    commands (5), the JACS input (7). The cross-process mesh is ported;
-    the shape pass across processes, which the JAX package fails too,
-    names ROADMAP.md §3."""
+    its item of ROADMAP.md §1: the JACS input and the JACS sample lookup
+    of importPPPResults (7). The cross-process mesh is ported; the shape
+    pass across processes, which the JAX package fails too, names
+    ROADMAP.md §3."""
     command, flag, item = path
     match = rf"ROADMAP\.md §1, port item {item}\)"
-    if command == "daos":
-        from colormipsearch_tpu_torch.persist import Config, DaosProvider
-
-        daos = DaosProvider(Config(overrides={
-            "Store.Path": str(tmp_path / "nb.sqlite")}))
-        with pytest.raises(NotImplementedError, match=match):
-            getattr(daos, flag)
-        daos.store.close()
-        return
     if command == "mesh":
         import torch.distributed as dist
 
@@ -512,6 +536,7 @@ def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §3"):
             GradScoreEngine(CDSParams(), device="cpu")
         return
+    source = "-rd" if command == "importPPPResults" else "-i"
     with pytest.raises(NotImplementedError, match=match):
-        torch_main.main([command, "-i", str(tmp_path), flag,
+        torch_main.main([command, source, str(tmp_path), flag,
                          "http://localhost:1", "-od", str(tmp_path / "o")])

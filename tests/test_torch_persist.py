@@ -527,6 +527,78 @@ def op_db_io(pkg, daos):
     }
 
 
+def _no_ids(doc):
+    """A document without the ids its store minted (a reference to one
+    becomes True)."""
+    if isinstance(doc, dict):
+        return {k: (True if k.endswith("RefId") else _no_ids(v))
+                for k, v in doc.items() if k not in ("_id", "entityId")}
+    if isinstance(doc, list):
+        return [_no_ids(v) for v in doc]
+    return doc
+
+
+def op_ppp_matches(pkg, daos):
+    """PPPMatchesDao: save_all mints the ids a match lacks and keeps the
+    others, in one insert; find_all reads every row back, or a filter's
+    on the embedded neurons."""
+    m = pkg.model
+    em = daos.neuron_metadata_dao.save(_em(pkg, "e1", "100"))
+    lms = [_lm(pkg, f"l{i}", f"line{i}", sample_ref=f"Sample#{i}")
+           for i in range(3)]
+    ms = [m.PPPMatch(
+        mask_image=em, matched_image=lm, mask_image_ref_id=em.entity_id,
+        source_em_name="100-T-RT_18U", source_lm_name=f"line{i}-sc_REG_"
+        f"UNISEX_{'40x' if i else 'VNC'}", coverage_score=-7.5 * (i + 1),
+        aggregate_coverage=3.25 * i, rank=float(i), mirrored=bool(i % 2),
+        source_image_files={"CH": f"c{i}.png"} if i else {},
+        skeleton_matches=[m.PPPSkeletonMatch(str(10 + i), 0.5, 12.0,
+                                             [1, 2, i])],
+        tags={"ppp1"}) for i, lm in enumerate(lms)]
+    ms[2].entity_id = 42
+    dao = daos.ppp_matches_dao
+    n = dao.save_all(ms)
+    return {"saved": n,
+            "kept": dao.find_all({"_id": "42"})[0].rank,
+            "all": [_no_ids(x.to_json()) for x in dao.find_all()],
+            "by_lm": [x.source_lm_name for x in dao.find_all(
+                {"image.sampleRef": {"$in": ["Sample#1", "Sample#2"]}})]}
+
+
+def op_published_lm_images(pkg, daos):
+    """PublishedLMImageDao: the images of some samples, filtered by
+    alignment space and objective, and with the Gen1 GAL4/LexA rows of
+    their original line and area joined."""
+    lms = [_lm(pkg, f"l{i}", f"line{i % 3}", sample_ref=f"Sample#{i}",
+               anatomical_area=("Brain", "VNC")[i % 2], slide_code=f"s{i}",
+               objective="63x" if i == 3 else None)
+           for i in range(7)]
+    docs = testing.published_lm_image_docs(lms, "AS_ALIAS")
+    images = [pkg.model.PublishedLMImage.from_json(d) for d in docs]
+    images[0].entity_id = 7
+    dao = daos.published_lm_images_dao
+    refs = ["Sample#0", "Sample#1", "Sample#3", "Sample#6", None, "none"]
+
+    def rows(by_ref):
+        return {ref: [(_no_ids(im.to_json()),
+                       [_no_ids(g.to_json()) for g in im.gal4_expressions],
+                       im.gal4_expression_image(area))
+                      for im in ims for area in ("Brain", "vnc", None)]
+                for ref, ims in sorted(by_ref.items())}
+
+    return {"saved": dao.save_all(images),
+            "images": rows(dao.get_published_images("AS", refs)),
+            "any_space": rows(dao.get_published_images(None, refs)),
+            "objective": rows(dao.get_published_images(None, refs, "63x")),
+            "none": dao.get_published_images("AS", [None]),
+            "gal4": rows(
+                dao.get_published_images_with_gal4_by_sample_objectives(
+                    None, refs)),
+            "gal4_alias": rows(
+                dao.get_published_images_with_gal4_by_sample_objectives(
+                    "AS_ALIAS", refs, "40x"))}
+
+
 OPS = {
     **{f"selector_{f}": op_selector(f) for f in SELECTORS},
     "paging": op_paging,
@@ -541,6 +613,8 @@ OPS = {
     "id_canonicalization": op_id_canonicalization,
     "collection_surface": op_collection_surface,
     "db_io": op_db_io,
+    "ppp_matches": op_ppp_matches,
+    "published_lm_images": op_published_lm_images,
 }
 
 

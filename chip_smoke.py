@@ -186,7 +186,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      their published names) and on the store (--processing-tags
      GradientScore=p11): exactly those neurons gain the tag. Each step
      prints its wall seconds, its rows/s and, on the store, the seconds
-     of its store writes and reads and its commits.
+     of its store writes and reads and its commits;
+ 13. the admin tail with the port's CLI on the run's own data: (a)
+     precomputeVariants (no PIL) over the first 48 targets, each z-gap
+     file decoded = dilate_rgb(mask_rgb(target, 20), 20);
+     colorDepthSearch of 4 masks
+     against those targets (--pctPositivePixels 0: K1-K3, no emit
+     top-k), then gradientScores
+     --device cuda through the device store twice, with the targets'
+     ZGapImage files and with those files moved away (the engine's
+     on-the-fly dilation; no label region, so none is cleared): the two
+     result trees byte-identical, both launching K5-K7 (their launches
+     are added to the kernels line); (b) createColorDepthSearchDataInput
+     (its compute files = phase 9 (a)'s), createColorDepthSearchJSONInput
+     and groupMIPsByPublishedName with --jacs-url on a file:// dump of
+     phase 9 (a)'s targets as JACS ColorDepthMIP records, then
+     colorDepthSearch of 4 masks from the JACS-made input = phase 9 (a)'s
+     matches of those masks; (c) legacyImport of phase 9 (c)'s v2 results
+     to files and into a fresh store (equal rows), validateDBData on
+     phase 9 (a)'s targets and on phase 11's store with one z-gap file
+     deleted (counted, and nothing else), copyToMipsStore (a dry run that
+     copies nothing, then 48 targets' three files), copyMIPSegmentation,
+     replaceAttributes and mergeMips, and uploadData of phase 12's export
+     tree (the manifest in a dry run, then --run through a local fake
+     upload command that records its calls: one a tree of the manifest,
+     every file planned and under a call's source). Each step prints its
+     wall seconds and its rate.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -199,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import filecmp
 import json
 import os
 import shutil
@@ -315,6 +341,15 @@ P12_SHOTS_EVERY = 10
 P12_TOP = 100           # phase 12 (e): copyPPPMatches --top
 P12_SPACE = "JRC2018_Unisex_20x_HR"
 P12_TAG = "p12"         # phase 12 (c): importPPPResults' processing tag
+# phase 13: precomputeVariants over the first P13_TARGETS targets, the
+# gradientScores and JACS searches of P13_MASKS masks; the JACS records'
+# library. Cut from 64 targets: there precomputeVariants took 18.94 s
+# (0.30 s an image on an H100 host, sequential as in the JAX package) and
+# phase 13 77.2 s, over its 60 (with a fake upload that copied 4,184
+# files)
+P13_TARGETS = 48
+P13_MASKS = 4
+P13_LIBRARY = "synthetic"
 # phase 10: the selftest's steps whose times phase 7 took (its keys)
 P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
                     "batch_split": "batch_split (K11)",
@@ -2291,8 +2326,9 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     first cut mask's dense and split shape planes), each checked against
     the single-device kernels; then each step's time beside theirs.
     Returns ({kernel: launches}, {step: calls}, {step: (mesh ms, single
-    ms)}); the launches and calls are those of the steps' own runs (every
-    count set to 0 just before each and added up just after)."""
+    ms)}, {step: bytes of its results}); the launches and calls are those
+    of the steps' own runs (every count set to 0 just before each and
+    added up just after)."""
     import numpy as np
     import torch
 
@@ -2311,7 +2347,7 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     n_px = H * W
     launches = dict.fromkeys(kbuild.launches, 0)
     calls = dict.fromkeys(pmesh.step_calls, 0)
-    times = {}
+    times, out_bytes = {}, {}
 
     def driven(fn):
         sync()
@@ -2418,6 +2454,10 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
         require_equal(f"phase 7 union_qkeys step (top-k {top_k}) vs the "
                       "union_keys step fed with row 13's expansion",
                       got["union_qkeys", top_k], got["union_keys", top_k])
+    for name, key in (("batch_keys (K10)", "keys"),
+                      ("batch_union_keys (K3)", "union_keys"),
+                      ("batch_union_qkeys (row 14)", "union_qkeys")):
+        out_bytes[name] = nbytes(*got[key, 0])
     times["batch_keys (K10)"] = (
         timed(lambda: key_steps["keys", 0](key_shards, *kargs), 3),
         timed(lambda: pm.score_query_batch_keys(
@@ -2475,6 +2515,9 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
                   got["search", TOP_K], (*(x[0] for x in k9_one),
                                          k9_one[0].max(), ref_k[0][0],
                                          ref_k[1][0]))
+    out_bytes["search (K9, one mask)"] = nbytes(*got["search", 0])
+    out_bytes["batch (K9)"] = nbytes(*got["batch", 0])
+    out_bytes["batch_split (K11)"] = nbytes(*got["split"])
     flagged = int((k9[2] > 0).sum())
     print(f"phase 7 packed top-k step: {flagged} flagged pairs in the "
           f"batch, {int(((got['batch', TOP_K][3] > 0)).sum())} of them "
@@ -2518,6 +2561,10 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
                   "single-device kernel", got[1], both)
     require_equal("phase 7 split shape step (K5) vs the single-device "
                   "kernel", got[2], k5)
+    for name, out in zip(("shape (row 18b)", "shape_both (row 18b)",
+                          "shape_split (K5)"), got):
+        out_bytes[name] = nbytes(*(out if isinstance(out, tuple)
+                                   else (out,)))
     times["shape (row 18b)"] = (
         timed(lambda: shape_step(rows0_shards, q2[0]), 5),
         timed(lambda: ss.shape_score_pairs(rows[0], q2[0]), 5))
@@ -2537,7 +2584,7 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
         raise AssertionError(f"phase 7 (a) never ran the steps {missing}")
     print(f"phase 7 (a): every mesh step at {MESH_SHARDS} shards equals "
           f"the single-device kernels; step calls {calls}", flush=True)
-    return launches, calls, times
+    return launches, calls, times, out_bytes
 
 
 def run_mesh_engines(lib, work: str) -> dict:
@@ -2676,11 +2723,11 @@ def _require_same(what: str, got: dict, want: dict) -> None:
 
 
 def _cli_step(step: str, argv: list, kernels=(), unit: str = "pairs",
-              count=None) -> dict:
-    """Phase 9: one command of the port's CLI with fresh launch counts;
-    it must exit 0 and launch every kernel in `kernels`. Prints its wall
-    seconds, its rate in `unit` (count(), read after the run) and its
-    launches on a line of its own; returns the launches."""
+              count=None, phase: str = "9") -> dict:
+    """Phases 9 and 13: one command of the port's CLI with fresh launch
+    counts; it must exit 0 and launch every kernel in `kernels`. Prints
+    its wall seconds, its rate in `unit` (count(), read after the run)
+    and its launches on a line of its own; returns the launches."""
     from colormipsearch_tpu_torch.cli import main as cli_main
     from colormipsearch_tpu_torch.kernels import build as kbuild
 
@@ -2691,13 +2738,13 @@ def _cli_step(step: str, argv: list, kernels=(), unit: str = "pairs",
     seconds = time.time() - t0
     launches = {k: v for k, v in kbuild.launches.items() if v}
     if rc != 0:
-        raise AssertionError(f"phase 9 {step}: {argv[0]} exited {rc}")
+        raise AssertionError(f"phase {phase} {step}: {argv[0]} exited {rc}")
     missing = [k for k in kernels if not launches.get(k)]
     if missing:
-        raise AssertionError(f"phase 9 {step}: {argv[0]} never launched "
-                             f"{missing}")
+        raise AssertionError(f"phase {phase} {step}: {argv[0]} never "
+                             f"launched {missing}")
     n = count() if count is not None else 0
-    print(f"phase 9 {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
+    print(f"phase {phase} {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
           f"{n / seconds:.0f} {unit}/s; launches {launches}", flush=True)
     free_cached()
     return launches
@@ -3292,13 +3339,13 @@ def run_db_pipeline(work: str, card: str) -> dict:
 
 
 def _publish_step(step: str, argv: list, count, unit: str = "rows",
-                  store: str | None = None) -> float:
-    """Phase 12: one command of the port's CLI (no kernel), on the store
-    when `store` is given, with fresh stage timers; it must exit 0 and
-    count() (read after the run) must be above 0. Prints its wall
-    seconds and its rate in `unit` and, on the store, the seconds of the
-    store's writes (each with its commit) and reads and the commits, on
-    a line of its own; returns the count."""
+                  store: str | None = None, phase: str = "12") -> float:
+    """Phases 12 and 13: one command of the port's CLI (no kernel), on
+    the store when `store` is given, with fresh stage timers; it must
+    exit 0 and count() (read after the run) must be above 0. Prints its
+    wall seconds and its rate in `unit` and, on the store, the seconds of
+    the store's writes (each with its commit) and reads and the commits,
+    on a line of its own; returns the count."""
     from colormipsearch_tpu_torch.cli import main as cli_main
     from colormipsearch_tpu_torch.cli.commands import stage_seconds
     from colormipsearch_tpu_torch.utils.metrics import GLOBAL
@@ -3311,12 +3358,13 @@ def _publish_step(step: str, argv: list, count, unit: str = "rows",
     rc = cli_main.main(argv)
     seconds = time.time() - t0
     if rc != 0:
-        raise AssertionError(f"phase 12 {step}: {argv[0]} exited {rc}")
+        raise AssertionError(f"phase {phase} {step}: {argv[0]} exited {rc}")
     n = count()
     if not n:
-        raise AssertionError(f"phase 12 {step}: {argv[0]} gave no {unit}")
-    line = (f"phase 12 {step}: {argv[0]} in {seconds:.2f}s, {n} {unit} = "
-            f"{n / seconds:.0f} {unit}/s")
+        raise AssertionError(f"phase {phase} {step}: {argv[0]} gave no "
+                             f"{unit}")
+    line = (f"phase {phase} {step}: {argv[0]} in {seconds:.2f}s, {n} "
+            f"{unit} = {n / seconds:.0f} {unit}/s")
     if store is not None:
         line += (f"; db stage seconds {json.dumps(stage_seconds('db'))} "
                  f"({int(GLOBAL.get('db.commits'))} commits)")
@@ -3689,6 +3737,389 @@ def run_publish_tail(work: str, card: str, seed: int) -> None:
           f"phase 11 (c) ({card})", flush=True)
 
 
+def _check_zgaps(lib, root: str, n: int) -> None:
+    """Phase 13 (a): precomputeVariants' z-gap files of the first n
+    targets, decoded, equal the shape oracle's dilation of each target
+    (the gradients are held to the JAX command's on the CPU)."""
+    import numpy as np
+
+    from colormipsearch_tpu_torch.io.image import read_image
+    from colormipsearch_tpu_torch.oracle.shape import dilate_rgb, mask_rgb
+
+    def check(i):
+        zgap = read_image(os.path.join(
+            root, "zgap", f"t{i:05d}_20pxRGB.png")).pixels
+        return np.array_equal(zgap, dilate_rgb(mask_rgb(lib.targets[i], 20),
+                                               20))
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        bad = [i for i, ok in enumerate(pool.map(check, range(n))) if not ok]
+    if bad:
+        raise AssertionError(f"phase 13 (a): the z-gap files of targets "
+                             f"{bad} differ from the oracle's dilation")
+    print(f"phase 13 (a): the {n} z-gap files = dilate_rgb(mask_rgb(t, 20), "
+          "20)", flush=True)
+
+
+def _n_files(root: str) -> int:
+    return sum(len(names) for _, _, names in os.walk(root))
+
+
+def run_admin_tail(lib, work: str, card: str) -> dict:
+    """Phase 13: the admin, list, JACS and upload commands with the
+    port's CLI on data the run already has. (a) precomputeVariants over
+    the first P13_TARGETS targets (the oracle's variants), then
+    gradientScores --device cuda of P13_MASKS masks against those targets
+    through the device store, with their ZGapImage files and with those
+    files moved away (the engine's on-the-fly dilation): byte-identical
+    trees; (b) createColorDepthSearchDataInput,
+    createColorDepthSearchJSONInput and groupMIPsByPublishedName from a
+    file:// JACS dump of phase 9 (a)'s targets, then a colorDepthSearch
+    of P13_MASKS masks from the JACS-made input = phase 9 (a)'s matches
+    of those masks; (c) legacyImport of phase 9 (c)'s v2 results to files
+    and into a fresh store (equal rows), validateDBData on files and on
+    phase 11's store with one z-gap file deleted (counted), copyToMipsStore
+    (dry run, then real), copyMIPSegmentation, replaceAttributes and
+    mergeMips, and uploadData of phase 12's export tree (the manifest in
+    a dry run, then --run through a local fake upload command). Returns
+    the K5-K7 launches of (a)'s two gradientScores runs."""
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.dataio.json_io import (
+        read_neurons_json,
+        write_neurons_json,
+    )
+    from colormipsearch_tpu_torch.model import ComputeFileType
+
+    p13 = os.path.join(work, "p13")
+    os.makedirs(p13)
+    targets = os.path.join(work, "targets")
+    made = os.path.join(work, "p9", "in")
+    lists = os.path.join(work, "p9", "lists")
+    n = P13_TARGETS
+
+    # (a) precomputeVariants, then the shape pass with and without them
+    cdm = os.path.join(p13, "cdm")
+    os.makedirs(cdm)
+    for i in range(n):
+        shutil.copy(os.path.join(targets, f"t{i:05d}.png"), cdm)
+    variants = os.path.join(p13, "variants")
+    _publish_step("(a)", ["precomputeVariants", "-i", cdm, "-od", variants],
+                  lambda: len(os.listdir(os.path.join(variants, "zgap"))),
+                  unit="images", phase="13")
+    _check_zgaps(lib, variants, n)
+    pre = read_neurons_json(os.path.join(made, "targets.json"))[:n]
+    for t in pre:
+        stem = os.path.basename(t.compute_file(
+            ComputeFileType.InputColorDepthImage).name)[:-len(".png")]
+        t.set_compute_file(ComputeFileType.GradientImage, os.path.join(
+            variants, "grad", f"{stem}_gradient.png"))
+        t.set_compute_file(ComputeFileType.ZGapImage, os.path.join(
+            variants, "zgap", f"{stem}_20pxRGB.png"))
+    write_neurons_json(pre, os.path.join(p13, "targets_pre.json"))
+    cds = os.path.join(p13, "cds")
+    _cli_step("(a)", ["colorDepthSearch", "-m",
+                      f"{os.path.join(work, 'masks.json')}:0:{P13_MASKS}",
+                      "-i", os.path.join(p13, "targets_pre.json"),
+                      "--device", DEVICE, "-od", cds, "--perMaskSubdir",
+                      "masks", *FLAGS[:-2], "--pctPositivePixels", "0"],
+              tuple(CDS_KERNELS)[:3], count=lambda: P13_MASKS * n,
+              phase="13")
+    trees, launches = {}, {}
+    os.environ["CDS_SHAPE_STORE_DEVICE"] = "1"
+    try:
+        for run in ("precomputed", "on the fly"):
+            out = os.path.join(p13, f"gs_{run.split()[-1]}")
+            shutil.copytree(cds, out)
+            if run == "on the fly":
+                os.rename(os.path.join(variants, "zgap"),
+                          os.path.join(variants, "zgap_away"))
+            launches[run] = _cli_step(
+                f"(a) {run}", [
+                    "gradientScores", "--matches", os.path.join(out, "masks"),
+                    "--maskThreshold", "20", "--mirrorMask",
+                    "--no-name-labels", "--no-colormap-labels",
+                    "--packed-variants-store", os.path.join(out, "store"),
+                    "--device", DEVICE, "-od", out, "--perMaskSubdir",
+                    "masks"], GS_KERNELS, unit="rows",
+                count=lambda: sum(map(len, _read_results(
+                    os.path.join(out, "masks")).values())), phase="13")
+            trees[run] = _tree(os.path.join(out, "masks"))
+    finally:
+        del os.environ["CDS_SHAPE_STORE_DEVICE"]
+    os.rename(os.path.join(variants, "zgap_away"),
+              os.path.join(variants, "zgap"))
+    if trees["precomputed"] != trees["on the fly"]:
+        raise AssertionError("phase 13 (a): gradientScores with the "
+                             "precomputed z-gap files and without them "
+                             "wrote different trees")
+    scored = sum(r.get("gradientAreaGap", -1) >= 0 for rows in _read_results(
+        os.path.join(p13, "gs_precomputed", "masks")).values() for r in rows)
+    if not scored:
+        raise AssertionError("phase 13 (a): no row got a shape score")
+    print(f"phase 13 (a): {len(trees['precomputed'])} result files "
+          f"byte-identical with the precomputed z-gap files and the "
+          f"on-the-fly dilation; {scored} rows scored", flush=True)
+
+    # (b) the JACS commands on a file:// dump of phase 9 (a)'s targets
+    neurons = read_neurons_json(os.path.join(made, "targets.json"))
+    dump = os.path.join(p13, "jacs")
+    testing.write_jacs_dump(dump, testing.jacs_mip_records(neurons))
+    jacs = ["--jacs-url", f"file://{dump}", "-l", P13_LIBRARY]
+    b = os.path.join(p13, "b")
+    _publish_step("(b)", ["createColorDepthSearchDataInput", *jacs,
+                          "--libraries-variants",
+                          f"GradientImage:{os.path.join(targets, 'grad')}"
+                          ":_gradient",
+                          f"ZGapImage:{os.path.join(targets, 'zgap')}"
+                          ":_20pxRGB", "-od", b, "--output-filename",
+                          "targets.json"],
+                  lambda: len(json.load(open(os.path.join(
+                      b, "targets.json")))), unit="neurons", phase="13")
+
+    def files(path):
+        types = ("InputColorDepthImage", "GradientImage", "ZGapImage")
+        with open(path) as f:
+            return {n["computeFiles"]["InputColorDepthImage"]:
+                    {k: n["computeFiles"].get(k) for k in types}
+                    for n in json.load(f)}
+
+    _require_same("phase 13 (b): the JACS input's compute files vs phase 9 "
+                  "(a)'s", files(os.path.join(b, "targets.json")),
+                  files(os.path.join(made, "targets.json")))
+    _publish_step("(b)", ["createColorDepthSearchJSONInput", *jacs,
+                          "--output-filename", "targets_v2.json", "-od", b],
+                  lambda: len(json.load(open(os.path.join(
+                      b, "targets_v2.json")))), unit="MIPs", phase="13")
+    grouped = os.path.join(b, "grouped")
+    _publish_step("(b)", ["groupMIPsByPublishedName", *jacs, "-od",
+                          grouped],
+                  lambda: len(os.listdir(os.path.join(grouped, "by_line"))),
+                  unit="files", phase="13")
+    _cli_step("(b)", ["colorDepthSearch", "-m",
+                      f"{os.path.join(work, 'masks.json')}:0:{P13_MASKS}",
+                      "-i", os.path.join(b, "targets.json"), "--device",
+                      DEVICE, "-od", os.path.join(b, "cds"),
+                      "--perMaskSubdir", "masks", *FLAGS], CDS_KERNELS,
+              count=lambda: P13_MASKS * len(neurons), phase="13")
+    mask_files = {os.path.join(work, "masks", f"m{i:05d}.png")
+                  for i in range(P13_MASKS)}
+    _require_same("phase 13 (b): the search from the JACS input vs phase 9 "
+                  "(a)'s", _v3_pairs(os.path.join(b, "cds", "masks")),
+                  {k: v for k, v in _v3_pairs(os.path.join(
+                      work, "p9", "cds", "masks")).items()
+                   if k[0] in mask_files})
+
+    # (c) the admin and list commands
+    c = os.path.join(p13, "c")
+    os.makedirs(c)
+    v2 = os.path.join(work, "p9", "json")
+    n_v2 = len(_v2_rows(v2))
+    legacy = os.path.join(c, "legacy")
+    _publish_step("(c)", ["legacyImport", "-rd", v2, "-od", legacy],
+                  lambda: _n_results(legacy), phase="13")
+    legacy_store = os.path.join(c, "legacy.sqlite")
+    with open(legacy_store + ".properties", "w") as f:
+        f.write(f"Store.Type=sqlite\nStore.Path={legacy_store}\n")
+    _publish_step("(c)", ["legacyImport", "-rd", v2, "--results-storage",
+                          "DB"], lambda: len(testing.store_match_rows(
+                              legacy_store, key="image")),
+                  store=legacy_store, phase="13")
+    stored = testing.store_match_rows(legacy_store, key="image")
+
+    def untagged(rows):
+        return {k: {f: v for f, v in r.items() if f != "tags"}
+                for k, r in rows.items()}
+
+    _require_same("phase 13 (c): legacyImport into the store vs to files "
+                  "(rows without their tags)", untagged(stored),
+                  untagged(testing.fs_match_rows(legacy, key="image")))
+    # the store was empty: every neuron was created, every match suspicious
+    if _n_results(legacy) != n_v2 or any(
+            set(r["tags"]) != {"legacy-import", "Suspicious match"}
+            for r in stored.values()):
+        raise AssertionError(f"phase 13 (c): {_n_results(legacy)} imported "
+                             f"rows of {n_v2}, or a stored row without the "
+                             "import's two tags")
+
+    missing = os.path.join(targets, "zgap",
+                           f"t{len(neurons) - 1:05d}_20pxRGB.png")
+    os.remove(missing)
+    store = os.path.join(work, "p11", "nb.sqlite")
+    for source, argv, n_neurons in (
+            ("FS", ["-i", os.path.join(made, "targets.json")],
+             len(neurons)),
+            ("DB", ["--results-storage", "DB", "--config",
+                    store + ".properties"], len(_store_neurons(store)))):
+        rc, out, seconds = _captured(["validateDBData", *argv])
+        summary = dict(json.loads(out.splitlines()[-1]), rc=rc)
+        want = {"rc": 0, "neuronsChecked": n_neurons,
+                "neuronsWithErrors": 1, "danglingMatchRefs": 0,
+                "errorTaggedMatches": 0}
+        if summary != want:
+            raise AssertionError(f"phase 13 (c): validateDBData on {source} "
+                                 f"gave {summary}, want {want}")
+        print(f"phase 13 (c): validateDBData on {source} in {seconds:.2f}s, "
+              f"{n_neurons} neurons = {n_neurons / seconds:.0f} neurons/s; "
+              f"the deleted z-gap file counted: {summary}", flush=True)
+
+    picked = [t.mip_id for t in neurons[:n]]
+    copied = os.path.join(c, "targets.json")
+    shutil.copy(os.path.join(made, "targets.json"), copied)
+    mips_store = os.path.join(c, "mips_store")
+    copy = ["copyToMipsStore", "-i", copied, "--store-dir", mips_store,
+            "--mipsFilter", *picked]
+    _captured([*copy, "--dry-run"])
+    if os.path.exists(mips_store) or not filecmp.cmp(
+            copied, os.path.join(made, "targets.json"), shallow=False):
+        raise AssertionError("phase 13 (c): copyToMipsStore --dry-run "
+                             "copied or rewrote something")
+    _publish_step("(c)", copy, lambda: _n_files(mips_store), unit="files",
+                  phase="13")
+    in_store = [nn for nn in json.load(open(copied))
+                if nn["computeFiles"]["InputColorDepthImage"]
+                .startswith(mips_store)]
+    if _n_files(mips_store) != 3 * n or len(in_store) != n:
+        raise AssertionError(f"phase 13 (c): copyToMipsStore copied "
+                             f"{_n_files(mips_store)} files, moved "
+                             f"{len(in_store)} neurons")
+
+    segmentation = os.path.join(c, "segmentation")
+    names = [f"t{i:05d}" for i in range(n)]
+    _publish_step("(c)", ["copyMIPSegmentation", "-i",
+                          os.path.join(lists, "targets.json"),
+                          "--source-dirs", os.path.join(targets, "zgap"),
+                          "--variant-suffix", "_20pxRGB", "--mipsFilter",
+                          *names, "-od", segmentation],
+                  lambda: len(os.listdir(segmentation)), unit="files",
+                  phase="13")
+    if sorted(os.listdir(segmentation)) != \
+            [f"{nm}_20pxRGB.png" for nm in names]:
+        raise AssertionError("phase 13 (c): copyMIPSegmentation copied "
+                             f"{len(os.listdir(segmentation))} files")
+
+    with open(os.path.join(c, "attributes.json"), "w") as f:
+        json.dump({nm: {"gender": "f", "slideCode": f"sc-{nm}"}
+                   for nm in names}, f)
+    replaced = os.path.join(c, "replaced")
+
+    def patched():
+        with open(os.path.join(replaced, "targets.json")) as f:
+            return sum(m.get("slideCode") == f"sc-{m['id']}"
+                       for m in json.load(f))
+
+    _publish_step("(c)", ["replaceAttributes", "-i",
+                          os.path.join(lists, "targets.json"), "-av",
+                          os.path.join(c, "attributes.json"), "-od",
+                          replaced], patched, unit="MIPs", phase="13")
+    if patched() != n:
+        raise AssertionError(f"phase 13 (c): replaceAttributes patched "
+                             f"{patched()} MIPs of {n}")
+    merged = os.path.join(c, "merged.json")
+    sources = [os.path.join(lists, "targets.json"),
+               os.path.join(replaced, "targets.json"),
+               os.path.join(lists, "masks.json"),
+               os.path.join(b, "targets_v2.json")]
+    _publish_step("(c)", ["mergeMips", "-rf", *sources, "--output-filename",
+                          "merged.json", "-od", c],
+                  lambda: len(json.load(open(merged))), unit="MIPs",
+                  phase="13")
+    want = len({(m["id"], m.get("imageName")) for src in sources
+                for m in json.load(open(src))})
+    if len(json.load(open(merged))) != want:
+        raise AssertionError(f"phase 13 (c): mergeMips kept "
+                             f"{len(json.load(open(merged)))} MIPs, want "
+                             f"{want}")
+
+    # uploadData of phase 12's export tree, laid out as upload-data.sh
+    # reads it
+    up = os.path.join(c, "upload")
+    p12 = os.path.join(work, "p12")
+    for src, dst in (("cd", "brain/cdmatches/em-vs-lm"),
+                     ("ppp_pub_FS", "brain/pppmatches/em-vs-lm"),
+                     ("EM_MIPS_FS", "brain+vnc/mips/embodies"),
+                     ("LM_MIPS_FS", "brain+vnc/mips/lmlines")):
+        os.makedirs(os.path.dirname(os.path.join(up, dst)), exist_ok=True)
+        shutil.move(os.path.join(p12, src), os.path.join(up, dst))
+    n_files = _n_files(up)
+    manifest = os.path.join(c, "manifest.json")
+    upload = ["uploadData", "--local-data-dir", up, "--bucket", "smoke",
+              "--data-version", "v3_smoke"]
+
+    def planned():
+        with open(manifest) as f:
+            return sum(e["n_files"] for e in json.load(f)["entries"])
+
+    _publish_step("(c)", [*upload, "--manifest", manifest], planned,
+                  unit="files", phase="13")
+    # the fake upload command records each call and the files of its
+    # source (copying them took ~3.4 ms a file on the card host)
+    calls = os.path.join(c, "upload_calls.jsonl")
+    fake = os.path.join(c, "fake_upload.py")
+    with open(fake, "w") as f:
+        f.write("import json, os, sys\n"
+                "n = sum(len(f) for _, _, f in os.walk(sys.argv[1]))\n"
+                f"with open({calls!r}, 'a') as f:\n"
+                "    f.write(json.dumps([sys.argv[1:], n]) + '\\n')\n")
+
+    def uploaded():
+        with open(calls) as f:
+            return [json.loads(line) for line in f]
+
+    _publish_step("(c)", [*upload, "--run", "--upload-command",
+                          f"{sys.executable} {fake}"],
+                  lambda: sum(n for _, n in uploaded()), unit="files",
+                  phase="13")
+    with open(manifest) as f:
+        want = [[e["src"], e["dest"], "--recursive"]
+                for e in json.load(f)["entries"] if e["exists"]]
+    if planned() != n_files or [a for a, _ in uploaded()] != want or \
+            sum(n for _, n in uploaded()) != n_files:
+        raise AssertionError(f"phase 13 (c): {n_files} files exported, "
+                             f"{planned()} planned, calls {uploaded()}")
+    print(f"phase 13 (c): {n_files} exported files planned, and one upload "
+          f"call for each of the {len(want)} trees, with every file "
+          f"({card})", flush=True)
+    return {k: sum(run.get(k, 0) for run in launches.values())
+            for k in GS_KERNELS}
+
+
+def _captured(argv: list) -> tuple[int, str, float]:
+    """One command of the port's CLI with its standard output captured:
+    (exit code, output, wall seconds)."""
+    import contextlib
+    import io
+
+    from colormipsearch_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.time() - t0
+
+# phase 7's steps whose work is a phase-2 kernel's (the one-mask search
+# step: one mask of K9's batch of BATCH)
+MESH_STEP_KERNELS = {
+    "search (K9, one mask)": ("score_query_batch", 1 / BATCH),
+    "batch (K9)": ("score_query_batch", 1),
+    "batch_split (K11)": ("score_query_batch_split", 1),
+    "batch_keys (K10)": ("score_query_batch_keys", 1),
+    "batch_union_keys (K3)": ("score_query_batch_union_keys", 1),
+    "batch_union_qkeys (row 14)": ("score_query_batch_union_qkeys", 1),
+    "shape_both (row 18b)": ("shape_score_pairs", 1),
+    "shape_split (K5)": ("shape_score_pairs_split", 1)}
+
+
+def mesh_bounds(checks: dict, out_bytes: dict) -> dict:
+    """The least time of each phase-7 step on one card: its kernel's
+    bound (phase 2, the same shapes) for the share of the work it does,
+    plus its results' bytes read from the shards and written once over
+    the HBM rate (the reductions of one process stay on the card)."""
+    return {step: round(checks[kernel]["bound_ms"] * share
+                        + 2 * out_bytes[step] / HBM_BYTES_PER_S * 1e3, 4)
+            for step, (kernel, share) in MESH_STEP_KERNELS.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
@@ -3788,7 +4219,7 @@ def main() -> int:
         phases["6 classic paths"] = time.time() - t0
         # phase 7
         t0 = time.time()
-        step_launches, _calls, mesh_times = run_mesh_steps(
+        step_launches, _calls, mesh_times, mesh_bytes = run_mesh_steps(
             lib, device, shape_ref, dense_ref)
         del shape_ref, dense_ref
         engine_launches = run_mesh_engines(lib, work)
@@ -3825,6 +4256,14 @@ def main() -> int:
         phases["12 publish tail"] = time.time() - t0
         print(f"phase 12 seconds: {phases['12 publish tail']:.1f}",
               flush=True)
+        # phase 13
+        t0 = time.time()
+        admin_launches = run_admin_tail(lib, work, card)
+        for k in GS_KERNELS:
+            launches[k] += admin_launches[k]
+        phases["13 admin tail"] = time.time() - t0
+        print(f"phase 13 seconds: {phases['13 admin tail']:.1f} ({card})",
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3839,6 +4278,10 @@ def main() -> int:
                for name, (src, replaces) in KERNELS.items()]
     print("mesh steps at %d shards of one card, ms (mesh, single-device): "
           "%s" % (MESH_SHARDS, json.dumps(mesh_times)), flush=True)
+    print(f"mesh step bounds at {MESH_SHARDS} shards of one card, ms (the "
+          "single-device kernel's bound + its results' bytes read from the "
+          "shards and written once, over the HBM rate): "
+          f"{json.dumps(mesh_bounds(checks, mesh_bytes))}", flush=True)
     print(f"PIL-free readers, seconds for one {H}x{W} image: "
           f"{json.dumps(readers)}", flush=True)
     print(f"card: {card}", flush=True)

@@ -4,7 +4,7 @@ Each command mirrors its reference counterpart's flags and file formats:
   * colorDepthSearch            — cmd/ColorDepthSearchCmd.java:52-440
   * gradientScores              — cmd/CalculateGradientScoresCmd.java:67-461
   * normalizeGradientScores     — cmd/NormalizeGradientScoresCmd.java:92-239
-  * createColorDepthSearchDataInput — cmd/CreateCDSDataInputCmd.java (offline mode)
+  * createColorDepthSearchDataInput — cmd/CreateCDSDataInputCmd.java (local and JACS modes)
   * searchFromJSON / searchLocalFiles — cmd_v2/ColorDepthSearch*Cmd.java
   * mergeResults                — cmd_v2/MergeResultsCmd.java
 
@@ -33,11 +33,7 @@ from colormipsearch_tpu_torch.dataio.json_io import (
     write_cds_session,
     write_neurons_json,
 )
-from colormipsearch_tpu_torch.engine.cds import (
-    CDSParams,
-    CDSearchEngine,
-    not_ported,
-)
+from colormipsearch_tpu_torch.engine.cds import CDSParams, CDSearchEngine
 from colormipsearch_tpu_torch.io import mips as mips_io
 from colormipsearch_tpu_torch.io.mips import ListArg
 from colormipsearch_tpu_torch.model import (
@@ -686,7 +682,7 @@ def cmd_normalize_scores(args) -> int:
 
 
 # -------------------------------------------------------------------------
-# v3: createColorDepthSearchDataInput (offline/local mode)
+# v3: createColorDepthSearchDataInput
 # -------------------------------------------------------------------------
 
 
@@ -696,8 +692,9 @@ def configure_create_data_input(sp):
                          "location[:offset[:length]]")
     sp.add_argument("--jacs-url", "--jacsURL", "--data-url",
                     dest="jacsURL", default=None,
-                    help="JACS config server URL to ingest a library from "
-                         "instead of local files (not ported yet)")
+                    help="JACS config server URL (or file:// dir of page "
+                         "dumps) to ingest a library from instead of "
+                         "local files")
     sp.add_argument("--authorization", default=None,
                     help="bearer token for the JACS server")
     sp.add_argument("--libraries-variants", "--librariesVariants",
@@ -749,7 +746,7 @@ def configure_create_data_input(sp):
 
 def cmd_create_data_input(args) -> int:
     if args.jacsURL:
-        raise not_ported("the JACS input (--jacs-url)", 7)
+        return _create_data_input_from_jacs(args)
     if not args.input:
         raise SystemExit("either -i/--input or --jacs-url is required")
     arg = ListArg.parse(args.input)
@@ -839,6 +836,37 @@ def _write_data_input(args, neurons, lib) -> int:
     write_neurons_json(neurons, out_path, pretty=not args.noPrettyPrint)
     LOG.info("wrote %d neurons to %s", len(neurons), out_path)
     return 0
+
+
+def _create_data_input_from_jacs(args) -> int:
+    """JACS-backed ingest (CreateCDSDataInputCmd online mode)."""
+    from colormipsearch_tpu_torch.io.jacs import (
+        JacsClient,
+        load_library_neurons,
+    )
+
+    if not args.library:
+        raise SystemExit("--library is required with --jacs-url")
+    variant_locations: dict = {}
+    variant_suffixes: dict = {}
+    for spec in args.librariesVariants:
+        parts = spec.split(":")
+        if len(parts) < 2:
+            continue
+        vtype, location = parts[0], parts[1]
+        variant_locations.setdefault(vtype, []).append(location)
+        if len(parts) > 2:
+            variant_suffixes[vtype] = parts[2]
+    client = JacsClient(args.jacsURL, auth_token=args.authorization)
+    neurons = load_library_neurons(
+        client, library=args.library,
+        alignment_space=args.alignment_space,
+        variant_locations=variant_locations or None,
+        variant_suffixes=variant_suffixes or None,
+        datasets=args.datasets, releases=args.releases, mips=args.mips,
+        included_libraries=args.included_libraries,
+        excluded_libraries=args.excluded_libraries)
+    return _write_data_input(args, neurons, args.library)
 
 
 # -------------------------------------------------------------------------

@@ -6,10 +6,7 @@
   * importPPPResults  — cmd/ImportPPPResultsCmd.java
   * tag               — cmd/TagNeuronMetadataCmd.java
 
-The JAX package's cli/commands_export.py, changed only in imports and in
-one place: the JACS sample lookup of ``importPPPResults --jacs-url``
-(``io/jacs.SamplesClient``) is not in the port yet, and the flag raises
-before any file is read.
+The JAX package's cli/commands_export.py, changed only in imports.
 """
 
 from __future__ import annotations
@@ -23,7 +20,6 @@ from colormipsearch_tpu_torch.dataio.json_io import (
     read_neurons_json,
     write_neurons_json,
 )
-from colormipsearch_tpu_torch.engine.cds import not_ported
 from colormipsearch_tpu_torch.io import ppp as ppp_io
 from colormipsearch_tpu_torch.model import dto
 from colormipsearch_tpu_torch.model.entities import ProcessingType
@@ -774,8 +770,6 @@ def cmd_import_ppp(args) -> int:
     store when --mips-storage DB, attaches per-match screenshot files
     (rank < 500) from the sibling screenshots dir, and writes grouped
     JSON or DB rows."""
-    if args.jacsURL:
-        raise not_ported("the JACS sample lookup (--jacs-url)", 7)
     gen = TimebasedIdGenerator()
     if not args.results_dir and not args.results_file:
         raise SystemExit("no inputs: use -rd / -rf")
@@ -805,6 +799,13 @@ def cmd_import_ppp(args) -> int:
             if n.published_name:
                 registered_em.setdefault(n.published_name, n)
 
+    samples_client = None
+    if args.jacsURL:
+        from colormipsearch_tpu_torch.io.jacs import SamplesClient
+
+        samples_client = SamplesClient(args.jacsURL,
+                                       auth_token=args.authorization)
+
     n_matches = 0
     used_em = []
     for f in files:
@@ -813,6 +814,11 @@ def cmd_import_ppp(args) -> int:
             include_skeletons=args.include_skeletons)
         if not matches:
             continue
+        samples = {}
+        if samples_client is not None:
+            names = {ppp_io.lm_sample_name(m.source_lm_name or "")
+                     for m in matches}
+            samples = samples_client.samples_by_names(names)
         em = ppp_io.em_neuron_from_ppp_name(
             matches[0].source_em_name, library=args.em_library,
             alignment_space=args.alignment_space)
@@ -840,6 +846,15 @@ def cmd_import_ppp(args) -> int:
                 m.source_lm_name, library=args.lm_library,
                 alignment_space=args.alignment_space,
                 anatomical_area=args.anatomical_area)
+            sample = samples.get(
+                ppp_io.lm_sample_name(m.source_lm_name or ""))
+            if sample:
+                # JACS sample enrichment (updateLMSampleInfo:382-387)
+                if sample.get("publishingName"):
+                    m.matched_image.published_name = \
+                        sample["publishingName"]
+                if sample.get("slideCode"):
+                    m.matched_image.slide_code = sample["slideCode"]
             m.entity_id = gen.generate_id()
             m.source_em_library = args.em_library
             m.source_lm_library = args.lm_library

@@ -2,7 +2,10 @@
 
   * gradientScore                    — cmd_v2/CalculateNegativeScoresCmd.java:107-331
   * gradientScoresFromMatchedResults — cmd_v2/UpdateGradientScoresFromReverseSearchResultsCmd.java:176-321
-  * createColorDepthSearchJSONInput  — cmd_v2/CreateColorDepthSearchJSONInputCmd.java (local mode)
+  * createColorDepthSearchJSONInput  — cmd_v2/CreateColorDepthSearchJSONInputCmd.java
+  * groupMIPsByPublishedName         — cmd_v2/GroupMIPsByPublishedNameCmd.java
+  * replaceAttributes                — cmd_v2/ReplaceMIPsMetadataAttributesCmd.java
+  * mergeMips                        — cmd_v2/MergeMipsCmd.java
 
 The same flags and file formats as the JAX package's commands;
 gradientScore also takes ``--device {cuda,cpu}``.
@@ -11,6 +14,7 @@ gradientScore also takes ``--device {cuda,cpu}``.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import re
@@ -21,7 +25,6 @@ import torch
 
 from colormipsearch_tpu_torch.cli.commands import _add_device_arg
 from colormipsearch_tpu_torch.dataio import v2_io
-from colormipsearch_tpu_torch.engine.cds import not_ported
 from colormipsearch_tpu_torch.io import mips as mips_io
 from colormipsearch_tpu_torch.io.mips import ListArg
 from colormipsearch_tpu_torch.oracle.shape import ShapeMatchOracle, normalized_score
@@ -460,7 +463,7 @@ def cmd_reverse_transfer(args) -> int:
 
 
 # -------------------------------------------------------------------------
-# createColorDepthSearchJSONInput (local mode)
+# createColorDepthSearchJSONInput (local mode) / groupMIPsByPublishedName
 # -------------------------------------------------------------------------
 
 
@@ -472,9 +475,9 @@ def configure_create_json_input_v2(sp):
                     default=None)
     sp.add_argument("--jacs-url", "--data-url", "--jacsURL",
                     dest="jacsURL", default=None,
-                    help="JACS base URL — the online mode of "
-                         "CreateColorDepthSearchJSONInputCmd (not ported "
-                         "yet)")
+                    help="JACS base URL (or file:// page-dump dir) — the "
+                         "online mode of "
+                         "CreateColorDepthSearchJSONInputCmd")
     sp.add_argument("--authorization", default=None)
     sp.add_argument("--config-url", dest="configURL", default=None,
                     help="config service /cdm_library mapping of internal "
@@ -523,6 +526,15 @@ def configure_create_json_input_v2(sp):
                     action="store_true")
 
 
+def _library_name_mapping(args) -> dict:
+    """--config-url display-name mapping (shared with exportData)."""
+    from colormipsearch_tpu_torch.cli.commands_export import (
+        _load_library_name_mapping,
+    )
+
+    return _load_library_name_mapping(getattr(args, "configURL", None))
+
+
 def _first_library(args) -> str | None:
     libs = args.library
     if isinstance(libs, str):
@@ -530,9 +542,179 @@ def _first_library(args) -> str | None:
     return libs[0] if libs else None
 
 
+def _relative_url(path: str | None, index: int) -> str | None:
+    if not path or index < 0:
+        return path
+    parts = [p for p in path.split("/") if p]
+    return "/".join(parts[index:]) if index < len(parts) else path
+
+
+def _jacs_mip_to_v2(rec: dict, library: str, args) -> v2_io.MIPMetadata:
+    """JACS ColorDepthMIP record -> v2 MIPMetadata
+    (CreateColorDepthSearchJSONInputCmd's asMIPInfo mapping over
+    cmd/jacsdata/ColorDepthMIP.java fields)."""
+    from colormipsearch_tpu_torch.io import naming
+
+    sample = rec.get("sample") or {}
+    em_body = rec.get("emBody") or {}
+    is_em = naming.is_em_library(library)
+    body = rec.get("bodyId") or em_body.get("name")
+    published = (str(body) if is_em and body is not None
+                 else sample.get("publishingName") or sample.get("line"))
+    m = v2_io.MIPMetadata(
+        id=rec.get("id") or rec.get("_id"),
+        publishedName=published,
+        libraryName=library,
+        alignmentSpace=rec.get("alignmentSpace") or args.alignment_space,
+        cdmPath=rec.get("filepath"),
+        imageName=rec.get("filepath"),
+        imageType="file",
+        imageURL=_relative_url(rec.get("filepath"), args.urlsRelativeTo),
+        slideCode=sample.get("slideCode"),
+        objective=rec.get("objective"),
+        anatomicalArea=rec.get("anatomicalArea"),
+        channel=rec.get("channelNumber"),
+        mountingProtocol=sample.get("mountingProtocol"),
+        gender=sample.get("gender") or args.default_gender,
+        neuronType=em_body.get("neuronType"),
+        neuronInstance=em_body.get("neuronInstance"),
+        sampleRef=rec.get("sampleRef"),
+    )
+    return m
+
+
+def _create_json_input_v2_jacs(args) -> int:
+    """Online mode: page the JACS libraries, map to v2 MIPMetadata,
+    optionally substitute segmented searchable images, filter and write
+    (CreateColorDepthSearchJSONInputCmd.java — the JACS-driven
+    machinery)."""
+    from colormipsearch_tpu_torch.io import naming
+    from colormipsearch_tpu_torch.io.jacs import JacsClient
+
+    client = JacsClient(args.jacsURL, auth_token=args.authorization)
+    libraries = args.library if isinstance(args.library, list) \
+        else [args.library]
+    if not libraries or not libraries[0]:
+        LOG.error("online mode requires -l/--libraries")
+        return 1
+    excluded_names = set(args.excluded_names or ())
+    excluded_mips = set(args.excluded_mips or ())
+    included_libs = set(args.included_libraries or ())
+    excluded_libs = set(args.excluded_libraries or ())
+    lib_names = _library_name_mapping(args)
+    # variant descriptors 'library:variantType:location[:suffix]'
+    # (MIPVariantArg); the segmentation variant's locations feed the
+    # segmented-image substitution
+    variants_by_lib: dict[tuple, list] = {}
+    for spec in args.librariesVariants:
+        parts = spec.split(":")
+        if len(parts) >= 3:
+            variants_by_lib.setdefault(
+                (parts[0], parts[1]), []).append(parts[2])
+    seg_locations = list(args.segmentedMips)
+    for (lib, vtype), locs in variants_by_lib.items():
+        if vtype in set(args.segmentedMips) or (
+                not args.segmentedMips
+                and vtype.lower() in ("segmentation", "searchable_neurons")):
+            seg_locations.extend(locs)
+    seg_locations = [loc for loc in seg_locations
+                     if loc and os.path.exists(str(loc))]
+    seg_index = naming.index_segmented_images(seg_locations) \
+        if seg_locations else None
+    handling = args.segmentedImageHandling
+
+    out_mips: list = []
+    seen = set()
+    for library in libraries:
+        for rec in client.color_depth_mips_with_samples(
+                library=library, alignment_space=args.alignment_space,
+                datasets=args.datasets, releases=args.releases):
+            rec_libs = set(rec.get("libraries") or ())
+            if included_libs and not included_libs <= rec_libs:
+                continue
+            if excluded_libs and rec_libs & excluded_libs:
+                continue
+            m = _jacs_mip_to_v2(rec, library, args)
+            m.libraryName = lib_names.get(m.libraryName, m.libraryName)
+            if m.id in excluded_mips:
+                continue
+            if not m.publishedName and not args.includeUnpublished:
+                continue
+            if m.publishedName in excluded_names:
+                continue
+            if not args.keepDups:
+                key = (m.publishedName, m.slideCode, m.objective,
+                       m.channel, m.cdmPath)
+                if key in seen:
+                    continue
+                seen.add(key)
+            if seg_index is not None:
+                segmented = _matched_segmentations(m, seg_index, args)
+                # --segmented-image-handling bitmask
+                # (CreateColorDepthSearchJSONInputCmd.java:144-149)
+                if handling & 0x4:
+                    out_mips.append(m)
+                    out_mips.extend(segmented)
+                elif handling & 0x2:
+                    out_mips.extend(segmented)
+                elif handling & 0x1:
+                    if segmented:
+                        out_mips.append(m)
+                else:
+                    out_mips.extend(segmented if segmented else [m])
+            else:
+                out_mips.append(m)
+    lib_name = libraries[0]
+    out = Path(args.outputDir) / (
+        args.output_filename or f"{lib_name.replace('/', '_')}.json")
+    if args.appendOutput and out.exists():
+        existing = v2_io.read_mips_json(out)
+        known = {mm.id for mm in existing}
+        out_mips = existing + [mm for mm in out_mips
+                               if mm.id not in known]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    v2_io.write_mips_json(out_mips, out, pretty=not args.noPrettyPrint)
+    LOG.info("wrote %d MIPs to %s", len(out_mips), out)
+    return 0
+
+
+def _matched_segmentations(m: v2_io.MIPMetadata, seg_index, args) -> list:
+    """One output MIP per matched segmented image, id-suffixed the way
+    the reference emits a MIP per searchable segmentation."""
+    import dataclasses as _dc
+
+    from colormipsearch_tpu_torch.io import naming
+    from colormipsearch_tpu_torch.model import EMNeuron, LMNeuron
+
+    if naming.is_em_library(m.libraryName):
+        neuron = EMNeuron(mip_id=m.id, published_name=m.publishedName)
+    else:
+        try:
+            channel = int(m.channel) if m.channel is not None else None
+        except (TypeError, ValueError):
+            channel = None
+        neuron = LMNeuron(mip_id=m.id, published_name=m.publishedName,
+                          slide_code=m.slideCode, objective=m.objective,
+                          channel=channel)
+    files = naming.lookup_searchable_images(
+        neuron, seg_index, channel_base=args.segmentation_channel_base)
+    out = []
+    for i, fd in enumerate(files):
+        mm = _dc.replace(m) if i == 0 else _dc.replace(
+            m, id=f"{m.id}-{i}" if m.id else None)
+        mm.searchablePNG = fd.name
+        mm.imageName = fd.file_name
+        if fd.is_zip_entry:
+            mm.imageArchivePath = fd.file_name
+            mm.imageName = fd.entry_name
+            mm.imageType = "zipEntry"
+        out.append(mm)
+    return out
+
+
 def cmd_create_json_input_v2(args) -> int:
     if args.jacsURL:
-        raise not_ported("the JACS input (--jacs-url)", 7)
+        return _create_json_input_v2_jacs(args)
     if not args.input:
         LOG.error("local mode requires -i/--input")
         return 1
@@ -557,4 +739,245 @@ def cmd_create_json_input_v2(args) -> int:
     out = Path(args.outputDir) / (args.output_filename or f"{lib}.json")
     v2_io.write_mips_json(mips, out, pretty=not args.noPrettyPrint)
     LOG.info("wrote %d MIPs to %s", len(mips), out)
+    return 0
+
+
+def configure_group_mips(sp):
+    sp.add_argument("-i", "--input", nargs="*", default=[],
+                    help="v2 MIP JSON list file(s) (local mode)")
+    sp.add_argument("-l", "--library", "--libraries", nargs="*",
+                    default=None, help="JACS libraries (online mode)")
+    sp.add_argument("--jacs-url", "--data-url", "--jacsURL",
+                    dest="jacsURL", default=None)
+    sp.add_argument("--authorization", default=None)
+    sp.add_argument("--config-url", dest="configURL", default=None,
+                    help="config service /cdm_library display-name map")
+    sp.add_argument("--alignment-space", "-as", default=None)
+    sp.add_argument("--datasets", nargs="*", default=[],
+                    help="JACS dataset filter")
+    sp.add_argument("--included-libraries", nargs="*", default=[],
+                    help="MIPs must also be in ALL these libraries")
+    sp.add_argument("--excluded-libraries", nargs="*", default=[],
+                    help="MIPs must not be in ANY of these libraries")
+    sp.add_argument("--include-mips-without-publishing-name",
+                    dest="includeUnpublished", action="store_true")
+    sp.add_argument("--keep-dups", dest="keepDups", action="store_true")
+    sp.add_argument("--skeletons-directory", "-emdir",
+                    dest="skeletonsOutput", default="by_body",
+                    help="EM grouped-output subdirectory name")
+    sp.add_argument("--lines-directory", "-lmdir",
+                    dest="linesOutput", default="by_line",
+                    help="LM grouped-output subdirectory name")
+    sp.add_argument("--librariesVariants", nargs="*", default=[],
+                    help="accepted for reference parity (variant files "
+                         "are resolved at search time here)")
+    sp.add_argument("--segmented-mips-variant", dest="segmentedMips",
+                    nargs="*", default=[],
+                    help="accepted for reference parity")
+    sp.add_argument("--segmentation-channel-base", type=int, default=1,
+                    choices=[0, 1], help="accepted for reference parity")
+    sp.add_argument("--segmented-image-handling", type=lambda s: int(s, 0),
+                    default=0, help="accepted for reference parity")
+    sp.add_argument("--urls-relative-to", dest="urlsRelativeTo",
+                    type=int, default=-1)
+    sp.add_argument("--default-gender", default=None)
+    sp.add_argument("-od", "--outputDir", required=True)
+    sp.add_argument("--no-pretty-print", dest="noPrettyPrint",
+                    action="store_true")
+
+
+def cmd_group_mips(args) -> int:
+    """Group MIPs by published name into by-name JSON files
+    (GroupMIPsByPublishedNameCmd): local mode groups existing v2 MIP
+    lists; with --jacs-url the MIPs are paged from JACS per library and
+    written into by_line/ (LM) or by_body/ (EM) subdirs like the
+    reference's NeuronBridge upload layout."""
+    from colormipsearch_tpu_torch.io import naming
+
+    out_dir = Path(args.outputDir)
+    n_mips = 0
+    n_files = 0
+
+    def write_groups(by_name: dict, sub: Path):
+        nonlocal n_mips, n_files
+        for name, mips in by_name.items():
+            safe = re.sub(r"[^A-Za-z0-9._-]", "_", name or "UNKNOWN")
+            v2_io.write_mips_json(mips, sub / f"{safe}.json",
+                                  pretty=not args.noPrettyPrint)
+            n_mips += len(mips)
+            n_files += 1
+
+    if args.jacsURL:
+        from colormipsearch_tpu_torch.io.jacs import JacsClient
+
+        client = JacsClient(args.jacsURL, auth_token=args.authorization)
+        libraries = args.library or []
+        if not libraries:
+            LOG.error("online mode requires -l/--libraries")
+            return 1
+        included_libs = set(args.included_libraries or ())
+        excluded_libs = set(args.excluded_libraries or ())
+        lib_names = _library_name_mapping(args)
+        for library in libraries:
+            by_name: dict[str, list] = {}
+            seen = set()
+            for rec in client.color_depth_mips_with_samples(
+                    library=library,
+                    alignment_space=args.alignment_space,
+                    datasets=args.datasets):
+                rec_libs = set(rec.get("libraries") or ())
+                if included_libs and not included_libs <= rec_libs:
+                    continue
+                if excluded_libs and rec_libs & excluded_libs:
+                    continue
+                m = _jacs_mip_to_v2(rec, library, args)
+                m.libraryName = lib_names.get(m.libraryName,
+                                              m.libraryName)
+                if not m.publishedName and not args.includeUnpublished:
+                    continue
+                if not args.keepDups:
+                    key = (m.publishedName, m.slideCode, m.objective,
+                           m.channel, m.cdmPath)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                by_name.setdefault(m.publishedName or "UNKNOWN",
+                                   []).append(m)
+            sub = out_dir / (args.skeletonsOutput
+                             if naming.is_em_library(library)
+                             else args.linesOutput)
+            write_groups(by_name, sub)
+    else:
+        if not args.input:
+            LOG.error("local mode requires -i/--input")
+            return 1
+        by_name = {}
+        for src in args.input:
+            for m in v2_io.read_mips_json(src):
+                name = m.publishedName or \
+                    _extract_publishing_name(m.imageName)
+                by_name.setdefault(name, []).append(m)
+        write_groups(by_name, out_dir)
+    LOG.info("grouped %d MIPs into %d files", n_mips, n_files)
+    return 0
+
+
+# -------------------------------------------------------------------------
+# replaceAttributes / mergeMips
+# -------------------------------------------------------------------------
+
+
+def configure_replace_attrs(sp):
+    sp.add_argument("--input", "-i", "--input-files", dest="input",
+                    nargs="*", default=[],
+                    help="result/MIP JSON files to update")
+    sp.add_argument("--input-dirs", nargs="*", default=[],
+                    help="directories of JSON files to update")
+    sp.add_argument("--attributes-values", "-av",
+                    "--new-mips-attributes", "-attrs",
+                    dest="attributes_values", required=True,
+                    help="JSON file of {id: {attr: value}} replacements "
+                         "or a MIP list with the new attribute values")
+    sp.add_argument("--id-field", default="id",
+                    help="indexing field, 'srcField[:docField]' "
+                         "(ReplaceMIPsMetadataAttributesCmd MappedFieldArg)")
+    sp.add_argument("--fields-toUpdate", dest="fieldsToUpdate",
+                    nargs="*", default=[],
+                    help="restrict updates to these fields, each "
+                         "'srcField[:docField]'; empty = all fields")
+    sp.add_argument("-od", "--outputDir", required=True)
+    sp.add_argument("--no-pretty-print", dest="noPrettyPrint",
+                    action="store_true")
+
+
+def _mapped_field(spec: str) -> tuple[str, str]:
+    """'src[:dst]' -> (src, dst) (cmd_v2/MappedFieldArg.java)."""
+    src, _, dst = spec.partition(":")
+    return src, dst or src
+
+
+def cmd_replace_attrs(args) -> int:
+    """Replace metadata attributes by id
+    (ReplaceMIPsMetadataAttributesCmd)."""
+    inputs = list(args.input)
+    for d in args.input_dirs:
+        inputs.extend(sorted(str(p) for p in Path(d).glob("*.json")))
+    if not inputs:
+        raise SystemExit("no inputs: use -i / --input-dirs")
+    with open(args.attributes_values) as f:
+        repl = json.load(f)
+    id_src, id_dst = _mapped_field(args.id_field)
+    if isinstance(repl, list):  # a MIP list with new attribute values
+        repl = {m[id_src]: m for m in repl if m.get(id_src)}
+    field_map = [_mapped_field(s) for s in args.fieldsToUpdate]
+    out_dir = Path(args.outputDir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for src in inputs:
+        with open(src) as f:
+            doc = json.load(f)
+        n = 0
+
+        def patch(obj):
+            nonlocal n
+            if isinstance(obj, dict):
+                oid = obj.get(id_dst) or obj.get("id") or obj.get("mipId")
+                if oid in repl:
+                    new = repl[oid]
+                    pairs = field_map or [(k, k) for k in new
+                                          if k != id_src]
+                    for f_src, f_dst in pairs:
+                        if f_src in new:
+                            obj[f_dst] = new[f_src]
+                    n += 1
+                for v in obj.values():
+                    patch(v)
+            elif isinstance(obj, list):
+                for v in obj:
+                    patch(v)
+
+        patch(doc)
+        with open(out_dir / Path(src).name, "w") as f:
+            json.dump(doc, f, indent=None if args.noPrettyPrint else 2)
+        LOG.info("replaced attributes on %d entries in %s", n, src)
+    return 0
+
+
+def configure_merge_mips(sp):
+    sp.add_argument("-i", "--input", nargs="*", default=[])
+    sp.add_argument("-rf", "--resultsFile", nargs="*", default=[],
+                    help="MIP list files to merge (MergeMipsCmd -rf)")
+    sp.add_argument("-rd", "--resultsDir", nargs="*", default=[],
+                    help="directories of MIP list files to merge")
+    sp.add_argument("--output-filename", required=True)
+    sp.add_argument("-od", "--outputDir", default=".")
+    sp.add_argument("--no-pretty-print", dest="noPrettyPrint",
+                    action="store_true")
+
+
+def cmd_merge_mips(args) -> int:
+    """Concatenate MIP lists, deduping by (id, imageName)
+    (MergeMipsCmd)."""
+    # -rf takes precedence over -rd (MergeMipsCmd:81-84); -i merges in
+    # as explicit files for backward compatibility
+    sources = list(args.input)
+    if args.resultsFile:
+        sources.extend(args.resultsFile)
+    else:
+        for d in args.resultsDir:
+            sources.extend(sorted(str(p)
+                                  for p in Path(d).glob("*.json")))
+    if not sources:
+        raise SystemExit("no inputs: use -i / -rf / -rd")
+    seen = set()
+    merged = []
+    for src in sources:
+        for m in v2_io.read_mips_json(src):
+            key = (m.id, m.imageName)
+            if key in seen:
+                continue
+            seen.add(key)
+            merged.append(m)
+    out = Path(args.outputDir) / args.output_filename
+    v2_io.write_mips_json(merged, out, pretty=not args.noPrettyPrint)
+    LOG.info("merged %d MIPs to %s", len(merged), out)
     return 0

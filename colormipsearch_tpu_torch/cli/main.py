@@ -20,6 +20,7 @@ from colormipsearch_tpu_torch.cli import (
     commands,
     commands_admin,
     commands_export,
+    commands_upload,
     commands_v2,
     common,
 )
@@ -71,6 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="import raw PatchPerPix cov_scores results")
     add("tag", commands_export.cmd_tag, commands_export.configure_tag,
         help="bulk-tag neuron metadata")
+    add("legacyImport", commands_admin.cmd_legacy_import,
+        commands_admin.configure_legacy_import,
+        aliases=["importV2CDMatches"],
+        help="import v2 result files as v3 match entities")
+    add("validateDBData", commands_admin.cmd_validate,
+        commands_admin.configure_validate,
+        help="consistency checks over neuron metadata")
+    add("copyToMipsStore", commands_admin.cmd_copy_to_store,
+        commands_admin.configure_copy_to_store,
+        help="copy MIP variants into a file-store layout")
+    add("uploadData", commands_upload.cmd_upload_data,
+        commands_upload.configure_upload_data,
+        help="publish the exported data tree to the NeuronBridge S3 "
+             "buckets (upload-data.sh equivalent; dry-run by default)")
 
     # ---- v2 commands (cmd_v2/Main.java:26-52) ----
     add("searchFromJSON", commands.cmd_search_from_json,
@@ -92,12 +107,28 @@ def build_parser() -> argparse.ArgumentParser:
         commands_v2.cmd_create_json_input_v2,
         commands_v2.configure_create_json_input_v2,
         help="v2 MIP list creation from local images")
+    add("groupMIPsByPublishedName", commands_v2.cmd_group_mips,
+        commands_v2.configure_group_mips,
+        help="group MIP lists by published name")
+    add("replaceAttributes", commands_v2.cmd_replace_attrs,
+        commands_v2.configure_replace_attrs,
+        help="replace metadata attributes by id")
+    add("mergeMips", commands_v2.cmd_merge_mips,
+        commands_v2.configure_merge_mips,
+        help="merge MIP list files, deduping")
     add("convertPPPResults", commands_admin.cmd_convert_ppp,
         commands_admin.configure_convert_ppp,
         help="raw PPP results to per-EM v2 JSON")
     add("copyPPPMatches", commands_admin.cmd_copy_ppp,
         commands_admin.configure_copy_ppp,
         help="copy/trim PPP match files")
+    add("copyMIPSegmentation", commands_admin.cmd_copy_segmentation,
+        commands_admin.configure_copy_segmentation,
+        help="copy MIP variant/segmentation images")
+    add("precomputeVariants", commands_admin.cmd_precompute_variants,
+        commands_admin.configure_precompute_variants,
+        help="generate GradientImage/ZGapImage variants from CDMs "
+             "(the reference consumes these from an external pipeline)")
     return p
 
 

@@ -77,19 +77,6 @@ from colormipsearch_tpu_torch.utils.metrics import GLOBAL as _METRICS
 LOG = logging.getLogger(__name__)
 
 
-# the items of ROADMAP.md §1 ("Modules still to port") that a caller of
-# not_ported can name
-ROADMAP_ITEMS = {7: "the network clients"}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a configuration the port does not have yet; `item`
-    is its entry in ROADMAP.md §1."""
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with "
-        f"{ROADMAP_ITEMS[item]} (ROADMAP.md §1, port item {item})")
-
-
 @dataclasses.dataclass
 class CDSParams:
     """Shared CDS parameters (cmd/AbstractColorDepthMatchArgs.java)."""

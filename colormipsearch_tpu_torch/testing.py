@@ -1,5 +1,5 @@
-"""Synthetic color depth MIPs and a PNG writer, shared by the tests and
-``chip_smoke.py``.
+"""Synthetic color depth MIPs, shared by the tests and ``chip_smoke.py``
+(with the PNG writers of ``io/png.py``).
 
 A CDM codes depth as hue: every foreground pixel takes the color of the
 rainbow LUT (constants.RAINBOW_LUT) at its z-slice, scaled by an
@@ -23,10 +23,13 @@ Everything is made from an explicitly seeded ``np.random.Generator``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import shutil
 import sqlite3
 import struct
 import zlib
@@ -36,6 +39,11 @@ import numpy as np
 from colormipsearch_tpu_torch.constants import RAINBOW_LUT
 from colormipsearch_tpu_torch.io import fax, zstd
 from colormipsearch_tpu_torch.io.jpeg import _QE
+from colormipsearch_tpu_torch.io.png import (  # noqa: F401 (re-exported)
+    encode_png,
+    encode_png_gray16,
+    write_png,
+)
 from colormipsearch_tpu_torch.io.ppp import SCREENSHOT_TYPES
 from colormipsearch_tpu_torch.model import (
     ComputeFileType,
@@ -43,58 +51,6 @@ from colormipsearch_tpu_torch.model import (
     LMNeuron,
     Neuron,
 )
-
-_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-
-
-def _png(rows: np.ndarray, w: int, h: int, depth: int,
-         color: int) -> bytes:
-    """PNG bytes of uint8 [H, row bytes] rows, each stored under filter
-    type 0, non-interlaced."""
-    raw = np.zeros((h, 1 + rows.shape[1]), np.uint8)
-    raw[:, 1:] = rows
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (_PNG_MAGIC
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
-                                         0, 0, 0))
-            # level 1: mostly-black images compress well even so, and
-            # writing a 2,048-image library stays a few seconds
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-            + chunk(b"IEND", b""))
-
-
-def encode_png(rgb: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> 8-bit RGB PNG bytes (what
-    io/image.decode_png_rgb8 reads)."""
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
-                         f"{rgb.shape}")
-    h, w, _ = rgb.shape
-    return _png(rgb.reshape(h, 3 * w), w, h, 8, 2)
-
-
-def encode_png_gray16(gray: np.ndarray) -> bytes:
-    """uint16 [H, W] -> 16-bit gray PNG bytes, big-endian samples (what
-    io/image.decode_png_gray16 reads)."""
-    if gray.dtype != np.uint16 or gray.ndim != 2:
-        raise ValueError(f"expected uint16 [H, W], got {gray.dtype} "
-                         f"{gray.shape}")
-    h, w = gray.shape
-    rows = np.ascontiguousarray(gray.astype(">u2")).view(np.uint8)
-    return _png(rows.reshape(h, 2 * w), w, h, 16, 0)
-
-
-def write_png(path, img: np.ndarray) -> None:
-    """uint8 [H, W, 3] as 8-bit RGB, uint16 [H, W] as 16-bit gray."""
-    data = encode_png_gray16(img) if img.dtype == np.uint16 \
-        else encode_png(img)
-    with open(path, "wb") as f:
-        f.write(data)
-
 
 # --- JPEG, GIF and TIFF writers (numpy + zlib): inputs for the port's
 # PIL-free readers (io/jpeg.py, io/gif.py, io/tiff.py) on hosts without PIL
@@ -2321,4 +2277,205 @@ def pppm_url_docs(matches) -> list[dict]:
                     "uploadedFiles": {"CH": f"{base}/ch.png",
                                       "RAW": f"{base}/raw.png"},
                     "uploadedThumbnails": {"CH": f"{base}/ch.jpg"}})
+    return out
+
+
+# --- JACS page dumps and v2 result files: inputs of the JACS client
+# (io/jacs.py, its file:// transport) and of legacyImport
+
+JACS_MIPS_ENDPOINT = "data_colorDepthMIPsWithSamples"
+JACS_SAMPLES_ENDPOINT = "data_samples"
+
+
+def jacs_mip_records(neurons, *, em: bool = False,
+                     libraries=None) -> list[dict]:
+    """JACS ColorDepthMIP records (cmd/jacsdata/ColorDepthMIP.java) of
+    neurons with an InputColorDepthImage: the record's filepath is that
+    file. LM records carry a sample (publishing name, slide code, gender,
+    line, mounting protocol) and every third one a channel that is not a
+    number; EM records a body id and an emBody (type, instance, skeleton
+    files on every other one). `libraries` gives each record's libraries
+    list (i -> list), else none."""
+    out = []
+    for i, n in enumerate(neurons):
+        fd = n.compute_file(ComputeFileType.InputColorDepthImage)
+        rec = {"id": n.mip_id, "filepath": fd.name,
+               "alignmentSpace": n.alignment_space or "JRC2018_Unisex_20x_HR",
+               "objective": ("40x", "63x", "20x")[i % 3],
+               "anatomicalArea": ("Brain", "VNC")[i % 2]}
+        if libraries is not None:
+            rec["libraries"] = libraries(i)
+        if em:
+            rec["bodyId"] = int(1000 + i) if i % 5 != 4 else None
+            rec["emBodyRef"] = f"EMBody#{i}" if i % 2 else None
+            rec["emBody"] = {"_id": f"body-{i}", "name": f"name{i}",
+                             "neuronType": f"T{i % 3}",
+                             "neuronInstance": f"T{i % 3}_R"}
+            if i % 2 == 0:
+                rec["emBody"]["files"] = {"SkeletonSWC": f"/swc/{i}.swc",
+                                          "SkeletonOBJ": f"/obj/{i}.obj"}
+        else:
+            rec["sampleRef"] = f"Sample#{i}"
+            rec["channelNumber"] = str(1 + i % 2) if i % 3 else "ch?"
+            rec["sample"] = {
+                "name": f"sample{i}",
+                "publishingName": n.published_name if i % 7 != 6 else None,
+                "slideCode": f"2020{i:04d}_1_A1", "gender": "fm"[i % 2],
+                "line": f"line{i}",
+                "mountingProtocol": "DPX PBS Mounting" if i % 4 else None}
+        out.append(rec)
+    return out
+
+
+def write_jacs_dump(directory, records: list, *,
+                    endpoint: str = JACS_MIPS_ENDPOINT,
+                    page_size: int = 10000) -> list[str]:
+    """Write `records` as the page files the JACS client's file://
+    transport reads (<endpoint>_<offset>.json, `page_size` records a
+    page); returns their paths."""
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for off in range(0, max(len(records), 1), page_size):
+        path = os.path.join(str(directory), f"{endpoint}_{off}.json")
+        with open(path, "w") as f:
+            json.dump(records[off:off + page_size], f)
+        paths.append(path)
+    return paths
+
+
+def _v2_mip(prefix: str, i: int, library: str, image: str) -> dict:
+    """A v2 MIP's fields: LM ones (slide code, objective, gender, area,
+    channel, mounting protocol) unless the library is an EM one."""
+    d = {"id": f"{prefix}{i}", "publishedName": f"{prefix.upper()}{i % 5}",
+         "libraryName": library, "imageName": image,
+         "alignmentSpace": "JRC2018_Unisex_20x_HR"}
+    if "flyem" in library:
+        d.update(neuronType=f"T{i % 3}", neuronInstance=f"T{i % 3}_L")
+    else:
+        d.update(slideCode=f"2019{i:04d}_62_F1", objective="40x",
+                 gender="fm"[i % 2], anatomicalArea="Brain",
+                 channel=("1", "2", "x")[i % 3],
+                 mountingProtocol="DPX PBS Mounting")
+    return d
+
+
+def write_v2_results(root, rng: np.random.Generator, n_masks: int,
+                     n_targets: int, *, legacy_every: int = 3,
+                     missing_every: int = 4) -> list[str]:
+    """v2 per-mask result files (CDSMatches) under `root`/results: EM
+    masks against LM targets, every target a row of every mask, in the
+    current shape (the target's fields, the mask's as source*) and, for
+    every `legacy_every`-th mask, the legacy shape (the mask's own fields,
+    matched* for the target, scores in an attrs map of strings). Rows
+    carry shape scores, a normalized gap score or neither. Every image is
+    a small PNG under `root`/images but every `missing_every`-th target,
+    whose file is absent. Returns the result files."""
+    root = str(root)
+    images = os.path.join(root, "images")
+    results = os.path.join(root, "results")
+    os.makedirs(images, exist_ok=True)
+    os.makedirs(results, exist_ok=True)
+    blank = encode_png(np.zeros((4, 6, 3), np.uint8))
+
+    def image(name, present=True):
+        path = os.path.join(images, name)
+        if present:
+            with open(path, "wb") as f:
+                f.write(blank)
+        return path
+
+    masks = [_v2_mip("em", i, "flyem_hemibrain_1_2_1",
+                     image(f"em{i}.png")) for i in range(n_masks)]
+    targets = [_v2_mip("lm", j, "FlyLight Gen1 MCFO",
+                       image(f"lm{j}.png", j % missing_every != 1))
+               for j in range(n_targets)]
+    files = []
+    for i, mask in enumerate(masks):
+        legacy = legacy_every and i % legacy_every == legacy_every - 1
+        rows = []
+        for j, target in enumerate(targets):
+            px = int(rng.integers(1, 5000))
+            ratio = round(float(rng.uniform(0, 1)), 6)
+            gap = int(rng.integers(0, 90000)) if j % 3 != 2 else None
+            he = int(rng.integers(0, 900)) if gap is not None else None
+            norm = round(float(rng.uniform(0, 9000)), 4) \
+                if j % 2 == 0 else None
+            if legacy:
+                r = {**mask, "matchedId": target["id"],
+                     "matchedPublishedName": target["publishedName"],
+                     "matchedLibrary": target["libraryName"],
+                     "matchedImageName": target["imageName"],
+                     "image_path": f"/thumbs/{target['id']}.png",
+                     "attrs": {"Matched pixels": str(px),
+                               "Score": str(ratio),
+                               "Slide Code": target.get("slideCode")}}
+                if gap is not None:
+                    r["attrs"]["GradientAreaGap"] = str(gap)
+                    r["attrs"]["HighExpressionArea"] = str(he)
+                if norm is not None:
+                    r["attrs"]["NormalizedGapScore"] = str(norm)
+                r["mirrored"] = bool(j % 2)
+            else:
+                r = {**target, **{"source" + k[0].upper() + k[1:]: v
+                                  for k, v in mask.items()},
+                     "matchingPixels": px, "matchingRatio": ratio,
+                     "mirrored": bool(j % 2)}
+                if gap is not None:
+                    r.update(gradientAreaGap=gap, highExpressionArea=he)
+                if norm is not None:
+                    r["normalizedGapScore"] = norm
+            rows.append(r)
+        doc = {"results": rows} if legacy else \
+            {"maskId": mask["id"], "maskPublishedName":
+             mask["publishedName"], "maskLibraryName": mask["libraryName"],
+             "results": rows}
+        path = os.path.join(results, f"{mask['id']}.json")
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+        files.append(path)
+    return files
+
+
+def snapshot(path):
+    """A file's bytes, a directory's {relative path: bytes}, or None
+    when the path does not exist."""
+    path = str(path)
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            return f.read()
+    if not os.path.isdir(path):
+        return None
+    out = {}
+    for d, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(d, name)
+            with open(full, "rb") as f:
+                out[os.path.relpath(full, path)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def run_clis(mains: dict, argv: list, *, outputs=(), inputs=()) -> dict:
+    """Run one command line through each CLI of `mains` ({name: main})
+    in turn, on the same paths: before each run the files and
+    directories in `outputs` are removed, then the files in `inputs` (one
+    may lie in an output directory) get back the bytes they had before
+    the first run. Returns {name: (exit code, standard output, [snapshot
+    of each output])}."""
+    argv = [str(a) for a in argv]
+    kept = {str(p): snapshot(p) for p in inputs}
+    out = {}
+    for name, main in mains.items():
+        for path in map(str, outputs):
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            elif os.path.exists(path):
+                os.remove(path)
+        for path, data in kept.items():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(data)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(list(argv))
+        out[name] = (rc, buf.getvalue(), [snapshot(p) for p in outputs])
     return out

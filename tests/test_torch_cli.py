@@ -4,8 +4,8 @@
   byte-identical result trees from the same neuron JSONs;
 * isolation: the port imports and runs with jax and PIL unimportable,
   as on the GPU hosts;
-* policy: ``--device cuda`` without a GPU is an error, and every
-  configuration outside the slice raises NotImplementedError.
+* policy: ``--device cuda`` without a GPU is an error, and the shape
+  pass across processes raises NotImplementedError (ROADMAP.md §3).
 
 The JAX engine reads CDS_SPLIT_PLANES when it is imported, so the tests
 that set it for the port patch the JAX engine's flag too.
@@ -127,8 +127,10 @@ def test_kernel_forms_result_files_identical_to_jax(tmp_path, form,
 
 
 def test_port_runs_without_jax_and_pil(tmp_path):
-    """Import every port module and run a tiny CPU colorDepthSearch in a
-    process where jax and PIL cannot be imported."""
+    """Import every port module, run a tiny CPU colorDepthSearch and
+    precomputeVariants over the library's PNGs in a process where jax and
+    PIL cannot be imported; the z-gap variants are the shape oracle's
+    dilation of each image."""
     args = _inputs(tmp_path, seed=43, n_targets=6, n_masks=2)
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
@@ -146,6 +148,10 @@ def test_port_runs_without_jax_and_pil(tmp_path):
         rc = main(["colorDepthSearch", *{args!r}, "--device", "cpu",
                    "-od", {str(tmp_path / "out")!r}, *{FLAGS!r},
                    "--pctPositivePixels", "1.0"])
+        rc = rc or main(["precomputeVariants", "-i", {str(tmp_path / "lib")!r},
+                         "-od", {str(tmp_path / "variants")!r}])
+        assert not any(m == "jax" or m.startswith(("jax.", "PIL"))
+                       for m in sys.modules if sys.modules[m] is not None)
         print("MODULES", len(names))
         sys.exit(rc)
     """)
@@ -156,6 +162,17 @@ def test_port_runs_without_jax_and_pil(tmp_path):
     assert int(proc.stdout.split("MODULES")[1]) >= 15
     assert (tmp_path / "out" / "cdsParameters.json").exists()
     assert list((tmp_path / "out" / "masks").glob("*.json"))
+    from colormipsearch_tpu_torch.oracle.shape import dilate_rgb, mask_rgb
+
+    images = sorted((tmp_path / "lib").glob("*.png"))
+    zgaps = sorted((tmp_path / "variants" / "zgap").glob("*.png"))
+    grads = sorted((tmp_path / "variants" / "grad").glob("*.png"))
+    assert len(images) == len(zgaps) == len(grads) == 8
+    for image, zgap in zip(images, zgaps):
+        assert zgap.name == image.stem + "_20pxRGB.png"
+        np.testing.assert_array_equal(
+            read_image(str(zgap)).pixels,
+            dilate_rgb(mask_rgb(read_image(str(image)).pixels, 20), 20))
 
 
 def test_png_reader_round_trip_and_rejections(tmp_path):
@@ -510,33 +527,15 @@ def test_file_pipeline_runs_without_jax_and_pil(tmp_path):
         assert len(list((tmp_path / d).glob("*.json"))) == n, d
 
 
-@pytest.mark.parametrize("path", [
-    ("mesh", None, 3),
-    ("importPPPResults", "--jacs-url", 7),
-    ("createColorDepthSearchDataInput", "--jacs-url", 7),
-    ("createColorDepthSearchJSONInput", "--jacs-url", 7),
-], ids=lambda p: f"{p[0]}{p[1] or ''}")
-def test_not_ported_names_its_roadmap_item(tmp_path, monkeypatch, path):
-    """Every configuration the port raises NotImplementedError for names
-    its item of ROADMAP.md §1: the JACS input and the JACS sample lookup
-    of importPPPResults (7). The cross-process mesh is ported; the shape
-    pass across processes, which the JAX package fails too, names
-    ROADMAP.md §3."""
-    command, flag, item = path
-    match = rf"ROADMAP\.md §1, port item {item}\)"
-    if command == "mesh":
-        import torch.distributed as dist
+def test_shape_pass_across_processes_names_roadmap_section_3(monkeypatch):
+    """The shape pass across processes, which the JAX package fails too,
+    raises NotImplementedError naming ROADMAP.md §3 (the cross-process
+    mesh of the search is ported)."""
+    import torch.distributed as dist
 
-        from colormipsearch_tpu_torch.engine.gradscore import (
-            GradScoreEngine,
-        )
+    from colormipsearch_tpu_torch.engine.gradscore import GradScoreEngine
 
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §3"):
-            GradScoreEngine(CDSParams(), device="cpu")
-        return
-    source = "-rd" if command == "importPPPResults" else "-i"
-    with pytest.raises(NotImplementedError, match=match):
-        torch_main.main([command, source, str(tmp_path), flag,
-                         "http://localhost:1", "-od", str(tmp_path / "o")])
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §3"):
+        GradScoreEngine(CDSParams(), device="cpu")

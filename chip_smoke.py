@@ -149,7 +149,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      port's CLI on phase 3's library: (a) createColorDepthSearchDataInput
      --mips-storage DB over the targets (with their variants) and the
      masks stores phase 9 (a)'s neurons; (b) colorDepthSearch
-     --mips-storage DB --results-storage DB on the first 4 of phase 4's
+     --mips-storage DB --results-storage DB on the first 2 of phase 4's
      masks with phase 3's flags must launch K1-K4 and store phase 3's
      matches, then with phase 4's (--pctPositivePixels 0, no emit top-k)
      K1-K3 and phase 4's candidates, the first run's rows keeping their
@@ -170,7 +170,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      store, then with --pctPositivePixels 1.0: each writes exactly the
      rows counted here from its input (the best row per mask-target
      pair with a gradientAreaGap of at least 0); (b) the same export
-     from phase 11's store equals (a)'s rows of its 4 masks, and
+     from phase 11's store equals (a)'s rows of its 2 masks, and
      EM_MIPS and LM_MIPS from the store equal those from phase 9 (a)'s
      neuron JSONs (2,080 files each); (c) importPPPResults over
      synthetic PPP results (8 EM bodies x 500 LM matches, numpy-printed
@@ -211,7 +211,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      tree (the manifest in a dry run, then --run through a local fake
      upload command that records its calls: one a tree of the manifest,
      every file planned and under a call's source). Each step prints its
-     wall seconds and its rate.
+     wall seconds and its rate;
+ 14. the batch launchers, the profile hook and the streaming check
+     (colormipsearch_tpu_torch/scripts, utils/metrics) on phase 3's
+     library: (a) cds_batch --run over 4 masks x 1,024 targets in 2 x 2
+     tiles of 2 masks x 512 targets (each tile a process of the port's
+     CLI, phase 3's flags, per-mask and per-target files): the merged
+     tree equals (c)'s colorDepthSearch of the same pairs, file by file
+     (but cdsParameters.json, which records each run's index arguments);
+     (b) ga_batch --run over (c)'s per-mask files in jobs of 2 through
+     phase 4's packed-variant store on the device: the tree equals one
+     gradientScores over all of them; (c), run beside (a)'s tiles,
+     maybe_profile around an in-process colorDepthSearch of (a)'s pairs
+     (the reference of (a) and (b)): the trace file, its CPU events and
+     the kernel events of K1-K4 by their __global__ names (each at least
+     one: the profiler records the card's kernels) and the device
+     milliseconds of its kernels and copies; its launches are added to
+     the kernels line;
+     (d) the streaming check at 64 masks x 2,048 targets (131,072
+     matches), its two processes beside (a)-(c): both runs write every
+     match and streaming saves at least 50 B of peak RSS a match.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. All data is generated from --seed under
@@ -321,10 +340,11 @@ MESH_GS_MASKS = 4       # phase 7 (d): mask files of the gradScores runs
 P9_MASKS = 8            # phase 9: masks of the file-pipeline searches
 P9_SAMPLES = 16         # phase 9 (d), (e): rows held to ShapeMatchOracle
 P10_TIMEOUT = 300       # phase 10: the launcher's collective timeout, s
-# phase 11 (b)-(d): the first 4 of phase 4's 16 masks (~6,600 stored
-# matches): the store commits every row (~3 ms each on an H100 host),
-# and at 8 masks phase 11 took 223 s of a 913 s run there
-P11_MASKS = 4
+# phase 11 (b)-(d): the first 2 of phase 4's 16 masks: the store commits
+# every row (~3 ms each on an H100 host); at 8 masks phase 11 took 223 s
+# of a 913 s run there, and at 4 (~6,500 stored matches) 140.1 s of a run
+# that phase 14 took past 1,040 s
+P11_MASKS = 2
 P11_TAG = "p11"         # phase 11 (c): the shape pass's processing tag
 # phase 12: the publish tail on phase 9's files and phase 11's store, and
 # importPPPResults over synthetic PPP results of P12_BODIES EM bodies x
@@ -350,6 +370,23 @@ P12_TAG = "p12"         # phase 12 (c): importPPPResults' processing tag
 P13_TARGETS = 48
 P13_MASKS = 4
 P13_LIBRARY = "synthetic"
+# phase 14: the launchers' grid (masks x targets in tiles of P14_TILE),
+# ga_batch's mask files a job, the streaming check's workload. The check
+# is cut from 8,192 targets: there its two runs took 38.8 and 47.7 s side
+# by side on an H100 host (the JSON writes of 524,288 matches), and
+# phase 14 150.0 s, over its 90
+P14_MASKS, P14_TARGETS = 4, 1024
+P14_TILE = (2, 512)
+P14_GA_FILES_PER_JOB = 2
+P14_STREAM_TARGETS, P14_STREAM_MASKS = 2048, 64
+# the __global__ names of K1-K4 (their launch counters' keys) that the
+# profiler's kernel events carry
+P14_KERNEL_EVENTS = {
+    "scatter_key_planes": ("scatter_keys_kernel",),
+    "expand_union_tables_from_pos": ("expand_kernel",),
+    "score_query_batch_union_keys": ("union_chunk_kernel",
+                                     "union_finish_kernel"),
+    "union_keys_topk": ("topk_kernel",)}
 # phase 10: the selftest's steps whose times phase 7 took (its keys)
 P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
                     "batch_split": "batch_split (K11)",
@@ -4083,6 +4120,213 @@ def run_admin_tail(lib, work: str, card: str) -> dict:
             for k in GS_KERNELS}
 
 
+def _kernel_events(trace: str) -> tuple[dict, int, int, dict]:
+    """({K1-K4 counter key: kernel events of its kernels}, all kernel
+    events, CPU events, {"kernel", "gpu_memcpy", "gpu_memset": their
+    summed device milliseconds}) of a torch.profiler Chrome trace."""
+    import re
+
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    cpu = sum(e.get("cat") == "cpu_op" for e in events)
+    counts = {k: sum(any(re.search(rf"\b{n}\b", name) for n in names)
+                     for name in kernels)
+              for k, names in P14_KERNEL_EVENTS.items()}
+    busy = {c: round(sum(e.get("dur", 0) for e in events
+                         if e.get("cat") == c) / 1e3, 3)
+            for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return counts, len(kernels), cpu, busy
+
+
+def run_launchers(work: str, card: str) -> dict:
+    """Phase 14: the batch launchers, the profile hook and the streaming
+    check of the port (colormipsearch_tpu_torch/scripts, utils/metrics)
+    on phase 3's library, --device cuda: (a)-(c) in
+    _launchers_and_profile; (d) the streaming check at P14_STREAM_MASKS x
+    P14_STREAM_TARGETS, its two processes beside (a)-(c) (the launchers'
+    processes spend most of their time starting). Returns (c)'s
+    launches."""
+    from colormipsearch_tpu_torch.scripts import streaming_rss_check
+
+    p14 = os.path.join(work, "p14")
+    streaming = os.path.join(p14, "streaming")
+    os.makedirs(streaming)
+    def check():
+        t0 = time.time()
+        failed = streaming_rss_check.check(streaming, P14_STREAM_TARGETS,
+                                           P14_STREAM_MASKS, DEVICE)
+        return failed, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    stream_fut = pool.submit(check)
+    pool.shutdown(wait=False)
+    try:
+        launches = _launchers_and_profile(work, card, p14)
+    finally:
+        concurrent.futures.wait([stream_fut])
+    failed, seconds = stream_fut.result()
+    if failed:
+        raise AssertionError(f"phase 14 (d): {failed}")
+    print(f"phase 14 (d): streaming check, {P14_STREAM_MASKS} x "
+          f"{P14_STREAM_TARGETS} = {P14_STREAM_MASKS * P14_STREAM_TARGETS} "
+          f"matches, both runs side by side, in {seconds:.2f}s ({card})",
+          flush=True)
+    return launches
+
+
+def _profiled_search(masks: str, targets: str, cds_flags: list, one: str,
+                     p14: str, card: str) -> tuple[dict, int]:
+    """Phase 14 (c): maybe_profile around an in-process colorDepthSearch
+    of P14_MASKS x P14_TARGETS into `one`; it must launch K1-K4, and the
+    trace must hold CPU events and each of K1-K4's kernel events. Returns
+    (its launches, its matches)."""
+    from colormipsearch_tpu_torch.cli import main as cli_main
+    from colormipsearch_tpu_torch.kernels import build as kbuild
+    from colormipsearch_tpu_torch.utils.metrics import maybe_profile
+
+    trace_dir = os.path.join(p14, "profile")
+    kbuild.reset_launches()
+    t0 = time.time()
+    with maybe_profile(trace_dir):
+        rc = cli_main.main([
+            "colorDepthSearch", "-m", masks, "-i", targets,
+            "--masks-length", str(P14_MASKS), "--targets-length",
+            str(P14_TARGETS), "--device", DEVICE, "-od", one, *cds_flags])
+        sync()
+    seconds = time.time() - t0
+    launches = dict(kbuild.launches)
+    if rc != 0:
+        raise AssertionError(f"phase 14 (c): colorDepthSearch exited {rc}")
+    missing = [k for k in CDS_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 14 (c): never launched {missing}")
+    traces = os.listdir(trace_dir)
+    if len(traces) != 1:
+        raise AssertionError(f"phase 14 (c): trace files {traces}")
+    trace = os.path.join(trace_dir, traces[0])
+    events, n_kernel, n_cpu, busy = _kernel_events(trace)
+    if n_cpu == 0:
+        raise AssertionError("phase 14 (c): the trace holds no CPU event")
+    # torch.profiler records the card's kernels on the H100 hosts (CUPTI;
+    # first seen in the chip run that added this phase)
+    if not all(events.values()):
+        raise AssertionError(f"phase 14 (c): {n_kernel} kernel events, "
+                             f"K1-K4's {events}")
+    n_rows = sum(len(r) for r in
+                 _read_results(os.path.join(one, "masks")).values())
+    print(f"phase 14 (c): maybe_profile around colorDepthSearch of "
+          f"{P14_MASKS} x {P14_TARGETS} in {seconds:.2f}s, {n_rows} "
+          f"matches, trace {os.path.getsize(trace)} bytes, {n_cpu} CPU op "
+          f"events; cuda kernel events: {n_kernel}; K1-K4's "
+          f"{json.dumps(events)} (launch counters "
+          f"{json.dumps({k: launches[k] for k in events})}); device ms "
+          f"{json.dumps(busy)} ({card})", flush=True)
+    free_cached()
+    return launches, n_rows
+
+
+def _launchers_and_profile(work: str, card: str, p14: str) -> dict:
+    """Phase 14 (c) the profiled search (_profiled_search), beside it (a)
+    cds_batch --run over the same pairs in tiles of P14_TILE (each tile a
+    process of the port's CLI): the merged tree equals (c)'s, file by
+    file; (b) ga_batch --run over (c)'s per-mask files,
+    P14_GA_FILES_PER_JOB a job, through phase 4's packed-variant store on
+    the device: the tree equals one gradientScores over all of them.
+    Returns (c)'s launches."""
+    from colormipsearch_tpu_torch.scripts import cds_batch, ga_batch
+
+    masks = os.path.join(work, "masks.json")
+    targets = os.path.join(work, "targets.json")
+    pairs = P14_MASKS * P14_TARGETS
+    cds_flags = [*FLAGS, "--perMaskSubdir", "masks", "--perTargetSubdir",
+                 "targets"]
+
+    saved_env = {k: os.environ.get(k)
+                 for k in ("PYTHONPATH", "CDS_SHAPE_STORE_DEVICE")}
+    # the launchers' processes import the port from this checkout
+    os.environ["PYTHONPATH"] = REPO
+    one = os.path.join(p14, "one")
+    tiled = os.path.join(p14, "tiled")
+
+    def tiles():
+        t0 = time.time()
+        rc = cds_batch.main([
+            "--masks", masks, "--targets", targets, "--total-masks",
+            str(P14_MASKS), "--total-targets", str(P14_TARGETS),
+            "--masks-per-job", str(P14_TILE[0]), "--targets-per-job",
+            str(P14_TILE[1]), "--device", DEVICE, "-od", tiled, "--run",
+            "--", *cds_flags])
+        if rc != 0:
+            raise AssertionError(f"phase 14 (a): cds_batch exited {rc}")
+        return time.time() - t0
+
+    try:
+        # (a)'s tile processes run beside (c)
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        tiles_fut = pool.submit(tiles)
+        pool.shutdown(wait=False)
+        try:
+            launches, n_rows = _profiled_search(masks, targets, cds_flags,
+                                                one, p14, card)
+        finally:
+            concurrent.futures.wait([tiles_fut])
+        seconds = tiles_fut.result()
+        # (a) the tile grid against (c)'s search of the same pairs
+        n_tiles = len(os.listdir(os.path.join(tiled, "tiles")))
+        merged = {k: v for k, v in _tree(tiled).items()
+                  if not k.startswith("tiles" + os.sep)}
+        want = _tree(one)
+        # cdsParameters.json records each run's own index arguments
+        merged.pop("cdsParameters.json")
+        want.pop("cdsParameters.json")
+        _require_same("phase 14 (a): the merged tiles vs one "
+                      "colorDepthSearch", merged, want)
+        print(f"phase 14 (a): cds_batch --run, {n_tiles} tiles of "
+              f"{P14_TILE[0]} x {P14_TILE[1]} (a process each) over "
+              f"{P14_MASKS} x {P14_TARGETS} in {seconds:.2f}s = "
+              f"{pairs / seconds:.0f} pairs/s; merged tree = one "
+              f"colorDepthSearch, {len(want)} files ({card})", flush=True)
+
+        # (b) ga_batch's jobs against one gradientScores
+        store = os.path.join(work, "store")
+        gs_flags = ["--maskThreshold", "20", "--mirrorMask",
+                    "--perMaskSubdir", "masks", "--packed-variants-store",
+                    store]
+        os.environ["CDS_SHAPE_STORE_DEVICE"] = "1"
+        ga_one = os.path.join(p14, "ga_one")
+        ga_jobs = os.path.join(p14, "ga_jobs")
+        shutil.copytree(one, ga_one)
+        shutil.copytree(one, ga_jobs)
+        _cli_step("(b)", ["gradientScores", "--matches",
+                          os.path.join(ga_one, "masks"), "--device", DEVICE,
+                          "-od", ga_one, *gs_flags], GS_KERNELS,
+                  count=lambda: n_rows, unit="rows", phase="14")
+        t0 = time.time()
+        rc = ga_batch.main([
+            "--matches-dir", os.path.join(ga_jobs, "masks"),
+            "--mask-files-per-job", str(P14_GA_FILES_PER_JOB), "--device",
+            DEVICE, "-od", ga_jobs, "--run", "--", *gs_flags])
+        seconds = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"phase 14 (b): ga_batch exited {rc}")
+        _require_same("phase 14 (b): the ga_batch jobs vs one "
+                      "gradientScores", _tree(ga_jobs), _tree(ga_one))
+        n_files = len(os.listdir(os.path.join(ga_jobs, "masks")))
+        print(f"phase 14 (b): ga_batch --run, "
+              f"{-(-n_files // P14_GA_FILES_PER_JOB)} jobs of up to "
+              f"{P14_GA_FILES_PER_JOB} of the {n_files} mask files (a "
+              f"process each), {n_rows} rows in {seconds:.2f}s; tree = one "
+              f"gradientScores ({card})", flush=True)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 def _captured(argv: list) -> tuple[int, str, float]:
     """One command of the port's CLI with its standard output captured:
     (exit code, output, wall seconds)."""
@@ -4263,6 +4507,14 @@ def main() -> int:
             launches[k] += admin_launches[k]
         phases["13 admin tail"] = time.time() - t0
         print(f"phase 13 seconds: {phases['13 admin tail']:.1f} ({card})",
+              flush=True)
+        # phase 14
+        t0 = time.time()
+        p14_launches = run_launchers(work, card)
+        for k in CDS_KERNELS:
+            launches[k] += p14_launches[k]
+        phases["14 launchers"] = time.time() - t0
+        print(f"phase 14 seconds: {phases['14 launchers']:.1f} ({card})",
               flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -77,13 +77,30 @@ def get_lib():
 
 
 def _bind_symbols(lib) -> None:
-    lib.cdm_img_info.restype = ctypes.c_int
-    lib.cdm_img_info.argtypes = [
+    lib.cdm_tiff_info.restype = ctypes.c_int
+    lib.cdm_tiff_info.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t,
         ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32)]
+    lib.cdm_tiff_decode.restype = ctypes.c_int
+    lib.cdm_tiff_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_size_t, ctypes.c_uint32, ctypes.c_uint32]
+    lib.cdm_packbits_uncompress.restype = ctypes.c_longlong
+    lib.cdm_packbits_uncompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_size_t, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong]
+    lib.cdm_tiff_decode_batch.restype = None
+    lib.cdm_tiff_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.cdm_img_info.restype = ctypes.c_int
+    lib.cdm_img_info.argtypes = lib.cdm_tiff_info.argtypes
     lib.cdm_img_decode.restype = ctypes.c_int
     lib.cdm_img_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
@@ -124,6 +141,96 @@ def available() -> bool:
     return get_lib() is not None
 
 
+def _info(fn, data: bytes):
+    w = ctypes.c_uint32()
+    h = ctypes.c_uint32()
+    c = ctypes.c_uint32()
+    b = ctypes.c_uint32()
+    if fn(data, len(data), ctypes.byref(w), ctypes.byref(h),
+          ctypes.byref(c), ctypes.byref(b)) != 0:
+        return None
+    return w.value, h.value, c.value, b.value
+
+
+def tiff_info(data: bytes):
+    """(width, height, channels, bits) of a TIFF, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return _info(lib.cdm_tiff_info, data)
+
+
+def decode_tiff(data: bytes, y0: int = 0, y1: int = 0):
+    """Decode a TIFF held in memory -> numpy array, or None on failure.
+
+    y0/y1 select a row range (y1=0 means the full height) — the native
+    twin of the reference's partial PackBits range read
+    (ImageArrayUtils.readImageArrayRange:130).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    info = tiff_info(data)
+    if info is None:
+        return None
+    w, h, c, bits = info
+    if y1 == 0:
+        y1 = h
+    if not (0 <= y0 < y1 <= h):
+        return None
+    rows = y1 - y0
+    dtype = np.uint16 if bits == 16 else np.uint8
+    out = np.empty(rows * w * c, dtype)
+    rc = lib.cdm_tiff_decode(data, len(data),
+                             out.ctypes.data_as(ctypes.c_void_p),
+                             out.nbytes, y0, y1)
+    if rc != 0:
+        return None
+    if c == 1:
+        return out.reshape(rows, w)
+    return out.reshape(rows, w, c)
+
+
+def packbits_uncompress(data: bytes, out: np.ndarray, offset=0, start=0,
+                        end=0) -> int:
+    """PackBits-decode `data` into `out`; the library's return value."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native decoder unavailable")
+    return int(lib.cdm_packbits_uncompress(
+        data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes,
+        offset, start, end))
+
+
+def _decode_batch(fn, blobs, width, height, channels, n_threads, *dims):
+    n = len(blobs)
+    stride = height * width * channels
+    arena = np.empty((n, height, width, channels), np.uint8)
+    bufs = (ctypes.c_char_p * n)(*blobs)
+    lens = (ctypes.c_size_t * n)(*[len(b) for b in blobs])
+    results = (ctypes.c_int * n)()
+    if n_threads <= 0:
+        n_threads = min(32, os.cpu_count() or 1)
+    fn(bufs, lens, n, arena.ctypes.data_as(ctypes.c_void_p), stride,
+       *dims, n_threads, results)
+    ok = np.array([results[i] == 0 for i in range(n)], bool)
+    return arena, ok
+
+
+def decode_tiff_batch(blobs: list[bytes], *, width: int, height: int,
+                      channels: int, n_threads: int = 0):
+    """Decode equal-shaped TIFF blobs into one uint8 arena in parallel.
+
+    Returns (arena [N, H, W, C] uint8, ok mask [N] bool); per-image
+    failures are flagged, not raised.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    return _decode_batch(lib.cdm_tiff_decode_batch, blobs, width, height,
+                         channels, n_threads, 0, 0)
+
+
 def img_info(data: bytes):
     """(width, height, channels, bits) for TIFF or PNG, or None.
 
@@ -132,14 +239,7 @@ def img_info(data: bytes):
     lib = get_lib()
     if lib is None:
         return None
-    w = ctypes.c_uint32()
-    h = ctypes.c_uint32()
-    c = ctypes.c_uint32()
-    b = ctypes.c_uint32()
-    if lib.cdm_img_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
-                        ctypes.byref(c), ctypes.byref(b)) != 0:
-        return None
-    return w.value, h.value, c.value, b.value
+    return _info(lib.cdm_img_info, data)
 
 
 def decode_img(data: bytes):
@@ -170,19 +270,8 @@ def decode_img_batch(blobs: list[bytes], *, width: int, height: int,
     lib = get_lib()
     if lib is None:
         return None
-    n = len(blobs)
-    stride = height * width * channels
-    arena = np.empty((n, height, width, channels), np.uint8)
-    bufs = (ctypes.c_char_p * n)(*blobs)
-    lens = (ctypes.c_size_t * n)(*[len(b) for b in blobs])
-    results = (ctypes.c_int * n)()
-    if n_threads <= 0:
-        n_threads = min(32, os.cpu_count() or 1)
-    lib.cdm_img_decode_batch(
-        bufs, lens, n, arena.ctypes.data_as(ctypes.c_void_p), stride,
-        width, height, channels, n_threads, results)
-    ok = np.array([results[i] == 0 for i in range(n)], bool)
-    return arena, ok
+    return _decode_batch(lib.cdm_img_decode_batch, blobs, width, height,
+                         channels, n_threads, width, height, channels)
 
 
 def build_shape_row(t_rgb: np.ndarray, grad: np.ndarray,

@@ -597,6 +597,27 @@ def assemble_target_rows_split(cols: list, n_gap_pad: int,
     return t_gap, t_he
 
 
+def pack_target_rows_split(t_rgbs, grads, zgap_rgbs,
+                           pos_gap: np.ndarray, n_gap_pad: int,
+                           pos_he: np.ndarray, n_he_words: int, *,
+                           mask_threshold: int,
+                           excluded: np.ndarray | None = None,
+                           mirror: bool = True):
+    """Split-plane target pack: (t_gap uint32 [n_or, Sg_pad, T],
+    t_he uint32 [n_or, n_he_words, T]) with n_or = 2 (straight,
+    mirror) or 1.
+
+    Composition of select_target_cols_split + assemble_target_rows_split
+    (the engine calls those directly from its decode workers)."""
+    cols = [select_target_cols_split(
+                t, g, z, pos_gap, n_gap_pad, pos_he, n_he_words,
+                mask_threshold=mask_threshold, excluded=excluded,
+                mirror=mirror)
+            for t, g, z in zip(t_rgbs, grads, zgap_rgbs)]
+    return assemble_target_rows_split(cols, n_gap_pad, n_he_words,
+                                      mirror=mirror)
+
+
 # -------------------------------------------------------------------------
 # helpers of the plain versions
 # -------------------------------------------------------------------------

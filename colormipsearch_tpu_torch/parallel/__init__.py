@@ -6,9 +6,11 @@ from colormipsearch_tpu_torch.parallel.mesh import (
     Mesh,
     create_mesh,
     init_distributed,
+    make_sharded_search_step,
     shard_target_planes,
     shutdown_distributed,
 )
 
 __all__ = ["TARGET_AXIS", "Mesh", "create_mesh", "init_distributed",
-           "shard_target_planes", "shutdown_distributed"]
+           "make_sharded_search_step", "shard_target_planes",
+           "shutdown_distributed"]

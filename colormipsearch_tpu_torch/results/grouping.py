@@ -1,7 +1,7 @@
-"""Result grouping and top-k selection.
+"""Result grouping, partitioning, and top-k selection.
 
 Python analogue of results/MatchEntitiesGrouping.java,
-results/ItemsHandling.java:82-111 and
+results/ItemsHandling.java:73-111 and
 cmd/cdsprocess/ColorMIPProcessUtils.java:14-35 with identical
 ordering/limit semantics (stable sorts, ties keep insertion order like
 Java's stable Collections.sort).
@@ -10,11 +10,26 @@ Java's stable Collections.sort).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, TypeVar
+from typing import Callable, Iterable, Sequence, TypeVar
 
 from colormipsearch_tpu_torch.model import CDMatch, Neuron
 
 T = TypeVar("T")
+
+
+def partition_collection(items: Iterable[T], partition_size: int) -> list[list[T]]:
+    """Split into consecutive chunks (ItemsHandling.partitionCollection:73-79)."""
+    size = partition_size if partition_size > 0 else 1
+    out: list[list[T]] = []
+    chunk: list[T] = []
+    for it in items:
+        chunk.append(it)
+        if len(chunk) == size:
+            out.append(chunk)
+            chunk = []
+    if chunk:
+        out.append(chunk)
+    return out
 
 
 @dataclasses.dataclass

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import resource
 import threading
 import time
@@ -74,3 +75,27 @@ def stage_timer(stage: str, metrics: Metrics | None = None, **counts):
             m.add(k, v)
         LOG.info("%s finished in %.2fs - memory usage %.0fM",
                  stage, dt, _rss_mb())
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: str | None = None):
+    """torch.profiler trace when a directory is configured: CPU
+    activity, plus CUDA activity when a card is visible, written as one
+    Chrome trace file.  It only records; the work runs where its caller
+    put it."""
+    trace_dir = trace_dir or os.environ.get("COLORMIPSEARCH_TPU_PROFILE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir,
+                        f"trace.{os.getpid()}.{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    LOG.info("wrote profiler trace to %s", path)

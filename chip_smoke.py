@@ -2,13 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (colormipsearch_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--targets 2048] [--masks 32] [--gs-masks 16]
-                          [--seed 0]
+                          [--seed 0] [--mesh-only]
+
+--mesh-only runs phase 7 (a) alone (after the build, the library and the
+phase-2 checks it takes its inputs and bounds from: K1-K4, the shape
+kernels, K8-K11, the mesh finish) and prints the mesh lines, but no kernels line and no
+final status line: the quick run of the mesh steps.
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
   0. the card (nvidia-smi name and power limit), torch / CUDA versions
      and the repo commit; exits 1 when CUDA is not available;
-  1. builds the seventeen CUDA kernels from kernels/csrc (one nvcc per
+  1. builds the eighteen CUDA kernels from kernels/csrc (one nvcc per
      source, all at once, sm_90a);
   2. checks each kernel against its plain PyTorch version on the card at
      the main paths' shapes (production image 566 x 1210; for the
@@ -46,7 +51,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      from the 32-byte sectors the gathers touch; K4 alone and through its
      wrapper at chip_smoke's k, at the k the engine picks in phase 3 and
      at k = T (its bitonic branch), with the flag gather on K9's batch,
-     beside an empty kernel's launch; K4 at every testing.TOPK_EDGE_CASES
+     beside an empty kernel's launch; the mesh finish (ops/mesh_finish:
+     K4's selection into a shard's column slice, with the row maxima and
+     flagged counts) on a 512-column shard of K3's batch at top-k 256
+     with flags, and its reduction over 4 shards' slots, then both at
+     every testing.MESH_FINISH_EDGE_CASES input; K4 at every
+     testing.TOPK_EDGE_CASES
      input and K7 at every testing.PIXEL_MAJOR_EDGE_CASES shape (aligned
      and shifted sources); K7's uint8 mode on the whole tfg field (one
      [2,048, ceil(P / 8)] chunk) beside its int16 chunk; row 15 at every
@@ -94,8 +104,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the dense shape step in both modes; the split shape step): each
      equals the single-device kernels, the top-k steps a per-shard top-k
      of the single-device scores, the qkey step the union-key step fed
-     with row 13's expansion; each step's time beside the single-device
-     kernel's; (b) CDSearchEngine(use_mesh=create_mesh(["cuda:0"] * 4))
+     with row 13's expansion; every step run under
+     torch.cuda.set_sync_debug_mode("error") (a host sync raises); each
+     step's time beside the single-device kernel's, and each dense
+     step's concatenation alone; (b) CDSearchEngine(use_mesh=create_mesh(["cuda:0"] * 4))
      on the phase-3 library five ways (default, packed and split on 8
      masks, --use-key-planes, default with max_matches_per_mask): every
      match equal to the single-device engine's, every run through its
@@ -316,7 +328,7 @@ SPLIT_KERNELS = {
         f"{_CSRC}/union_score.cu",
         "colormipsearch_tpu/ops/pixel_match.py:1612"),
 }
-# rows 13, 14, 18b (the mesh path's) and 15 (on no path)
+# rows 13, 14, 18b (the mesh path's), 15 (on no path) and the mesh finish
 MESH_KERNELS = {
     "expand_union_tables": (
         f"{_CSRC}/expand_tables.cu",
@@ -330,6 +342,14 @@ MESH_KERNELS = {
     "slice_numbers_device": (
         f"{_CSRC}/slice_numbers.cu",
         "colormipsearch_tpu/ops/shape_score.py:96"),
+    # the mesh steps' tail: a shard's top-k, maxima and flagged counts,
+    # then their reduction over the shards
+    "mesh_finish": (
+        f"{_CSRC}/mesh_finish.cu",
+        "colormipsearch_tpu/parallel/mesh.py:230"),
+    "mesh_reduce": (
+        f"{_CSRC}/mesh_finish.cu",
+        "colormipsearch_tpu/parallel/mesh.py:235"),
 }
 KERNELS = {**CDS_KERNELS, **GS_KERNELS, **CLASSIC_KERNELS, **SPLIT_KERNELS,
            **MESH_KERNELS}
@@ -386,7 +406,7 @@ P14_KERNEL_EVENTS = {
     "expand_union_tables_from_pos": ("expand_kernel",),
     "score_query_batch_union_keys": ("union_chunk_kernel",
                                      "union_finish_kernel"),
-    "union_keys_topk": ("topk_kernel",)}
+    "union_keys_topk": ("select_kernel<false>",)}
 # phase 10: the selftest's steps whose times phase 7 took (its keys)
 P10_PHASE7_STEPS = {"search": "search (K9, one mask)", "batch": "batch (K9)",
                     "batch_split": "batch_split (K11)",
@@ -494,6 +514,22 @@ def timed(fn, repeats: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def sync_free(fn):
+    """fn under torch.cuda.set_sync_debug_mode("error"): any call in it
+    that waits on the host (a blocking copy, .item(), a synchronize)
+    raises. Phase 7 runs every mesh step so."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return run
 
 
 def timed_loop(fn, repeats: int) -> float:
@@ -1659,6 +1695,77 @@ def check_edge_shapes(lib, device) -> None:
     kbuild.reset_launches()
 
 
+def check_mesh_finish(device, k1: dict) -> dict:
+    """Phase 2, the mesh finish (ops/mesh_finish.py) at phase 7's shapes:
+    K3's batch (`k1`: 8 masks x 2,048 columns) cut into MESH_SHARDS
+    column shards, shard 1 finished at top-k 256 with flags (a seeded 1%
+    of its pairs) into its column slice of the merged [8, D x 256]
+    outputs, and mesh_reduce over D shards' slots, each against its
+    plain version, with its time (through the wrapper), the plain
+    version's and its bound (its bytes: B*w*(4 + 1 + 4) read and B*k*13
+    written for the finish; 2*D*B*4 read and 2*B*4 written for the
+    reduction); then both at every testing.MESH_FINISH_EDGE_CASES input.
+    No one PyTorch call computes either (torch.topk alone neither
+    offsets, nor gathers the flags, nor reduces): library none."""
+    import numpy as np
+    import torch
+
+    from colormipsearch_tpu_torch import testing
+    from colormipsearch_tpu_torch.ops import mesh_finish as mf
+
+    w = T_PAD // MESH_SHARDS
+    k = min(TOP_K, w)
+    s = 1
+    cols = slice(s * w, (s + 1) * w)
+    best = k1["best"][:, cols].contiguous()
+    mirrored = k1["mirrored"][:, cols].contiguous()
+    rng = np.random.default_rng(17)
+    flags = torch.from_numpy((rng.integers(1, 4, best.shape)
+                              * (rng.random(best.shape) < 0.01))
+                             .astype(np.int32)).to(device)
+    top = torch.empty((3, BATCH, MESH_SHARDS * k), dtype=torch.int32,
+                      device=device)
+    top_m = torch.empty((BATCH, MESH_SHARDS * k), dtype=torch.bool,
+                        device=device)
+    slots = torch.from_numpy(rng.integers(0, 200, (2, MESH_SHARDS, BATCH))
+                             .astype(np.int32)).to(device)
+    part = slice(s * k, (s + 1) * k)
+    out = (top[0, :, part], top[1, :, part], top_m[:, part], top[2, :, part],
+           slots[0, s], slots[1, s])
+
+    def finish():
+        return mf.mesh_finish(best, mirrored, k, flags, s * w, out=out)
+
+    def finish_plain():
+        return mf.mesh_finish_plain(best, mirrored, k, flags, s * w)
+
+    err = max_abs_err(finish(), finish_plain())
+    checks = {"mesh_finish": entry(
+        err, timed(finish, 20), timed(finish_plain, 20),
+        bound(BATCH * w * (4 + 1 + 4) + BATCH * k * 13, 0))}
+
+    def reduce():
+        return mf.mesh_reduce(slots[0], slots[1])
+
+    def reduce_plain():
+        return mf.mesh_reduce_plain(slots[0], slots[1])
+
+    err = max_abs_err(reduce(), reduce_plain())
+    checks["mesh_reduce"] = entry(
+        err, timed(reduce, 20), timed(reduce_plain, 20),
+        bound(2 * MESH_SHARDS * BATCH * 4 + 2 * BATCH * 4, 0))
+    report(checks)
+    for case in testing.MESH_FINISH_EDGE_CASES:
+        testing.check_mesh_finish_edge(case, device)
+    sync()
+    print(f"the mesh finish and reduction equal their plain versions at "
+          f"{len(testing.MESH_FINISH_EDGE_CASES)} edge cases "
+          f"({', '.join(c[0] for c in testing.MESH_FINISH_EDGE_CASES)}); "
+          f"at phase 7's shapes, {BATCH} masks x {w} columns, k {k}",
+          flush=True)
+    return checks
+
+
 def check_topk_pixel_major_edge_shapes(device) -> None:
     """Phase 2, K4 at every testing.TOPK_EDGE_CASES input (both ordering
     branches, flag gather on and off, batch 0) and K7 at every
@@ -2423,6 +2530,25 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
                           "kernel", got, (best, mirrored, flags,
                                           best.max(1).values))
 
+    cats = {}
+
+    def cat_ms(name, outs, dim, zeros=None):
+        """The concatenation the dense step `name` ends with, alone: the
+        single-device outputs cut into the shards' parts and put together
+        on the card as the step does (with the [B, T] zero flags of a
+        step without flags)."""
+        parts = [[x.narrow(dim, sh * (x.shape[dim] // MESH_SHARDS),
+                           x.shape[dim] // MESH_SHARDS).contiguous()
+                  for sh in range(MESH_SHARDS)] for x in outs]
+
+        def run():
+            out = [pmesh._cat(mesh, p, dim) for p in parts]
+            if zeros is not None:
+                out.append(torch.zeros_like(zeros))
+            return out
+
+        cats[name] = timed(run, 5)
+
     rgb = torch_from(np.stack(lib.targets[:T_PAD]), device)
     keys = common.pack_target_planes_keys(
         rgb, 20, common.rank_lut_tensor(device), t_pad=T_PAD)
@@ -2460,7 +2586,8 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     k3 = pm.score_query_batch_union_keys(keys, u_t, mu_t, lo2, sp2, u2)
     zeros = torch.zeros_like(k3[0])
     key_shards = pmesh.shard_target_planes(mesh, keys)
-    key_steps = {(name, top_k): make(top_k) for top_k in (0, TOP_K)
+    key_steps = {(name, top_k): sync_free(make(top_k))
+                 for top_k in (0, TOP_K)
                  for name, make in (
                      ("keys", lambda k: pmesh.make_sharded_batch_step_keys(
                          mesh, n_straight=n_straight, top_k=k)),
@@ -2507,6 +2634,9 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     times["batch_union_qkeys (row 14)"] = (
         timed(lambda: key_steps["union_qkeys", 0](key_shards, *qargs), 3),
         timed(lambda: pm.score_query_batch_union_qkeys(keys, *qargs, u2), 3))
+    cat_ms("batch_keys (K10)", k10, 1, zeros)
+    cat_ms("batch_union_keys (K3)", k3, 1, zeros)
+    cat_ms("batch_union_qkeys (row 14)", k3, 1, zeros)
     del keys, key_shards, got, k3, k10, lo2, sp2
     sync()
     free_cached()
@@ -2523,13 +2653,15 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
                             for x in (sp, c8))
     del sp, c8
     q1 = tuple(a[0] for a in pargs)
-    packed_steps = {(name, top_k): make(top_k) for top_k in (0, TOP_K)
+    packed_steps = {(name, top_k): sync_free(make(top_k))
+                    for top_k in (0, TOP_K)
                     for name, make in (
                         ("search", lambda k: pmesh.make_sharded_search_step(
                             mesh, target_threshold=-1, top_k=k, **zkw)),
                         ("batch", lambda k: pmesh.make_sharded_batch_step(
                             mesh, target_threshold=-1, top_k=k, **zkw)))}
-    split_step = pmesh.make_sharded_batch_step_split(mesh, **zkw)
+    split_step = sync_free(pmesh.make_sharded_batch_step_split(mesh,
+                                                               **zkw))
 
     def run_packed_steps():
         out = {key: step(packed_shards, *(q1 if key[0] == "search"
@@ -2571,6 +2703,8 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     times["batch_split (K11)"] = (
         timed(lambda: split_step(sp_shards, c8_shards, *pargs), 3),
         timed(lambda: pm.score_query_batch_split(*k11_args, **zkw), 3))
+    cat_ms("batch (K9)", k9, 1)
+    cat_ms("batch_split (K11)", k11, 1)
     del planes, packed_shards, sp_shards, c8_shards, got, k9, k11, k11_args
     sync()
     free_cached()
@@ -2586,9 +2720,9 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     rows0_shards = pmesh.shard_target_planes(mesh, rows[0])
     gap_shards, he_shards = (pmesh.shard_target_planes(mesh, x)
                              for x in (t_gap, t_he))
-    shape_step = pmesh.make_sharded_shape_step(mesh)
-    both_step = pmesh.make_sharded_shape_step(mesh, both=True)
-    split_shape_step = pmesh.make_sharded_shape_split_step(mesh)
+    shape_step = sync_free(pmesh.make_sharded_shape_step(mesh))
+    both_step = sync_free(pmesh.make_sharded_shape_step(mesh, both=True))
+    split_shape_step = sync_free(pmesh.make_sharded_shape_split_step(mesh))
     got = driven(lambda: (
         shape_step(rows0_shards, q2[0]), both_step(rows_shards, q2),
         split_shape_step(gap_shards, q_gap, he_shards, q_he)))
@@ -2613,6 +2747,9 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
               5),
         timed(lambda: ss.shape_score_pairs_split(t_gap, q_gap, t_he, q_he),
               5))
+    cat_ms("shape (row 18b)", (torch.stack(single),), -1)
+    cat_ms("shape_both (row 18b)", (torch.stack(both),), -1)
+    cat_ms("shape_split (K5)", (torch.stack(k5),), -1)
     del rows, q2, rows_shards, rows0_shards, gap_shards, he_shards, got
     sync()
     free_cached()
@@ -2620,7 +2757,13 @@ def run_mesh_steps(lib, device, shape_ref: dict, dense_ref: dict):
     if missing:
         raise AssertionError(f"phase 7 (a) never ran the steps {missing}")
     print(f"phase 7 (a): every mesh step at {MESH_SHARDS} shards equals "
-          f"the single-device kernels; step calls {calls}", flush=True)
+          f"the single-device kernels, each run under "
+          f"set_sync_debug_mode('error') (no host sync); step calls "
+          f"{calls}", flush=True)
+    print("phase 7 (a): a dense step's concatenation alone, ms (its share "
+          "of the step's time): " + json.dumps(
+              {name: [round(ms, 4), round(ms / times[name][0], 4)]
+               for name, ms in cats.items()}), flush=True)
     return launches, calls, times, out_bytes
 
 
@@ -3083,7 +3226,8 @@ def run_cross_process(work: str, card: str, mesh_times: dict) -> None:
     (c) colorDepthSearch through the launcher at 2 ranks (gloo, 2 shards
     of cuda:0 each) on phase 9 (a)'s inputs: each rank writes a part, the
     union of the two trees equals phase 9 (a)'s matches, and each rank
-    launched K1-K4 and ran its collectives. NCCL refuses two ranks on one
+    launched K1-K3 and the mesh finish (K4's selection a shard) and ran
+    its collectives. NCCL refuses two ranks on one
     card, so NCCL across ranks is not run here."""
     p10 = os.path.join(work, "p10")
     os.makedirs(p10, exist_ok=True)
@@ -3169,8 +3313,11 @@ def run_cross_process(work: str, card: str, mesh_times: dict) -> None:
     if not all(0 < n < len(want) for n in parts):
         raise AssertionError(f"phase 10 (c): the ranks wrote {parts} of "
                              f"{len(want)} matches")
+    # over the mesh the emit top-k is the mesh finish's (K4's selection)
+    mesh_cds = [k for k in CDS_KERNELS if k != "union_keys_topk"] \
+        + ["mesh_finish", "mesh_reduce"]
     for c in counts:
-        missing = [k for k in CDS_KERNELS if not c["launches"][k]]
+        missing = [k for k in mesh_cds if not c["launches"][k]]
         colls = c["collective_calls"]
         if missing or not colls["all_reduce"] or not colls["all_gather"]:
             raise AssertionError(f"phase 10 (c): rank {c['rank']} never "
@@ -4130,7 +4277,8 @@ def _kernel_events(trace: str) -> tuple[dict, int, int, dict]:
         events = json.load(f)["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     cpu = sum(e.get("cat") == "cpu_op" for e in events)
-    counts = {k: sum(any(re.search(rf"\b{n}\b", name) for n in names)
+    counts = {k: sum(any(re.search(rf"\b{re.escape(n)}(?!\w)", name)
+                         for n in names)
                      for name in kernels)
               for k, names in P14_KERNEL_EVENTS.items()}
     busy = {c: round(sum(e.get("dur", 0) for e in events
@@ -4364,12 +4512,24 @@ def mesh_bounds(checks: dict, out_bytes: dict) -> dict:
             for step, (kernel, share) in MESH_STEP_KERNELS.items()}
 
 
+def print_mesh_lines(checks: dict, mesh_times: dict,
+                     mesh_bytes: dict) -> None:
+    print("mesh steps at %d shards of one card, ms (mesh, single-device): "
+          "%s" % (MESH_SHARDS, json.dumps(mesh_times)), flush=True)
+    print(f"mesh step bounds at {MESH_SHARDS} shards of one card, ms (the "
+          "single-device kernel's bound + its results' bytes read from the "
+          "shards and written once, over the HBM rate): "
+          f"{json.dumps(mesh_bounds(checks, mesh_bytes))}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--targets", type=int, default=2048)
     ap.add_argument("--masks", type=int, default=32)
     ap.add_argument("--gs-masks", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phase 7 (a) alone, after the checks it needs")
     args = ap.parse_args()
     if args.targets < T_PAD or args.masks < BATCH \
             or not 4 <= args.gs_masks <= args.masks \
@@ -4425,11 +4585,20 @@ def main() -> int:
     t0 = time.time()
     checks, k1 = check_kernels(lib, device)
     checks.update(check_qkey_kernels(device, k1))
+    checks.update(check_mesh_finish(device, k1))
     shape_out, shape_ref = check_shape_kernels(lib, variants, device)
     checks.update(shape_out)
     dense_out, dense_ref = check_dense_shape_kernels(lib, variants, device,
                                                      shape_ref)
     checks.update(dense_out)
+    if args.mesh_only:
+        checks.update(check_classic_kernels(lib, device, k1))
+        _, _calls, mesh_times, mesh_bytes = run_mesh_steps(
+            lib, device, shape_ref, dense_ref)
+        print_mesh_lines(checks, mesh_times, mesh_bytes)
+        print(f"card: {card}; --mesh-only run in {time.time() - t_run:.1f}"
+              "s", flush=True)
+        return 0
     checks.update(check_slice_numbers(lib, device, args.seed))
     checks.update(check_classic_kernels(lib, device, k1))
     check_edge_shapes(lib, device)
@@ -4528,12 +4697,7 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name, (src, replaces) in KERNELS.items()]
-    print("mesh steps at %d shards of one card, ms (mesh, single-device): "
-          "%s" % (MESH_SHARDS, json.dumps(mesh_times)), flush=True)
-    print(f"mesh step bounds at {MESH_SHARDS} shards of one card, ms (the "
-          "single-device kernel's bound + its results' bytes read from the "
-          "shards and written once, over the HBM rate): "
-          f"{json.dumps(mesh_bounds(checks, mesh_bytes))}", flush=True)
+    print_mesh_lines(checks, mesh_times, mesh_bytes)
     print(f"PIL-free readers, seconds for one {H}x{W} image: "
           f"{json.dumps(readers)}", flush=True)
     print(f"card: {card}", flush=True)

@@ -65,6 +65,9 @@ _SIGNATURES = {
                                _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                                _P, _P, _P, _P],
     "cmst_topk": [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
+    "cmst_mesh_finish": [_P, _P, _P, _I32, _I64, _I32, _I64, _I32, _P, _P,
+                         _P, _P, _P, _P, _P],
+    "cmst_mesh_reduce": [_P, _P, _I32, _I32, _P, _P, _P],
     "cmst_shape_dense": [_P, _P, _I32, _I64, _I64, _P, _P],
     "cmst_slice_numbers": [_P, _I64, _P, _P, _P, _I32, _P, _P],
     "cmst_shape_split": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _P, _P],
@@ -229,7 +232,7 @@ KERNELS = ("scatter_key_planes", "expand_union_tables_from_pos",
            "split_key_planes", "score_query_batch_split",
            "score_query_batch_union_keys_splitk", "expand_union_tables",
            "score_query_batch_union_qkeys", "shape_score_pairs",
-           "slice_numbers_device")
+           "slice_numbers_device", "mesh_finish", "mesh_reduce")
 launches = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 

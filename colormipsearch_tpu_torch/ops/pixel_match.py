@@ -281,9 +281,38 @@ def _adj_rule_tables():
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    """A float32 scalar tensor (x rounded to nearest, as jnp.float32)."""
-    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
-                        device=device)
+    """A float32 scalar tensor (x rounded to nearest, as jnp.float32),
+    filled on `device` (no host copy, so no host sync on a CUDA
+    device)."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=device)
+
+
+# _adj_rule_tables on each device: (tensors, the upload's CUDA event)
+_RULE_TABLES: dict = {}
+
+
+def _adj_rule_tables_on(device: torch.device) -> tuple:
+    """_adj_rule_tables as tensors on `device`, uploaded once a device.
+    On a CUDA device the upload is asynchronous (from pinned memory) and
+    every call makes the current stream wait on its event, so no call
+    syncs with the host: the sharded steps launch K9 and K11 on side
+    streams with no sync inside a step."""
+    got = _RULE_TABLES.get(device)
+    if got is None:
+        tables = [torch.from_numpy(t) for t in _adj_rule_tables()]
+        if device.type != "cuda":
+            got = (tuple(t.to(device) for t in tables), None)
+        else:
+            done = torch.cuda.Event()
+            got = (tuple(t.pin_memory().to(device, non_blocking=True)
+                         for t in tables), done)
+            done.record(torch.cuda.current_stream(device))
+        got = _RULE_TABLES.setdefault(device, got)
+    tables, done = got
+    if done is not None:
+        torch.cuda.current_stream(device).wait_event(done)
+    return tables
 
 
 def query_side_rules(q_cls, q_s, q_p, *, ztol_num: int, ztol_den: int):
@@ -325,7 +354,7 @@ def query_side_rules(q_cls, q_s, q_p, *, ztol_num: int, ztol_den: int):
 
     q_r = q_s.to(f32) / q_p.clamp(min=1).to(f32)
     tc_t, qms_t, qmp_t, qless_t, tms_t, tmp_t, _tless, sign_t, offs_t = \
-        (torch.from_numpy(t).to(dev) for t in _adj_rule_tables())
+        _adj_rule_tables_on(dev)
     cls = q_cls.long()
 
     same_cls = torch.where(q_s >= 1, q_cls, -1).to(torch.int32)
@@ -1862,25 +1891,51 @@ def score_query_batch_plain(planes, pos, q_cls, q_s, q_p, *,
         ztol_den=ztol_den, n_straight=n_straight, rows=rows)
 
 
-def _launch_banded(entry: str, name: str, plane_ptrs, thr_arg: tuple,
-                   n_cols: int, dev, pos, q_cls, q_s, q_p, *, ztol_num: int,
-                   ztol_den: int, n_straight: int):
-    """Launch K9 (entry cmst_banded_score, thr_arg (threshold,)) or K11
-    (cmst_banded_score_split, thr_arg ()) on CUDA tensors: the
-    query-side rules computed here with torch, on the tensors' device;
-    returns (best, mirrored, pair_flags)."""
-    batch, n_var, n_q = pos.shape
+def _check_banded_out(out, batch: int, n_cols: int, dev) -> None:
+    """The (best, mirrored, pair_flags) a banded launch writes into."""
+    for x, name, dtype in zip(out, ("best", "mirrored", "pair_flags"),
+                              (torch.int32, torch.bool, torch.int32)):
+        kbuild.check_tensor(x, f"out {name}", dtype, (batch, n_cols))
+        if x.device != dev:
+            raise ValueError(f"out {name} on {x.device}, the planes on "
+                             f"{dev}")
+
+
+def banded_rules(q_cls, q_s, q_p, *, ztol_num: int, ztol_den: int) -> tuple:
+    """The per-query-pixel tables K9 and K11 read: query_side_rules'
+    seven, contiguous, and q_r = q_s / max(q_p, 1) in f32, computed with
+    torch on the tensors' device (~60 small operations: on a CUDA device
+    they cost more host time than a launch of K9 on a shard). A caller
+    that scores one batch against several shards computes them once and
+    hands them to each launch (`rules`; the mesh steps)."""
     same_cls, bq_s, bq_p, a_qp, tc, bound, upper = (
         x.contiguous() for x in query_side_rules(
             q_cls, q_s, q_p, ztol_num=ztol_num, ztol_den=ztol_den))
     q_r = (q_s.to(torch.float32)
            / q_p.clamp(min=1).to(torch.float32)).contiguous()
+    return same_cls, bq_s, bq_p, a_qp, tc, bound, upper, q_r
+
+
+def _launch_banded(entry: str, name: str, plane_ptrs, thr_arg: tuple,
+                   n_cols: int, dev, pos, q_cls, q_s, q_p, *, ztol_num: int,
+                   ztol_den: int, n_straight: int, out=None, rules=None):
+    """Launch K9 (entry cmst_banded_score, thr_arg (threshold,)) or K11
+    (cmst_banded_score_split, thr_arg ()) on CUDA tensors: the
+    query-side rules computed here (banded_rules) unless `rules` holds
+    them for this batch on the tensors' device; returns (best, mirrored,
+    pair_flags), written into `out` when given (checked by the
+    caller)."""
+    batch, n_var, n_q = pos.shape
+    same_cls, bq_s, bq_p, a_qp, tc, bound, upper, q_r = (
+        rules if rules is not None else banded_rules(
+            q_cls, q_s, q_p, ztol_num=ztol_num, ztol_den=ztol_den))
     scratch = torch.zeros((2, batch, n_var, n_cols), dtype=torch.int32,
                           device=dev)
-    best = torch.empty((batch, n_cols), dtype=torch.int32, device=dev)
-    mirrored = torch.empty((batch, n_cols), dtype=torch.bool, device=dev)
-    pair_flags = torch.empty((batch, n_cols), dtype=torch.int32,
-                             device=dev)
+    if out is None:
+        out = (torch.empty((batch, n_cols), dtype=torch.int32, device=dev),
+               torch.empty((batch, n_cols), dtype=torch.bool, device=dev),
+               torch.empty((batch, n_cols), dtype=torch.int32, device=dev))
+    best, mirrored, pair_flags = out
     lib = kbuild.load_library()
     kbuild.check(getattr(lib, entry)(
         *plane_ptrs, n_cols, pos.data_ptr(), batch, n_var, n_q, n_straight,
@@ -1896,7 +1951,7 @@ def _launch_banded(entry: str, name: str, plane_ptrs, thr_arg: tuple,
 
 def score_query_batch(planes, pos, q_cls, q_s, q_p, *,
                       target_threshold: int, ztol_num: int, ztol_den: int,
-                      n_straight: int):
+                      n_straight: int, out=None, rules=None):
     """K9: a batch of classic query plans against summary planes.
 
     planes int32 [P, T] (summary words, ops/common.pack_target_planes);
@@ -1908,23 +1963,36 @@ def score_query_batch(planes, pos, q_cls, q_s, q_p, *,
     won strictly, and the number of ambiguity-band elements summed over
     all variants (pairs with flags > 0 are rescored by the float64
     oracle). The query-side rules are computed here with torch, on the
-    tensors' device. CPU tensors run the plain version; CUDA tensors
-    launch kernels/csrc/banded_score.cu or raise.
+    tensors' device. `out`: optional contiguous (best, mirrored,
+    pair_flags) [B, T] on the planes' device to write the result into
+    (the mesh's one-mask step hands it column slices of its outputs);
+    `rules`: banded_rules of this batch on the planes' device, when the
+    caller computed them (the plain version computes its own). CPU
+    tensors run the plain version; CUDA tensors launch
+    kernels/csrc/banded_score.cu or raise.
     """
     batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
     _check_classic({"planes": (planes, torch.int32)}, pos, n_straight,
                    {"q_cls": (q_cls, (batch, n_q)),
                     "q_s": (q_s, (batch, n_q)), "q_p": (q_p, (batch, n_q))})
+    if out is not None:
+        _check_banded_out(out, batch, planes.shape[1], planes.device)
     kw = dict(ztol_num=ztol_num, ztol_den=ztol_den, n_straight=n_straight)
     if planes.device.type == "cpu":
-        return score_query_batch_plain(planes, pos, q_cls, q_s, q_p,
-                                       target_threshold=target_threshold,
-                                       **kw)
+        got = score_query_batch_plain(planes, pos, q_cls, q_s, q_p,
+                                      target_threshold=target_threshold,
+                                      **kw)
+        if out is None:
+            return got
+        for dst, src in zip(out, got):
+            dst.copy_(src)
+        return tuple(out)
     kbuild.require_cuda(planes)
     return _launch_banded("cmst_banded_score", "score_query_batch",
                           (planes.data_ptr(),),
                           (max(int(target_threshold), -1),), planes.shape[1],
-                          planes.device, pos, q_cls, q_s, q_p, **kw)
+                          planes.device, pos, q_cls, q_s, q_p, out=out,
+                          rules=rules, **kw)
 
 
 def score_query_batch_split_plain(sp, c8, pos, q_cls, q_s, q_p, *,
@@ -1945,16 +2013,18 @@ def score_query_batch_split_plain(sp, c8, pos, q_cls, q_s, q_p, *,
 
 
 def score_query_batch_split(sp, c8, pos, q_cls, q_s, q_p, *,
-                            ztol_num: int, ztol_den: int, n_straight: int):
+                            ztol_num: int, ztol_den: int, n_straight: int,
+                            rules=None):
     """K11: a batch of classic query plans against the split planes.
 
     sp int16 [P, T] (the bits of the uint16 (p << 8) | s) and c8 uint8
     [P, T] (the class), the pair of ops/common.pack_target_planes_split
     or split_planes_from_packed, the data threshold folded into them;
     every other argument and the result as score_query_batch's (there is
-    no target_threshold). The counts and flags equal K9's on the summary
-    planes the pair was split from. CPU tensors run the plain version;
-    CUDA tensors launch kernels/csrc/banded_score.cu or raise.
+    no target_threshold; `rules` as score_query_batch's). The counts and
+    flags equal K9's on the summary planes the pair was split from. CPU
+    tensors run the plain version; CUDA tensors launch
+    kernels/csrc/banded_score.cu or raise.
     """
     batch, n_var, n_q = pos.shape if pos.dim() == 3 else (0, 0, 0)
     _check_classic({"sp": (sp, torch.int16), "c8": (c8, torch.uint8)}, pos,
@@ -1968,7 +2038,8 @@ def score_query_batch_split(sp, c8, pos, q_cls, q_s, q_p, *,
     kbuild.require_cuda(sp)
     return _launch_banded("cmst_banded_score_split", "score_query_batch_split",
                           (sp.data_ptr(), c8.data_ptr()), (), sp.shape[1],
-                          sp.device, pos, q_cls, q_s, q_p, **kw)
+                          sp.device, pos, q_cls, q_s, q_p, rules=rules,
+                          **kw)
 
 
 def score_query_batch_keys_plain(planes, pos, lo, span, *, n_straight: int,

@@ -675,7 +675,8 @@ def shape_score_pairs_split_plain(t_gap, q_gap, t_he, q_he, *,
     return _wrap_int32(hi), _wrap_int32(lo), _wrap_int32(he)
 
 
-def shape_score_pairs_split(t_gap, q_gap, t_he, q_he):
+def shape_score_pairs_split(t_gap, q_gap, t_he, q_he, *,
+                            stacked: bool = False):
     """K5: split-row scoring of one query against T targets, both
     orientations in one call.
 
@@ -683,10 +684,11 @@ def shape_score_pairs_split(t_gap, q_gap, t_he, q_he):
     q_gap int32 [n_or, Sg] (query slice | nz | sig), t_he int32
     [n_or, W, T] (bitpacked ring-row foreground bits), q_he int32
     [n_or, W] (bitpacked ring-row gates), n_or 2 (straight, mirror) or
-    1. Returns (gap_hi, gap_lo, high_expr) int32 [n_or, T]; the gradient
-    area gap is gap_hi * 1024 + gap_lo (combine_gap). CPU tensors run
-    the plain version; CUDA tensors launch kernels/csrc/shape_split.cu
-    or raise.
+    1. Returns (gap_hi, gap_lo, high_expr) int32 [n_or, T], or with
+    `stacked` the three as one int32 [3, n_or, T] (the mesh steps
+    concatenate their shards' once); the gradient area gap is gap_hi *
+    1024 + gap_lo (combine_gap). CPU tensors run the plain version; CUDA
+    tensors launch kernels/csrc/shape_split.cu or raise.
     """
     if t_gap.dim() != 3 or t_he.dim() != 3:
         raise ValueError(f"expected [n_or, rows, T] planes, got t_gap "
@@ -701,7 +703,8 @@ def shape_score_pairs_split(t_gap, q_gap, t_he, q_he):
     if n_or not in (1, 2):
         raise ValueError(f"n_or={n_or}: expected 1 or 2 orientations")
     if t_gap.device.type == "cpu":
-        return shape_score_pairs_split_plain(t_gap, q_gap, t_he, q_he)
+        got = shape_score_pairs_split_plain(t_gap, q_gap, t_he, q_he)
+        return torch.stack(got) if stacked else got
     kbuild.require_cuda(t_gap)
     out = torch.empty((3, n_or, t), dtype=torch.int32, device=t_gap.device)
     lib = kbuild.load_library()
@@ -710,7 +713,7 @@ def shape_score_pairs_split(t_gap, q_gap, t_he, q_he):
         q_he.data_ptr(), n_or, sg, n_words, t, out.data_ptr(),
         kbuild.stream_of(t_gap)), "shape_score_pairs_split")
     kbuild.count_launch("shape_score_pairs_split")
-    return out[0], out[1], out[2]
+    return out if stacked else tuple(out.unbind(0))
 
 
 # -------------------------------------------------------------------------
@@ -750,8 +753,9 @@ def _shape_dense_plain(t_pack, q_pack, *, chunk: int = 2048):
     return _wrap_int32(hi), _wrap_int32(lo), _wrap_int32(he)
 
 
-def _shape_dense(t_pack, q_pack, name: str):
-    """Validate and run row 18b on [n_or, S, T] planes."""
+def _shape_dense(t_pack, q_pack, name: str, stacked: bool):
+    """Validate and run row 18b on [n_or, S, T] planes: three int32
+    [n_or, T], or one [3, n_or, T] when `stacked`."""
     n_or, n_rows, t = t_pack.shape
     kbuild.check_tensor(t_pack, "t_pack", torch.int32)
     kbuild.check_tensor(q_pack, "q_pack", torch.int32, (n_or, n_rows))
@@ -759,7 +763,8 @@ def _shape_dense(t_pack, q_pack, name: str):
     if n_or not in (1, 2):
         raise ValueError(f"n_or={n_or}: expected 1 or 2 orientations")
     if t_pack.device.type == "cpu":
-        return _shape_dense_plain(t_pack, q_pack)
+        got = _shape_dense_plain(t_pack, q_pack)
+        return torch.stack(got) if stacked else got
     kbuild.require_cuda(t_pack)
     out = torch.empty((3, n_or, t), dtype=torch.int32, device=t_pack.device)
     lib = kbuild.load_library()
@@ -767,7 +772,7 @@ def _shape_dense(t_pack, q_pack, name: str):
         t_pack.data_ptr(), q_pack.data_ptr(), n_or, n_rows, t,
         out.data_ptr(), kbuild.stream_of(t_pack)), name)
     kbuild.count_launch("shape_score_pairs")
-    return out[0], out[1], out[2]
+    return out if stacked else tuple(out.unbind(0))
 
 
 def _dims(x, n: int, name: str) -> None:
@@ -782,18 +787,19 @@ def shape_score_pairs_plain(t_pack, q_pack):
                                                   q_pack[None]))
 
 
-def shape_score_pairs(t_pack, q_pack):
+def shape_score_pairs(t_pack, q_pack, *, stacked: bool = False):
     """Row 18b: one query against T targets on dense packs.
 
     t_pack int32 [S, T] (uint32 bits of pack_targets' words, or the
     support rows of pack_target_rows), q_pack int32 [S] (pack_query's
     words at the same rows). Returns (gap_hi, gap_lo, high_expr) int32
-    [T]; the gradient area gap is gap_hi * 1024 + gap_lo (combine_gap).
-    CPU tensors run the plain version; CUDA tensors launch
-    kernels/csrc/shape_dense.cu or raise."""
+    [T], or with `stacked` one int32 [3, T]; the gradient area gap is
+    gap_hi * 1024 + gap_lo (combine_gap). CPU tensors run the plain
+    version; CUDA tensors launch kernels/csrc/shape_dense.cu or raise."""
     _dims(t_pack, 2, "t_pack")
-    return tuple(x[0] for x in _shape_dense(t_pack[None], q_pack[None],
-                                            "shape_score_pairs"))
+    out = _shape_dense(t_pack[None], q_pack[None], "shape_score_pairs",
+                       True)[:, 0]
+    return out if stacked else tuple(out.unbind(0))
 
 
 def shape_score_pairs_both_plain(t_pack2, q_pack2):
@@ -801,13 +807,14 @@ def shape_score_pairs_both_plain(t_pack2, q_pack2):
     return _shape_dense_plain(t_pack2, q_pack2)
 
 
-def shape_score_pairs_both(t_pack2, q_pack2):
+def shape_score_pairs_both(t_pack2, q_pack2, *, stacked: bool = False):
     """Row 18b, both orientations in one launch: int32 [2, S, T] stacked
     (straight, mirror) planes x int32 [2, S] query planes -> (gap_hi,
-    gap_lo, high_expr) int32 [2, T] each. CPU tensors run the plain
-    version; CUDA tensors launch kernels/csrc/shape_dense.cu or raise."""
+    gap_lo, high_expr) int32 [2, T] each, or with `stacked` one int32
+    [3, 2, T]. CPU tensors run the plain version; CUDA tensors launch
+    kernels/csrc/shape_dense.cu or raise."""
     _dims(t_pack2, 3, "t_pack2")
-    return _shape_dense(t_pack2, q_pack2, "shape_score_pairs_both")
+    return _shape_dense(t_pack2, q_pack2, "shape_score_pairs_both", stacked)
 
 
 def combine_gap(gap_hi: np.ndarray, gap_lo: np.ndarray) -> np.ndarray:

@@ -4,8 +4,23 @@ by one process or by several (torch.distributed).
 The port of the JAX package's parallel/mesh.py. The target library (the
 packed planes, [..., T]) is cut along its trailing target axis into D
 contiguous shards, each a copy on its mesh device; the query arguments
-are replicated to every shard's device; each step launches its per-shard
-kernel on each shard's device, on that device's current stream.
+are replicated to every shard's device (one copy a distinct device);
+each step launches its per-shard kernel on each shard's device.
+
+On a CUDA mesh each shard's launches run on a side stream of its own (a
+pool a device, made at the mesh's first step), which first waits on an
+event recorded on its device's current stream; the first device's
+current stream (and each other device's, for its own shards) waits on
+every shard's finishing event before the step returns. So shards that
+share a card run side by side, the shards of several cards overlap, and
+no step waits on the host (chip_smoke phase 7 runs every step under
+``torch.cuda.set_sync_debug_mode("error")``). The batched steps finish
+each shard with one launch of ops/mesh_finish (its top-k written
+straight into its column slice of the step's outputs, its per-mask max
+and flagged count into a slot) and the step with one reduction of the
+slots; the one-mask search step's K9 writes its column slice of the
+[T] outputs in place. On the CPU there are no streams: the shards run
+one after another through the plain versions.
 
 One process: the collectives of the JAX steps become reductions over the
 D per-shard results on the mesh's first device: ``pmax`` a max, ``psum``
@@ -42,6 +57,7 @@ import threading
 import numpy as np
 import torch
 
+from colormipsearch_tpu_torch.ops import mesh_finish as mf
 from colormipsearch_tpu_torch.ops import pixel_match, shape_score
 
 TARGET_AXIS = "targets"
@@ -58,6 +74,7 @@ step_calls = dict.fromkeys(STEPS, 0)
 collective_calls = dict.fromkeys(("all_reduce", "all_gather", "host_staged"),
                                  0)
 _count_lock = threading.Lock()
+_stream_lock = threading.Lock()
 
 
 def _count(name: str, counts: dict = step_calls) -> None:
@@ -84,6 +101,9 @@ class Mesh:
     rank: int = 0
     world_size: int = 1
     backend: str | None = None
+    # a CUDA mesh's _SidePool, made at its first step (_side_pool)
+    pool: list = dataclasses.field(default_factory=list, init=False,
+                                   repr=False, compare=False)
 
     def __post_init__(self):
         if not self.devices:
@@ -421,20 +441,182 @@ def _check_shards(mesh: Mesh, shards, name: str) -> None:
                              f"device is {dev}")
 
 
+class _SidePool:
+    """A CUDA mesh's side streams, one a shard (a pool a device of as
+    many streams as it holds shards), and the events of a step's fork
+    (one a device) and join (one a shard): made once a mesh, reused by
+    every step (a wait enqueued on an event holds its record of the
+    time, so the next step may record it again)."""
+
+    def __init__(self, devices: tuple):
+        self.devices = tuple(dict.fromkeys(devices))
+        self.streams = tuple(torch.cuda.Stream(device=d) for d in devices)
+        self.ready = {d: torch.cuda.Event() for d in self.devices}
+        self.done = tuple(torch.cuda.Event() for _ in devices)
+
+
+def _side_pool(mesh: Mesh) -> _SidePool | None:
+    """The mesh's _SidePool, made at its first step; None on a CPU mesh
+    (no streams: the shards run one after another)."""
+    if mesh.devices[0].type != "cuda":
+        return None
+    if not mesh.pool:
+        with _stream_lock:
+            if not mesh.pool:
+                mesh.pool.append(_SidePool(mesh.devices))
+    return mesh.pool[0]
+
+
+class _ShardStreams:
+    """The shards of one step, side by side:
+
+        with _ShardStreams(mesh) as shards:
+            for s in ...: shards.use(s); <launch shard s>
+
+    On a CUDA mesh, entering makes each shard's side stream wait on its
+    device's current stream (an event recorded after the step's
+    allocations and copies there, so it sees the step's inputs);
+    use(s) makes shard s's side stream current (and its device), where
+    its wrappers allocate and launch; leaving restores every device's
+    own current stream and the current device, then makes the first
+    device's current stream wait on every shard, and each other device's
+    on its own shards, so whatever follows on a current stream (the
+    step's copies and reductions, the caller's work, the reuse of memory
+    freed there) runs after the shards' work. On a CPU mesh use(s) does
+    nothing: the shards run one after another."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.pool = _side_pool(mesh)
+
+    def __enter__(self):
+        pool = self.pool
+        if pool is not None:
+            self.device = torch.cuda.current_device()
+            self.current = {d: torch.cuda.current_stream(d)
+                            for d in pool.devices}
+            for dev, ready in pool.ready.items():
+                ready.record(self.current[dev])
+            for stream, dev in zip(pool.streams, self.mesh.devices):
+                stream.wait_event(pool.ready[dev])
+        return self
+
+    def use(self, s: int) -> None:
+        if self.pool is not None:
+            torch.cuda.set_stream(self.pool.streams[s])
+
+    def keep(self, *xs) -> None:
+        """Tensors a shard allocated on its side stream that a current
+        stream reads after the join (a concatenation, a copy to another
+        device): the caching allocator must not hand their memory to the
+        side stream again before that read has run. Once an allocation
+        (views of one tensor share it)."""
+        if self.pool is None:
+            return
+        seen = set()
+        for x in xs:
+            if x is None:
+                continue
+            base = x if x._base is None else x._base
+            if id(base) not in seen:
+                seen.add(id(base))
+                base.record_stream(self.current[base.device])
+
+    def __exit__(self, *exc) -> None:
+        pool = self.pool
+        if pool is None:
+            return
+        for dev in pool.devices:
+            torch.cuda.set_stream(self.current[dev])
+        torch.cuda.set_device(self.device)
+        dev0 = self.mesh.devices[0]
+        for stream, done, dev in zip(pool.streams, pool.done,
+                                     self.mesh.devices):
+            done.record(stream)
+            self.current[dev0].wait_event(done)
+            if dev != dev0:
+                self.current[dev].wait_event(done)
+
+
+def _banded_rules(mesh: Mesh, q_cls, q_s, q_p, ztol_num: int,
+                  ztol_den: int) -> tuple:
+    """K9's and K11's query-side tables of a batch (pixel_match
+    .banded_rules), computed once a step on the first device of a CUDA
+    mesh and replicated with the query (computed a shard, they cost more
+    host time than the shard's launch); () on the CPU, where the plain
+    versions compute their own."""
+    if mesh.devices[0].type != "cuda":
+        return ()
+    with _on(mesh.devices[0]):
+        return pixel_match.banded_rules(q_cls, q_s, q_p, ztol_num=ztol_num,
+                                        ztol_den=ztol_den)
+
+
+def _replicate(mesh: Mesh, replicated: tuple) -> dict:
+    """The replicated arguments on each distinct mesh device (tensors
+    copied once a device, device to device: no host sync)."""
+    return {dev: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                       for a in replicated)
+            for dev in dict.fromkeys(mesh.devices)}
+
+
+def _runs(mesh: Mesh) -> list:
+    """[device, first shard, count] of each run of consecutive shards on
+    a device other than the first."""
+    runs = []
+    for s, dev in enumerate(mesh.devices):
+        if dev == mesh.devices[0]:
+            continue
+        if runs and runs[-1][0] == dev and sum(runs[-1][1:]) == s:
+            runs[-1][2] += 1
+        else:
+            runs.append([dev, s, 1])
+    return runs
+
+
+class _ShardSlices:
+    """One step output made of the shards' slices of `width` along one
+    axis: the tensor [*lead, n * width, *trail] on the first device, which
+    the shards there write in place, and for each run of shards on
+    another device a compact block there, copied in once (gather, after
+    the join). Allocated before the fork, on the current streams."""
+
+    def __init__(self, mesh: Mesh, runs: list, lead: tuple, width: int,
+                 trail: tuple, dtype):
+        self.axis, self.width = len(lead), width
+        self.full = torch.empty((*lead, len(mesh.devices) * width, *trail),
+                                dtype=dtype, device=mesh.devices[0])
+        self.where, self.blocks = {}, []
+        for dev, s0, m in runs:
+            block = torch.empty((*lead, m * width, *trail), dtype=dtype,
+                                device=dev)
+            self.blocks.append((block, s0, m))
+            self.where.update((s0 + j, (block, j)) for j in range(m))
+
+    def slice(self, s: int) -> torch.Tensor:
+        t, j = self.where.get(s, (self.full, s))
+        return t.narrow(self.axis, j * self.width, self.width)
+
+    def gather(self) -> torch.Tensor:
+        for block, s0, m in self.blocks:
+            self.full.narrow(self.axis, s0 * self.width,
+                             m * self.width).copy_(block)
+        return self.full
+
+
 def _per_shard(mesh: Mesh, shards: tuple, replicated: tuple, fn) -> list:
-    """fn(shard, *replicated args on the shard's device) for each shard,
-    launched on the shard's device. Replicated tensors are copied once per
-    distinct device."""
-    copies: dict = {}
+    """fn(shard, *replicated args on the shard's device) -> a tensor, for
+    each shard, on the shard's side stream (CUDA), joined before it
+    returns: the shape steps, whose per-shard outputs are concatenated on
+    the first device."""
+    args = _replicate(mesh, replicated)
     out = []
-    for shard, dev in zip(shards, mesh.devices):
-        args = copies.get(dev)
-        if args is None:
-            args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
-                         for a in replicated)
-            copies[dev] = args
-        with _on(dev):
-            out.append(fn(shard, *args))
+    with _ShardStreams(mesh) as streams:
+        for s, (shard, dev) in enumerate(zip(shards, mesh.devices)):
+            streams.use(s)
+            got = fn(shard, *args[dev])
+            streams.keep(got)
+            out.append(got)
     return out
 
 
@@ -444,46 +626,77 @@ def _cat(mesh: Mesh, parts, dim: int) -> torch.Tensor:
     return torch.cat([p.to(dev0) for p in parts], dim=dim)
 
 
-def _finish_batched_step(mesh: Mesh, per_shard: list, top_k: int):
-    """Shared tail of the batched sharded steps (JAX _finish_batched_step).
-
-    per_shard: [(best, mirrored, pair_flags) [B, w]] of this process's
-    shards, in shard order. Returns (best, mirrored, pair_flags [B, T],
-    global_max [B]) with top_k <= 0 (across processes, only this rank's
-    columns filled), else the merged per-shard top-k: (scores, idx,
-    mirrored, flags [B, D*k], global_max [B], n_flagged [B]) with k =
-    min(top_k, w), each shard's k candidates in jax.lax.top_k's order
-    (score descending, lower column first), their indices offset by the
-    global shard * w, and n_flagged the count of flagged pairs over all
-    shards (the engine pulls dense when flagged pairs fall outside the
-    selection); across processes all of these are every rank's."""
+def _run_batched(mesh: Mesh, shards: tuple, replicated: tuple, fn,
+                 top_k: int, batch: int, width: int):
+    """The batched steps: for each shard, on its side stream, fn(shard,
+    *replicated args) -> (best, mirrored [B, w], pair_flags [B, w] or None
+    when the step has no flags), then its finish (ops/mesh_finish) into
+    the step's outputs; after the join, the shards' slots reduced on the
+    first device and the collectives across processes. Returns what
+    _finish_batched_step documents."""
     dev0 = mesh.devices[0]
-    global_max = _reduce_ranks(mesh, torch.stack([
-        best.max(dim=-1).values.to(dev0)
-        for best, _, _ in per_shard]).max(0).values, "max")
-    if top_k <= 0:
-        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per_shard],
-                                            1))
-                     for i in range(3)) + (global_max,)
-    w = per_shard[0][0].shape[1]
-    k = min(top_k, w)
-    parts = []
-    n_flagged = None
-    for s, ((best, mirrored, flags), dev) in enumerate(
-            zip(per_shard, mesh.devices), mesh.first_shard):
-        with _on(dev):
-            sk, ik, mk, fk = pixel_match.union_keys_topk(best, mirrored, k,
-                                                         flags)
-            parts.append((sk, ik + s * w, mk, fk))
-            count = (flags > 0).sum(dim=1, dtype=torch.int32).to(dev0)
-        n_flagged = count if n_flagged is None else n_flagged + count
-    return tuple(_gather_ranks(mesh, _cat(mesh, [p[i] for p in parts], 1))
-                 for i in range(4)) + (global_max,
-                                       _reduce_ranks(mesh, n_flagged, "sum"))
+    k = min(top_k, width) if top_k > 0 else 0
+    runs = _runs(mesh)
+    args = _replicate(mesh, replicated)
+    # [n_slots, D, B]: each shard's row maxima (and flagged counts)
+    slots = _ShardSlices(mesh, runs, (2 if k else 1,), 1, (batch,),
+                         torch.int32)
+    if k:
+        # the merged top-k: scores, columns, flags; mirrored
+        top = _ShardSlices(mesh, runs, (3, batch), k, (), torch.int32)
+        top_m = _ShardSlices(mesh, runs, (batch,), k, (), torch.bool)
+    dense = []
+    with _ShardStreams(mesh) as streams:
+        for s, (shard, dev) in enumerate(zip(shards, mesh.devices)):
+            slot = slots.slice(s)[:, 0]
+            if k:
+                scores, idx, flags = top.slice(s).unbind(0)
+                out = (scores, idx, top_m.slice(s), flags, *slot)
+            else:
+                out = (None, None, None, None, slot[0], None)
+            streams.use(s)
+            best, mirrored, pair_flags = fn(shard, *args[dev])
+            mf.mesh_finish(best, mirrored, k, pair_flags,
+                           (mesh.first_shard + s) * width, out=out)
+            if not k:
+                streams.keep(best, mirrored, pair_flags)
+                dense.append((best, mirrored, pair_flags))
+    slot_all = slots.gather()
+    with _on(dev0):
+        global_max, n_flagged = mf.mesh_reduce(*slot_all)
+    global_max = _reduce_ranks(mesh, global_max, "max")
+    if not k:
+        flags = (torch.zeros((batch, len(shards) * width), dtype=torch.int32,
+                             device=dev0)
+                 if dense[0][2] is None
+                 else _cat(mesh, [p[2] for p in dense], 1))
+        return (_place_cols(mesh, _cat(mesh, [p[0] for p in dense], 1)),
+                _place_cols(mesh, _cat(mesh, [p[1] for p in dense], 1)),
+                _place_cols(mesh, flags), global_max)
+    scores, idx, flags = top.gather()
+    return (*(_gather_ranks(mesh, x)
+              for x in (scores, idx, top_m.gather(), flags)),
+            global_max, _reduce_ranks(mesh, n_flagged, "sum"))
 
 
-def _no_flags(best: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(best.shape, dtype=torch.int32, device=best.device)
+def _finish_batched_step(mesh: Mesh, per_shard: list, top_k: int):
+    """Shared tail of the batched sharded steps (JAX _finish_batched_step)
+    on per-shard results already computed.
+
+    per_shard: [(best, mirrored, pair_flags or None) [B, w]] of this
+    process's shards, in shard order. Returns (best, mirrored, pair_flags
+    [B, T], global_max [B]) with top_k <= 0 (across processes, only this
+    rank's columns filled; pair_flags zeros when the shards have none),
+    else the merged per-shard top-k: (scores, idx, mirrored, flags
+    [B, D*k], global_max [B], n_flagged [B]) with k = min(top_k, w), each
+    shard's k candidates in jax.lax.top_k's order (score descending,
+    lower column first), their indices offset by the global shard * w,
+    and n_flagged the count of flagged pairs over all shards (the engine
+    pulls dense when flagged pairs fall outside the selection); across
+    processes all of these are every rank's."""
+    batch, width = per_shard[0][0].shape
+    return _run_batched(mesh, tuple(per_shard), (), lambda p: p, top_k,
+                        batch, width)
 
 
 # --- the steps ------------------------------------------------------------
@@ -498,36 +711,51 @@ def make_sharded_search_step(mesh: Mesh, *, target_threshold: int,
     q_p [Q]) -> (best [T], mirrored [T], pair_flags [T], global_max [])
     and, with top_k > 0, also (topk_scores [D*k], topk_idx [D*k]): each
     shard's top min(top_k, w) scores and their global target indices
-    (every process's shards)."""
-
+    (every process's shards). Each shard's K9 writes its column slice of
+    the [T] outputs in place (a shard on another device than the first
+    writes a block there, copied in once), and its finish (B = 1) its
+    slice of the top-k."""
     def step(planes, pos, q_cls, q_s, q_p):
         _count("search")
         _check_shards(mesh, planes, "planes")
-        per = _per_shard(
-            mesh, planes, (pos[None], q_cls[None], q_s[None], q_p[None]),
-            lambda shard, *a: tuple(x[0] for x in pixel_match.score_query_batch(
-                shard, *a, target_threshold=target_threshold,
-                ztol_num=ztol_num, ztol_den=ztol_den,
-                n_straight=n_straight)))
-        best, mirrored, flags = (_cat(mesh, [p[i] for p in per], 0)
-                                 for i in range(3))
-        global_max = _reduce_ranks(mesh, best.max(), "max")
+        dev0 = mesh.devices[0]
+        width = planes[0].shape[-1]
+        k = min(top_k, width) if top_k > 0 else 0
+        runs = _runs(mesh)
+        query = (q_cls[None], q_s[None], q_p[None])
+        args = _replicate(mesh, (pos[None], *query, *_banded_rules(
+            mesh, *query, ztol_num, ztol_den)))
+        dense = _ShardSlices(mesh, runs, (2,), width, (), torch.int32)
+        dense_m = _ShardSlices(mesh, runs, (), width, (), torch.bool)
+        slots = _ShardSlices(mesh, runs, (), 1, (1,), torch.int32)
+        if k:
+            top = _ShardSlices(mesh, runs, (2, 1), k, (), torch.int32)
+        with _ShardStreams(mesh) as streams:
+            for s, (shard, dev) in enumerate(zip(planes, mesh.devices)):
+                best, flags = dense.slice(s)[:, None]
+                mirrored = dense_m.slice(s)[None]
+                streams.use(s)
+                pixel_match.score_query_batch(
+                    shard, *args[dev][:4], target_threshold=target_threshold,
+                    ztol_num=ztol_num, ztol_den=ztol_den,
+                    n_straight=n_straight, out=(best, mirrored, flags),
+                    rules=args[dev][4:] or None)
+                mf.mesh_finish(
+                    best, mirrored, k, None, (mesh.first_shard + s) * width,
+                    out=(*(top.slice(s).unbind(0) if k else (None, None)),
+                         None, None, slots.slice(s)[0], None))
+        best, flags = dense.gather()
+        mirrored = dense_m.gather()
+        with _on(dev0):
+            global_max = mf.mesh_reduce(slots.gather())[0].reshape(())
+        global_max = _reduce_ranks(mesh, global_max, "max")
         best, mirrored, flags = (_place_cols(mesh, x)
                                  for x in (best, mirrored, flags))
-        if top_k <= 0:
+        if not k:
             return best, mirrored, flags, global_max
-        w = per[0][0].shape[0]
-        k = min(top_k, w)
-        scores, idx = [], []
-        for s, ((b, m, _f), dev) in enumerate(zip(per, mesh.devices),
-                                              mesh.first_shard):
-            with _on(dev):
-                sk, ik, _mk = pixel_match.union_keys_topk(b[None], m[None], k)
-            scores.append(sk[0])
-            idx.append(ik[0] + s * w)
+        scores, idx = top.gather()[:, 0]
         return (best, mirrored, flags, global_max,
-                _gather_ranks(mesh, _cat(mesh, scores, 0)),
-                _gather_ranks(mesh, _cat(mesh, idx, 0)))
+                _gather_ranks(mesh, scores), _gather_ranks(mesh, idx))
 
     return step
 
@@ -545,13 +773,14 @@ def make_sharded_batch_step(mesh: Mesh, *, target_threshold: int,
     def step(planes, pos, q_cls, q_s, q_p):
         _count("batch")
         _check_shards(mesh, planes, "planes")
-        per = _per_shard(
-            mesh, planes, (pos, q_cls, q_s, q_p),
+        return _run_batched(
+            mesh, planes, (pos, q_cls, q_s, q_p, *_banded_rules(
+                mesh, q_cls, q_s, q_p, ztol_num, ztol_den)),
             lambda shard, *a: pixel_match.score_query_batch(
-                shard, *a, target_threshold=target_threshold,
+                shard, *a[:4], target_threshold=target_threshold,
                 ztol_num=ztol_num, ztol_den=ztol_den,
-                n_straight=n_straight))
-        return _finish_batched_step(mesh, per, top_k)
+                n_straight=n_straight, rules=a[4:] or None),
+            top_k, pos.shape[0], planes[0].shape[-1])
 
     return step
 
@@ -567,12 +796,15 @@ def make_sharded_batch_step_split(mesh: Mesh, *, ztol_num: int,
         _count("batch_split")
         _check_shards(mesh, t_sp, "t_sp")
         _check_shards(mesh, t_c8, "t_c8")
-        per = _per_shard(
-            mesh, tuple(zip(t_sp, t_c8)), (pos, q_cls, q_s, q_p),
+        return _run_batched(
+            mesh, tuple(zip(t_sp, t_c8)), (pos, q_cls, q_s, q_p,
+                                           *_banded_rules(
+                                               mesh, q_cls, q_s, q_p,
+                                               ztol_num, ztol_den)),
             lambda pair, *a: pixel_match.score_query_batch_split(
-                *pair, *a, ztol_num=ztol_num, ztol_den=ztol_den,
-                n_straight=n_straight))
-        return _finish_batched_step(mesh, per, 0)
+                *pair, *a[:4], ztol_num=ztol_num, ztol_den=ztol_den,
+                n_straight=n_straight, rules=a[4:] or None),
+            0, pos.shape[0], t_sp[0].shape[-1])
 
     return step
 
@@ -581,19 +813,17 @@ def make_sharded_batch_step_keys(mesh: Mesh, *, n_straight: int,
                                  top_k: int = 0):
     """Rank-key twin of make_sharded_batch_step (K10 per shard): fn(t_keys
     shards [P+1, w], pos [B, V, Q], lo, span [B, 3, Q]); the predicate is
-    exact, so pair_flags are zeros (kept for the interface)."""
+    exact, so pair_flags are zeros (kept for the interface; the finish
+    writes them, no shard makes a zero tensor)."""
 
     def step(t_keys, pos, lo, span):
         _count("batch_keys")
         _check_shards(mesh, t_keys, "t_keys")
-
-        def one(shard, *a):
-            best, mirrored = pixel_match.score_query_batch_keys(
-                shard, *a, n_straight=n_straight)
-            return best, mirrored, _no_flags(best)
-
-        return _finish_batched_step(
-            mesh, _per_shard(mesh, t_keys, (pos, lo, span), one), top_k)
+        return _run_batched(
+            mesh, t_keys, (pos, lo, span),
+            lambda shard, *a: (*pixel_match.score_query_batch_keys(
+                shard, *a, n_straight=n_straight), None),
+            top_k, pos.shape[0], t_keys[0].shape[-1])
 
     return step
 
@@ -608,16 +838,11 @@ def make_sharded_batch_step_union_keys(mesh: Mesh, *, top_k: int = 0,
     def step(t_keys, u_pos, mu_pos, lane_lo, lane_span):
         _count("batch_union_keys")
         _check_shards(mesh, t_keys, "t_keys")
-
-        def one(shard, *a):
-            best, mirrored = pixel_match.score_query_batch_union_keys(
-                shard, *a, u2)
-            return best, mirrored, _no_flags(best)
-
-        return _finish_batched_step(
-            mesh, _per_shard(mesh, t_keys,
-                             (u_pos, mu_pos, lane_lo, lane_span), one),
-            top_k)
+        return _run_batched(
+            mesh, t_keys, (u_pos, mu_pos, lane_lo, lane_span),
+            lambda shard, *a: (*pixel_match.score_query_batch_union_keys(
+                shard, *a, u2), None),
+            top_k, u_pos.shape[0], t_keys[0].shape[-1])
 
     return step
 
@@ -632,16 +857,11 @@ def make_sharded_batch_step_union_qkeys(mesh: Mesh, *, top_k: int = 0,
     def step(t_keys, u_pos, mu_pos, qidx, key_list, tab_lo, tab_span):
         _count("batch_union_qkeys")
         _check_shards(mesh, t_keys, "t_keys")
-
-        def one(shard, *a):
-            best, mirrored = pixel_match.score_query_batch_union_qkeys(
-                shard, *a, u2)
-            return best, mirrored, _no_flags(best)
-
-        return _finish_batched_step(
-            mesh, _per_shard(mesh, t_keys, (u_pos, mu_pos, qidx, key_list,
-                                            tab_lo, tab_span), one),
-            top_k)
+        return _run_batched(
+            mesh, t_keys, (u_pos, mu_pos, qidx, key_list, tab_lo, tab_span),
+            lambda shard, *a: (*pixel_match.score_query_batch_union_qkeys(
+                shard, *a, u2), None),
+            top_k, u_pos.shape[0], t_keys[0].shape[-1])
 
     return step
 
@@ -663,10 +883,10 @@ def make_sharded_shape_step(mesh: Mesh, *, both: bool = False):
     def step(t_pack, q_pack):
         _count(name)
         _check_shards(mesh, t_pack, "t_pack")
-        per = _per_shard(mesh, t_pack, (q_pack,), pairs)
-        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per],
-                                            1 if both else 0))
-                     for i in range(3))
+        per = _per_shard(mesh, t_pack, (q_pack,),
+                         lambda t, q: pairs(t, q, stacked=True))
+        return tuple(_place_cols(mesh, x)
+                     for x in _cat(mesh, per, -1).unbind(0))
 
     return step
 
@@ -684,8 +904,8 @@ def make_sharded_shape_split_step(mesh: Mesh):
         per = _per_shard(
             mesh, tuple(zip(t_gap, t_he)), (q_gap, q_he),
             lambda pair, qg, qh: shape_score.shape_score_pairs_split(
-                pair[0], qg, pair[1], qh))
-        return tuple(_place_cols(mesh, _cat(mesh, [p[i] for p in per], 1))
-                     for i in range(3))
+                pair[0], qg, pair[1], qh, stacked=True))
+        return tuple(_place_cols(mesh, x)
+                     for x in _cat(mesh, per, -1).unbind(0))
 
     return step

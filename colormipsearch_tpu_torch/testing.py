@@ -1620,6 +1620,74 @@ def check_topk_edge(case: tuple, device) -> None:
                              "plain version")
 
 
+# The mesh finish (ops/mesh_finish: K4's selection written into a
+# shard's column slice of the merged outputs, with the row maxima and
+# flagged counts) at its edges: (name, batch, w, k, scores, flags) as
+# TOPK_EDGE_CASES. w 512 with k 256 is phase 7's shard (2,048 columns
+# over 4), B 1 the one-mask search step, k 0 the dense steps (maxima
+# only), w 300 and 2,049 no multiple of a block's 256 threads (2,049 a
+# cluster of 4, ragged), "equal" rows the tie order, no flags the key,
+# union and qkey steps (the flags written as zeros).
+MESH_FINISH_EDGE_CASES = (
+    ("w512_k256", 8, 512, 256, "narrow", True),
+    ("w512_k1", 8, 512, 1, "random", True),
+    ("w512_kw", 8, 512, 512, "narrow", False),
+    ("w300_k37", 8, 300, 37, "random", True),
+    ("w2049_k256", 4, 2049, 256, "narrow", False),
+    ("equal_rows", 8, 512, 256, "equal", True),
+    ("equal_rows_kw", 2, 300, 300, "equal", False),
+    ("k0_max_only", 8, 512, 0, "random", True),
+    ("b1_search", 1, 512, 256, "narrow", False),
+    ("int32_extremes", 8, 512, 64, "extremes", True),
+    ("batch_0", 0, 512, 256, "random", False),
+)
+# the shards of the merged outputs in check_mesh_finish_edge: the case
+# writes shard 1's slice and leaves the others as they were
+MESH_FINISH_EDGE_SHARDS = 3
+
+
+def check_mesh_finish_edge(case: tuple, device) -> None:
+    """mesh_finish at one MESH_FINISH_EDGE_CASES input on a CUDA `device`
+    against its plain version: written into shard 1's column slice of
+    merged [B, 3k] outputs (the other slices untouched), with the
+    shard's column offset, and mesh_reduce over [3, B] slots holding the
+    case's row maxima and flagged counts. Raises AssertionError naming
+    the case."""
+    import torch
+
+    from colormipsearch_tpu_torch.ops import mesh_finish as mf
+
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    best, mirrored, flags, k = topk_edge_inputs(rng, case, device)
+    batch, width = best.shape
+    n = MESH_FINISH_EDGE_SHARDS
+    want = mf.mesh_finish_plain(best, mirrored, k, flags, width)
+    top = torch.full((3, batch, n * k), -7, dtype=torch.int32, device=device)
+    top_m = torch.ones((batch, n * k), dtype=torch.bool, device=device)
+    slots = torch.full((2, n, batch), -7, dtype=torch.int32, device=device)
+    scores, idx, flags_k = (x[:, k:2 * k] for x in top)
+    got = mf.mesh_finish(best, mirrored, k, flags, width,
+                         out=(scores, idx, top_m[:, k:2 * k], flags_k,
+                              slots[0, 1], slots[1, 1]))
+    outside = (torch.cat([top[..., :k], top[..., 2 * k:]], -1),
+               torch.cat([top_m[:, :k], top_m[:, 2 * k:]], -1))
+    if not all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want)) \
+            or not bool((outside[0] == -7).all()) \
+            or not bool(outside[1].all()):
+        raise AssertionError(f"mesh_finish at edge case {case[0]} differs "
+                             "from its plain version")
+    slots[:, 0] = torch.from_numpy(rng.integers(-50, 50, (2, batch))
+                                   .astype(np.int32)).to(device)
+    slots[:, 2] = torch.from_numpy(rng.integers(-50, 50, (2, batch))
+                                   .astype(np.int32)).to(device)
+    got = mf.mesh_reduce(slots[0], slots[1])
+    want = mf.mesh_reduce_plain(slots[0], slots[1])
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"mesh_reduce at edge case {case[0]} differs "
+                             "from its plain version")
+
+
 # K7 at its edges: (name, R, n, where, dtype) for every R in (1, 31, 33,
 # 1,638, 2,048), n in (1, 7, 9, a full chunk of PIXEL_MAJOR_CHUNK_BYTES),
 # the chunk written at pixel 0 or ending at the buffer's last pixel, int16

@@ -46,6 +46,7 @@ they are bit-identical to the JAX package's.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import logging
 import os
@@ -535,7 +536,7 @@ class CDSearchEngine:
                 shard.planes = None
         return shard.split_planes
 
-    def _stacked_key_args(self, plans, n_pixels: int):
+    def _stacked_key_args(self, plans, n_pixels: int, scoring=False):
         """(pos, lo, span) tensors of a batch of classic key plans."""
         def build():
             kplans = [self._key_plan(pl, n_pixels) for pl in plans]
@@ -544,9 +545,10 @@ class CDSearchEngine:
                                            self.device)
                          for f in ("positions", "lo", "span"))
 
-        return self._cached_plan_args(("keys", n_pixels), plans, build)
+        return self._cached_plan_args(("keys", n_pixels), plans, build,
+                                      scoring)
 
-    def _stacked_plan_args(self, plans):
+    def _stacked_plan_args(self, plans, scoring=False):
         """(pos, q_cls, q_s, q_p) tensors of a batch of QueryPlans."""
         def build():
             return tuple(convert.as_tensor(np.stack([getattr(pl, f)
@@ -554,7 +556,7 @@ class CDSearchEngine:
                                            self.device)
                          for f in ("positions", "q_cls", "q_s", "q_p"))
 
-        return self._cached_plan_args("packed", plans, build)
+        return self._cached_plan_args("packed", plans, build, scoring)
 
     def _interval_tables_device(self):
         """The shared per-tolerance interval tables on the device
@@ -566,7 +568,7 @@ class CDSearchEngine:
             self._itabs = convert.interval_tables(arrs, self.device)
         return self._itabs
 
-    def _stacked_union_args(self, batch, n_pixels: int):
+    def _stacked_union_args(self, batch, n_pixels: int, scoring=False):
         """Stacked union plan tensors for one mask batch:
         (u_pos, mu_pos, lane_lo, lane_span, u2).
 
@@ -626,23 +628,27 @@ class CDSearchEngine:
                 pixel_match.stack_union_plan_args(ups, n_pixels), dev)
 
         return self._cached_plan_args(
-            ("ukeys", self.use_union_keys, n_pixels), plans, build)
+            ("ukeys", self.use_union_keys, n_pixels), plans, build, scoring)
 
     # stacked plan tensors, cached so a batch re-scored against every
     # streamed target shard uploads its plans ONCE; bounded FIFO
     _ARGS_CACHE_MAX = 4
 
-    def _cached_plan_args(self, tag, plans, build):
+    def _cached_plan_args(self, tag, plans, build, scoring=False):
         """id()-keyed device-args cache.  Each entry pins the source
         plan objects, so an id can only hit while its plan is alive.
         Locked: the warm-ahead thread and the scoring thread both mutate
         the FIFO; concurrent requesters of the SAME key share one
-        in-flight build via a per-key future."""
+        in-flight build via a per-key future. `scoring`: the scoring
+        thread's request, counted as ``cds.planArgs.ready``, ``.joined``
+        (the warm-ahead's build in flight) or ``.built``."""
         key = (tag,) + tuple(id(pl) for pl in plans)
         with self._plan_args_lock:
             cached = self._plan_args_cache.get(key)
             if cached is not None and all(
                     a is b for a, b in zip(cached[0], plans)):
+                if scoring:
+                    _METRICS.add("cds.planArgs.ready.count")
                 return cached[1]
             fut = self._plan_args_inflight.get(key)
             if fut is None:
@@ -651,6 +657,9 @@ class CDSearchEngine:
                 owner = True
             else:
                 owner = False
+        if scoring:
+            _METRICS.add("cds.planArgs.built.count" if owner
+                         else "cds.planArgs.joined.count")
         if not owner:
             return fut.result()
         try:
@@ -693,12 +702,38 @@ class CDSearchEngine:
         """Streaming variant: yields lists of CDMatch per scored
         (target tile x mask batch).  With `max_matches_per_mask`, each
         target tile contributes at most that many matches per mask; the
-        list wrapper applies the final global per-mask trim."""
-        from colormipsearch_tpu_torch.utils.metrics import stage_timer
+        list wrapper applies the final global per-mask trim.
 
+        The call is the span ``cds.call``, the caller's time at each
+        yield the span ``cds.yielded``; ``cds.scoreAllPairs.seconds``
+        counts the call without the caller's time."""
+        cid = _METRICS.next_id()
+        waited = 0.0
+        call = _METRICS.span("cds.call", call=cid)
+        try:
+            with call, contextlib.closing(self._search_chunks(
+                    masks, targets, cid, set(tags), session_ref_id,
+                    max_matches_per_mask)) as chunks:
+                for out in chunks:
+                    handed = _METRICS.span("cds.yielded")
+                    try:
+                        with handed:
+                            yield out
+                    finally:
+                        waited += handed.seconds
+        finally:
+            busy = call.seconds - waited
+            _METRICS.add("cds.scoreAllPairs.seconds", busy)
+            LOG.info("cds.scoreAllPairs finished in %.2fs (the caller's "
+                     "%.2fs at the yields left out)", busy, waited)
+
+    def _search_chunks(self, masks, targets, cid: int, tags: set,
+                       session_ref_id, max_matches_per_mask: int):
+        """The body of ``find_all_matches_iter``: yields each chunk's
+        matches; `cid` is the call's span id."""
         t0 = time.time()
         p = self.params
-        tags = set(tags)
+        span = _METRICS.span
         # on the pure full-union path prep builds the union plan directly
         # (light: no expanded lane tables) and drops the decoded image,
         # which only the flagged-pair rescore (never on this path: its
@@ -774,8 +809,10 @@ class CDSearchEngine:
 
         def prep_one(mask):
             try:
-                return prep_mask(mask)
+                with span("cds.prep", call=cid):
+                    return prep_mask(mask)
             finally:
+                _METRICS.add("cds.masksPrepped.count")
                 prep_done_ts.append(time.time())
 
         prep_pool = concurrent.futures.ThreadPoolExecutor(
@@ -795,7 +832,8 @@ class CDSearchEngine:
         def stream_batches():
             pending: dict[tuple, list] = {}
             for fut in prep_futs:
-                entry = fut.result()
+                with span("cds.prepWait"):
+                    entry = fut.result()
                 if entry is None:
                     continue
                 k = entry_key(entry)
@@ -803,10 +841,10 @@ class CDSearchEngine:
                 if len(pending[k]) >= self.MASK_BATCH:
                     yield k, pending.pop(k)
             prep_pool.shutdown()
-            span = (max(prep_done_ts) - prep_t0) if prep_done_ts else 0.0
-            _METRICS.add("cds.prepMasks.seconds", span)
+            prep_s = (max(prep_done_ts) - prep_t0) if prep_done_ts else 0.0
+            _METRICS.add("cds.prepMasks.seconds", prep_s)
             LOG.info("cds.prepMasks finished in %.2fs (overlapped with "
-                     "shard-0 scoring)", span)
+                     "shard-0 scoring)", prep_s)
             for k, b in pending.items():
                 if b:
                     yield k, b
@@ -814,25 +852,32 @@ class CDSearchEngine:
         n_matches = 0
         n_targets = 0
         n_pairs = 0
+        n_chunks = 0
         first_shard = None
         all_batches: list[tuple[tuple, list]] = []
 
-        def warm(key, batch):
+        def warm(key, batch, bi):
             # build+upload a batch's plan tensors on a worker thread
             # while the device scores the previous batch
             n_px = key[0][0] * key[0][1]
             try:
-                if self.use_union_keys:
-                    self._stacked_union_args(batch, n_px)
-                elif self.use_key_planes:
-                    self._stacked_key_args([e[3] for e in batch], n_px)
+                with span("cds.planArgsBuild", call=cid, batch=bi):
+                    if self.use_union_keys:
+                        self._stacked_union_args(batch, n_px)
+                    elif self.use_key_planes:
+                        self._stacked_key_args([e[3] for e in batch], n_px)
             except Exception:  # noqa: BLE001 - warm only
                 pass  # the real call surfaces the error
 
-        def score(key, batch, shard):
-            nonlocal n_pairs, n_matches
-            out = self._score_batch(batch, shard, tags, session_ref_id,
-                                    top_k=max_matches_per_mask)
+        def score(key, batch, shard, bi, si):
+            # one chunk: batch `bi` of the call against shard yield `si`
+            nonlocal n_pairs, n_matches, n_chunks
+            with span("cds.chunk", chunk=n_chunks, batch=bi, shard=si):
+                out = self._score_batch(batch, shard, tags, session_ref_id,
+                                        top_k=max_matches_per_mask)
+            n_chunks += 1
+            _METRICS.add("cds.chunks.count")
+            _METRICS.add("cds.matchesEmitted.count", len(out))
             _METRICS.add("pairsScored", len(batch) * shard.count)
             n_pairs += len(batch) * shard.count
             n_matches += len(out)
@@ -840,7 +885,6 @@ class CDSearchEngine:
 
         warm_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         try:
-          with stage_timer("cds.scoreAllPairs"):
             # phase 1: shard 0 scores each mask batch as prep yields it
             prev = None
             for kb in stream_batches():
@@ -848,20 +892,22 @@ class CDSearchEngine:
                 if first_shard is None:
                     # first usable batch: now (and only now) consume the
                     # prefetched shard
-                    first_shard = shard0_fut.result()
-                    shard0_pool.shutdown()
+                    with span("cds.shardWait"):
+                        first_shard = shard0_fut.result()
+                        shard0_pool.shutdown()
+                        if first_shard is not None:
+                            first_shard.ensure_planes()
                     if first_shard is not None:
-                        first_shard.ensure_planes()
                         n_targets += first_shard.count
                 if first_shard is None:
                     continue  # no targets: just record batches
-                warm_pool.submit(warm, *kb)
-                if prev is not None and prev[0][0] == first_shard.shape:
-                    yield score(prev[0], prev[1], first_shard)
-                prev = kb
+                warm_pool.submit(warm, *kb, len(all_batches) - 1)
+                if prev is not None and prev[0][0][0] == first_shard.shape:
+                    yield score(*prev[0], first_shard, prev[1], 0)
+                prev = (kb, len(all_batches) - 1)
             if prev is not None and first_shard is not None \
-                    and prev[0][0] == first_shard.shape:
-                yield score(prev[0], prev[1], first_shard)
+                    and prev[0][0][0] == first_shard.shape:
+                yield score(*prev[0], first_shard, prev[1], 0)
             warm_pool.shutdown()
             if not all_batches:
                 if masks:
@@ -887,25 +933,34 @@ class CDSearchEngine:
             # the previous shard's planes are RELEASED before the next
             # shard packs (one packed plane set resident at a time)
             prev_shard = first_shard
-            for shard in shard_iter:
+            si = 0
+            while True:
+                with span("cds.shardWait"):
+                    shard = next(shard_iter, None)
+                if shard is None:
+                    break
+                si += 1
                 if prev_shard is not None:
                     prev_shard.release()
                 prev_shard = shard
                 n_targets += shard.count
-                matching = [kb for kb in all_batches
+                matching = [(bi, kb) for bi, kb in enumerate(all_batches)
                             if kb[0][0] == shard.shape]
                 if not matching:
                     continue  # never pack a shard no batch can score
-                shard.ensure_planes()
+                with span("cds.shardWait"):
+                    shard.ensure_planes()
                 with concurrent.futures.ThreadPoolExecutor(
                         max_workers=1) as argpool:
                     fut = None
-                    for bi, kb in enumerate(matching):
-                        if bi + 1 < len(matching):
-                            fut = argpool.submit(warm, *matching[bi + 1])
-                        yield score(kb[0], kb[1], shard)
+                    for j, (bi, kb) in enumerate(matching):
+                        if j + 1 < len(matching):
+                            nbi, nkb = matching[j + 1]
+                            fut = argpool.submit(warm, *nkb, nbi)
+                        yield score(*kb, shard, bi, si)
                         if fut is not None:
-                            fut.result()
+                            with span("cds.warmWait"):
+                                fut.result()
                             fut = None
         finally:
             # a scoring failure must not leave queued prep tasks grinding
@@ -913,7 +968,6 @@ class CDSearchEngine:
             prep_pool.shutdown(wait=False, cancel_futures=True)
             warm_pool.shutdown(wait=False, cancel_futures=True)
             shard0_pool.shutdown(wait=False, cancel_futures=True)
-        _METRICS.add("matchesFound", n_matches)
         if n_pairs == 0 and all_batches and n_targets > 0:
             LOG.warning(
                 "0 pairs scored: no target tile matched any mask's image "
@@ -972,14 +1026,18 @@ class CDSearchEngine:
         # summary planes, as in the JAX engine
         use_split = not use_keys and self._use_split and top_k == 0
         pair_flags = None  # structurally zero on the key paths
-        t_args0 = time.time()
-        if not use_keys:
-            args = self._stacked_plan_args(plans)
-        elif self.use_union_keys:
-            *kargs, u2 = self._stacked_union_args(batch, n_pixels)
-        else:
-            kargs = self._stacked_key_args(plans, n_pixels)
-        _METRICS.add("cds.planArgs.seconds", time.time() - t_args0)
+        span = _METRICS.span
+        with span("cds.planArgs"):
+            if not use_keys:
+                args = self._stacked_plan_args(plans, scoring=True)
+            elif self.use_union_keys:
+                *kargs, u2 = self._stacked_union_args(batch, n_pixels,
+                                                      scoring=True)
+            else:
+                kargs = self._stacked_key_args(plans, n_pixels,
+                                               scoring=True)
+        # dispatch: the launches (cds.launch), the blocking pulls
+        # (cds.pull) and the k-th emit check
         t_disp0 = time.time()
         # the classic plans' tolerance and variant split (the union
         # path's light plans carry neither and need neither)
@@ -1001,86 +1059,105 @@ class CDSearchEngine:
                 f"{self._mesh.world_size} processes")
         if use_split:
             t_sp, t_c8 = self._split_planes(shard, on_mesh)
-            if on_mesh:
-                best, mirrored, pair_flags, _gmax = self._split_step(
-                    n_straight, ztol)(t_sp, t_c8, *args)
-            else:
-                best, mirrored, pair_flags = \
-                    pixel_match.score_query_batch_split(
-                        t_sp, t_c8, *args, ztol_num=ztol[0],
-                        ztol_den=ztol[1], n_straight=n_straight)
+            with span("cds.launch"):
+                if on_mesh:
+                    best, mirrored, pair_flags, _gmax = self._split_step(
+                        n_straight, ztol)(t_sp, t_c8, *args)
+                else:
+                    best, mirrored, pair_flags = \
+                        pixel_match.score_query_batch_split(
+                            t_sp, t_c8, *args, ztol_num=ztol[0],
+                            ztol_den=ztol[1], n_straight=n_straight)
         elif not use_keys and on_mesh:
             planes = self._mesh_planes(shard)
             if top_k > 0:
                 # per-shard top-k: only D*k candidates a mask reach the
                 # host, unless flagged pairs fell outside the selection
                 # (their exact score could beat a selected fast score)
-                scores_k, idx_k, mirr_k, flags_k, _gmax, n_flagged = \
-                    self._sharded_step(n_straight, ztol, top_k, thr)(
-                        planes, *args)
-                flags_k = flags_k.cpu().numpy()
-                idx_k = idx_k.cpu().numpy()
+                with span("cds.launch"):
+                    scores_k, idx_k, mirr_k, flags_k, _gmax, n_flagged = \
+                        self._sharded_step(n_straight, ztol, top_k, thr)(
+                            planes, *args)
+                with span("cds.pull"):
+                    flags_k = flags_k.cpu().numpy()
+                    idx_k = idx_k.cpu().numpy()
+                    n_flagged = n_flagged.cpu().numpy()
                 valid = (idx_k >= 0) & (idx_k < shard.count)
                 selected = ((flags_k > 0) & valid).sum(axis=1)
-                if not (n_flagged.cpu().numpy() > selected).any():
+                if not (n_flagged > selected).any():
+                    with span("cds.pull"):
+                        sk = scores_k.cpu().numpy()
+                        mk = mirr_k.cpu().numpy()
                     _METRICS.add("cds.dispatch.seconds",
                                  time.time() - t_disp0)
                     return self._emit_from_topk(
-                        batch, shard, scores_k.cpu().numpy(), idx_k,
-                        mirr_k.cpu().numpy(), flags_k, tags,
+                        batch, shard, sk, idx_k, mk, flags_k, tags,
                         session_ref_id)
                 _METRICS.add("cds.topkFlagDense.count", 1)
-            best, mirrored, pair_flags, _gmax = self._sharded_step(
-                n_straight, ztol, target_threshold=thr)(planes, *args)
+            with span("cds.launch"):
+                best, mirrored, pair_flags, _gmax = self._sharded_step(
+                    n_straight, ztol, target_threshold=thr)(planes, *args)
         elif not use_keys:
-            best, mirrored, pair_flags = pixel_match.score_query_batch(
-                shard.planes, *args, target_threshold=thr,
-                ztol_num=ztol[0], ztol_den=ztol[1], n_straight=n_straight)
+            with span("cds.launch"):
+                best, mirrored, pair_flags = pixel_match.score_query_batch(
+                    shard.planes, *args, target_threshold=thr,
+                    ztol_num=ztol[0], ztol_den=ztol[1],
+                    n_straight=n_straight)
         elif on_mesh:
             planes = self._mesh_planes(shard)
             if top_k > 0:
                 step = (self._union_keys_step(top_k, u2)
                         if self.use_union_keys
                         else self._keys_step(n_straight, top_k))
-                scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = step(
-                    planes, *kargs)
+                with span("cds.launch"):
+                    scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = step(
+                        planes, *kargs)
+                with span("cds.pull"):
+                    pulled = [x.cpu().numpy() for x in (
+                        scores_k, idx_k, mirr_k, flags_k)]
                 _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
                 return self._emit_from_topk(
-                    batch, shard, *(x.cpu().numpy() for x in (
-                        scores_k, idx_k, mirr_k, flags_k)), tags,
-                    session_ref_id)
+                    batch, shard, *pulled, tags, session_ref_id)
             sel_k = self._emit_select_k(top_k) if self.use_union_keys \
                 else 0
             if sel_k and sel_k < shard.t_pad // self._mesh.size:
                 # threshold-emit selection, per column shard: [B, D*k]
-                scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = \
-                    self._union_keys_step(sel_k, u2)(planes, *kargs)
-                sk = scores_k.cpu().numpy()
+                with span("cds.launch"):
+                    scores_k, idx_k, mirr_k, flags_k, _gmax, _nf = \
+                        self._union_keys_step(sel_k, u2)(planes, *kargs)
+                with span("cds.pull"):
+                    sk = scores_k.cpu().numpy()
                 kth = sk.reshape(sk.shape[0], -1, sel_k)[:, :, -1]
                 if not self._topk_kth_emittable(kth, batch):
                     _METRICS.add("cds.emitSelect.count", 1)
+                    with span("cds.pull"):
+                        pulled = [x.cpu().numpy() for x in (
+                            idx_k, mirr_k, flags_k)]
                     _METRICS.add("cds.dispatch.seconds",
                                  time.time() - t_disp0)
                     return self._emit_from_topk(
-                        batch, shard, sk, *(x.cpu().numpy() for x in (
-                            idx_k, mirr_k, flags_k)), tags, session_ref_id)
+                        batch, shard, sk, *pulled, tags, session_ref_id)
                 _METRICS.add("cds.emitSelectFallback.count", 1)
             step = (self._union_keys_step(u2=u2) if self.use_union_keys
                     else self._keys_step(n_straight))
-            best, mirrored, _flags, _gmax = step(planes, *kargs)
+            with span("cds.launch"):
+                best, mirrored, _flags, _gmax = step(planes, *kargs)
         elif self.use_union_keys:
             sel_k = self._emit_select_k(top_k)
             if sel_k and sel_k < shard.t_pad:
                 # threshold-emit selection: pull only the [B, k] top-k;
                 # the dense rows stay on the device as the no-recompute
                 # fallback
-                sk, ik, mk, best, mirrored = \
-                    pixel_match.score_query_batch_union_keys_topk(
-                        shard.planes, *kargs, u2=u2, k=sel_k)
-                sk = sk.cpu().numpy()
+                with span("cds.launch"):
+                    sk, ik, mk, best, mirrored = \
+                        pixel_match.score_query_batch_union_keys_topk(
+                            shard.planes, *kargs, u2=u2, k=sel_k)
+                with span("cds.pull"):
+                    sk = sk.cpu().numpy()
                 if not self._topk_kth_emittable(sk[:, -1], batch):
                     del best, mirrored  # free the device buffers
-                    ik, mk = ik.cpu().numpy(), mk.cpu().numpy()
+                    with span("cds.pull"):
+                        ik, mk = ik.cpu().numpy(), mk.cpu().numpy()
                     _METRICS.add("cds.emitSelect.count", 1)
                     _METRICS.add("cds.dispatch.seconds",
                                  time.time() - t_disp0)
@@ -1089,11 +1166,14 @@ class CDSearchEngine:
                         session_ref_id)
                 _METRICS.add("cds.emitSelectFallback.count", 1)
             else:
-                best, mirrored = pixel_match.score_query_batch_union_keys(
-                    shard.planes, *kargs, u2=u2)
+                with span("cds.launch"):
+                    best, mirrored = \
+                        pixel_match.score_query_batch_union_keys(
+                            shard.planes, *kargs, u2=u2)
         else:
-            best, mirrored = pixel_match.score_query_batch_keys(
-                shard.planes, *kargs, n_straight=n_straight)
+            with span("cds.launch"):
+                best, mirrored = pixel_match.score_query_batch_keys(
+                    shard.planes, *kargs, n_straight=n_straight)
 
         # optional negative-query pass: the same kind of kernel over the
         # per-mask negative plans; the overall max (straight vs mirrored)
@@ -1107,65 +1187,72 @@ class CDSearchEngine:
         if neg_plans[0] is not None:
             ref = neg_plans[0]
             neg_on_mesh = on_mesh and shard.device_planes is not None
-            if use_keys:
-                neg_kargs = self._stacked_key_args(neg_plans, n_pixels)
-                if neg_on_mesh:
-                    nb, _nm, _nf, _g = self._keys_step(ref.n_straight)(
-                        shard.device_planes, *neg_kargs)
+            nf = None
+            with span("cds.launch"):
+                if use_keys:
+                    neg_kargs = self._stacked_key_args(neg_plans, n_pixels)
+                    if neg_on_mesh:
+                        nb, _nm, _nf, _g = self._keys_step(ref.n_straight)(
+                            shard.device_planes, *neg_kargs)
+                    else:
+                        nb, _nm = pixel_match.score_query_batch_keys(
+                            shard.planes, *neg_kargs,
+                            n_straight=ref.n_straight)
                 else:
-                    nb, _nm = pixel_match.score_query_batch_keys(
-                        shard.planes, *neg_kargs,
-                        n_straight=ref.n_straight)
-            else:
-                neg_args = self._stacked_plan_args(neg_plans)
-                neg_ztol = (ref.ztol_num, ref.ztol_den)
-                if neg_on_mesh:
-                    nb, _nm, nf, _g = self._sharded_step(
-                        ref.n_straight, neg_ztol, target_threshold=thr)(
-                            shard.device_planes, *neg_args)
-                else:
-                    nb, _nm, nf = pixel_match.score_query_batch(
-                        shard.planes, *neg_args, target_threshold=thr,
-                        ztol_num=neg_ztol[0], ztol_den=neg_ztol[1],
-                        n_straight=ref.n_straight)
-                neg_flags = pull(nf)[:, :shard.count]
-            neg_best = np.maximum(pull(nb), 0)[:, :shard.count]
+                    neg_args = self._stacked_plan_args(neg_plans)
+                    neg_ztol = (ref.ztol_num, ref.ztol_den)
+                    if neg_on_mesh:
+                        nb, _nm, nf, _g = self._sharded_step(
+                            ref.n_straight, neg_ztol, target_threshold=thr)(
+                                shard.device_planes, *neg_args)
+                    else:
+                        nb, _nm, nf = pixel_match.score_query_batch(
+                            shard.planes, *neg_args, target_threshold=thr,
+                            ztol_num=neg_ztol[0], ztol_den=neg_ztol[1],
+                            n_straight=ref.n_straight)
+            with span("cds.pull"):
+                if nf is not None:
+                    neg_flags = pull(nf)[:, :shard.count]
+                neg_best = np.maximum(pull(nb), 0)[:, :shard.count]
 
         # drop the zero-padded target columns (see _target_bucket); across
         # processes the pull keeps only this process's target columns
         # (zeros elsewhere), so each process emits its own share of the
         # matches and rescores only its own flagged pairs
-        best = pull(best)[:, :shard.count]
-        mirrored = pull(mirrored)[:, :shard.count]
-        pair_flags = (np.zeros_like(best) if pair_flags is None
-                      else pull(pair_flags)[:, :shard.count])
+        with span("cds.pull"):
+            best = pull(best)[:, :shard.count]
+            mirrored = pull(mirrored)[:, :shard.count]
+            pair_flags = (np.zeros_like(best) if pair_flags is None
+                          else pull(pair_flags)[:, :shard.count])
         _METRICS.add("cds.dispatch.seconds", time.time() - t_disp0)
-        t_emit0 = time.time()
 
         out: list[CDMatch] = []
-        for b, (mask, mask_rgb, region, plan, neg_plan) in enumerate(batch):
-            flags_b = pair_flags[b]
-            if neg_flags is not None and neg_plan is not None:
-                flags_b = flags_b + neg_flags[b]
-            # flagged pairs join the candidates even at fast score 0: the
-            # oracle rescore may flip them to a positive exact score
-            cand = np.flatnonzero((best[b] > 0) | (flags_b > 0))
-            if top_k > 0 and cand.size > top_k:
-                # interval-safe preselection: the exact score lies in
-                # [best - flags, best + flags]; keep every candidate
-                # whose upper bound reaches the k-th largest lower bound
-                # (the caller's final per-mask trim ranks exact scores)
-                lower = best[b][cand] - flags_b[cand]
-                upper = best[b][cand] + flags_b[cand]
-                kth = -np.partition(-lower, top_k - 1)[top_k - 1]
-                cand = cand[upper >= kth]
-            out.extend(self._emit_matches(
-                mask, mask_rgb, region, plan, shard, cand, best[b],
-                mirrored[b], flags_b, tags, session_ref_id,
-                neg_plan=neg_plan,
-                neg_best=None if neg_plan is None or neg_best is None
-                else neg_best[b]))
-        _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
+        with span("cds.emit"):
+            for b, (mask, mask_rgb, region, plan, neg_plan) in enumerate(
+                    batch):
+                flags_b = pair_flags[b]
+                if neg_flags is not None and neg_plan is not None:
+                    flags_b = flags_b + neg_flags[b]
+                # flagged pairs join the candidates even at fast score 0:
+                # the oracle rescore may flip them to a positive exact
+                # score
+                cand = np.flatnonzero((best[b] > 0) | (flags_b > 0))
+                if top_k > 0 and cand.size > top_k:
+                    # interval-safe preselection: the exact score lies in
+                    # [best - flags, best + flags]; keep every candidate
+                    # whose upper bound reaches the k-th largest lower
+                    # bound (the caller's final per-mask trim ranks exact
+                    # scores)
+                    lower = best[b][cand] - flags_b[cand]
+                    upper = best[b][cand] + flags_b[cand]
+                    kth = -np.partition(-lower, top_k - 1)[top_k - 1]
+                    cand = cand[upper >= kth]
+                out.extend(self._emit_matches(
+                    mask, mask_rgb, region, plan, shard, cand, best[b],
+                    mirrored[b], flags_b, tags, session_ref_id,
+                    neg_plan=neg_plan,
+                    neg_best=None if neg_plan is None or neg_best is None
+                    else neg_best[b]))
         return out
 
     def _emit_from_topk(self, batch, shard, scores_k, idx_k, mirr_k,
@@ -1175,22 +1262,21 @@ class CDSearchEngine:
         only those of its own target columns (per-process sharded writes,
         as the dense pull)."""
         out: list[CDMatch] = []
-        t_emit0 = time.time()
-        lmask = pmesh.local_target_mask(None, shard.t_pad)
-        for b, (mask, mask_rgb, region, plan, _neg) in enumerate(batch):
-            best = np.zeros(shard.count, scores_k.dtype)
-            mirrored = np.zeros(shard.count, bool)
-            flags = np.zeros(shard.count, flags_k.dtype)
-            keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0) \
-                & lmask[np.clip(idx_k[b], 0, shard.t_pad - 1)]
-            ti = idx_k[b][keep]
-            best[ti] = scores_k[b][keep]
-            mirrored[ti] = mirr_k[b][keep].astype(bool)
-            flags[ti] = flags_k[b][keep]
-            out.extend(self._emit_matches(
-                mask, mask_rgb, region, plan, shard, np.unique(ti), best,
-                mirrored, flags, tags, session_ref_id))
-        _METRICS.add("cds.emit.seconds", time.time() - t_emit0)
+        with _METRICS.span("cds.emit"):
+            lmask = pmesh.local_target_mask(None, shard.t_pad)
+            for b, (mask, mask_rgb, region, plan, _neg) in enumerate(batch):
+                best = np.zeros(shard.count, scores_k.dtype)
+                mirrored = np.zeros(shard.count, bool)
+                flags = np.zeros(shard.count, flags_k.dtype)
+                keep = (idx_k[b] < shard.count) & (idx_k[b] >= 0) \
+                    & lmask[np.clip(idx_k[b], 0, shard.t_pad - 1)]
+                ti = idx_k[b][keep]
+                best[ti] = scores_k[b][keep]
+                mirrored[ti] = mirr_k[b][keep].astype(bool)
+                flags[ti] = flags_k[b][keep]
+                out.extend(self._emit_matches(
+                    mask, mask_rgb, region, plan, shard, np.unique(ti),
+                    best, mirrored, flags, tags, session_ref_id))
         return out
 
     def _emit_matches(self, mask, mask_rgb, region, plan, shard,
@@ -1200,6 +1286,7 @@ class CDSearchEngine:
         p = self.params
         oracle = None  # built lazily, at the first flagged pair
         out: list[CDMatch] = []
+        _METRICS.add("cds.emitCandidates.count", len(candidates))
         for t_idx in candidates:
             if best[t_idx] <= 0 and pair_flags[t_idx] <= 0:
                 continue
@@ -1226,9 +1313,8 @@ class CDSearchEngine:
                         neg_query_rgb=self.neg_query_rgb,
                         neg_query_threshold=self.neg_query_threshold,
                         mirror_neg_query=self.mirror_neg_query)
-                t_r0 = time.time()
-                res = oracle.score(shard.host_rgb(t_idx))
-                _METRICS.add("cds.rescore.seconds", time.time() - t_r0)
+                with _METRICS.span("cds.rescore"):
+                    res = oracle.score(shard.host_rgb(t_idx))
                 _METRICS.add("cds.rescore.count", 1)
                 score, is_mirrored = res.matching_pixels, res.mirrored
                 ratio = res.matching_pixels_ratio
